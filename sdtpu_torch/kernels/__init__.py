@@ -1,0 +1,18 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Each wrapper runs its plain version for a tensor on the CPU and launches its
+CUDA kernel for a tensor on the card (it raises on anything else).  Every
+launch of a CUDA kernel adds one to its entry in ``launch_counts``; the
+plain versions count nothing.
+"""
+
+launch_counts = {
+    "conv3x3_slab": 0,
+    "conv3x3_slab_upsample": 0,
+    "flash_attention": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0

@@ -1,0 +1,417 @@
+"""Conditional UNet denoiser.
+
+Counterpart of ``sdtpu/models/unet.py`` for the layouts the txt2img slice
+runs: time MLP, resnets, Transformer2D attention blocks, stride-2
+downsamples, fused nearest-2x upsamples, an optional mid block, and the
+encoder/decoder wiring with channel-concat skips popped LIFO.
+
+Every resnet takes the slab-kernel path of the JAX package's TPU program
+(``unet.py:255-285``): conv1 is GN+SiLU+conv with its output moments, conv2
+is GN(+temb)+SiLU+conv with the shortcut as its residual and GN statistics
+from conv1's moments.  A resnet followed by an attention block hands that
+block its output moments for the block's GroupNorm.  The SDXL
+add-embedding and the LCM guidance embedding belong to the model-family
+slice and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sdtpu_torch.config import UNetConfig
+from sdtpu_torch.kernels.conv2d import gn_silu_conv3x3_slab
+from sdtpu_torch.ops import (
+    conv1x1_tokens,
+    conv2d,
+    group_norm,
+    init_conv2d,
+    init_linear,
+    init_norm,
+    init_transformer_block,
+    linear,
+    nearest_up_conv2d,
+    precompute_transformer_cross_kv,
+    silu,
+    timestep_embedding,
+    transformer_block,
+)
+
+
+def _check_family(config: UNetConfig) -> None:
+    if config.addition_embed_dim is not None or config.time_cond_proj_dim is not None:
+        raise NotImplementedError(
+            "SDXL add-embedding / LCM guidance embedding: model-family slice")
+
+
+def compute_time_embedding(
+    timesteps: torch.Tensor, params: dict, config: UNetConfig, *, batch: int, dtype
+) -> torch.Tensor:
+    """Sinusoidal embedding -> Linear -> SiLU -> Linear -> the SiLU every
+    resnet applies to it, hoisted."""
+    _check_family(config)
+    if timesteps.ndim == 0:
+        timesteps = timesteps.expand(batch)
+    temb = timestep_embedding(
+        timesteps, config.block_out_channels[0],
+        flip_sin_to_cos=config.flip_sin_to_cos, freq_shift=config.freq_shift,
+        dtype=dtype,
+    )
+    temb = linear(temb, params["time_embedding"]["linear_1"])
+    temb = silu(temb)
+    temb = linear(temb, params["time_embedding"]["linear_2"])
+    return silu(temb)
+
+
+def precompute_time_projections(
+    timesteps: torch.Tensor, params: dict, config: UNetConfig, *, batch: int,
+    dtype=torch.bfloat16,
+) -> dict:
+    """Every time-dependent projection for every step of a known timestep
+    sequence (T,), in one batched sweep:
+
+      {"temb": (T, batch, time_embed_dim),
+       "down": [[(T, batch, out_ch) per resnet] per level],
+       "mid": [(T, batch, ch)] * 2, "up": [[...] per level]}
+
+    Index step ``i`` with :func:`time_cache_step`."""
+    _check_family(config)
+    n = timesteps.shape[0]
+    temb = timestep_embedding(
+        timesteps.float(), config.block_out_channels[0],
+        flip_sin_to_cos=config.flip_sin_to_cos, freq_shift=config.freq_shift,
+        dtype=dtype,
+    )
+    temb = temb[:, None, :].expand(n, batch, temb.shape[-1])
+    temb = linear(temb, params["time_embedding"]["linear_1"])
+    temb = silu(temb)
+    temb = linear(temb, params["time_embedding"]["linear_2"])
+    temb = silu(temb)
+
+    def proj(r):
+        return linear(temb, r["time_emb_proj"])
+
+    cache = {"temb": temb, "down": [], "mid": [], "up": []}
+    for block in params["down_blocks"]:
+        cache["down"].append([proj(r) for r in block["resnets"]])
+    if config.mid_block:
+        cache["mid"] = [proj(r) for r in params["mid_block"]["resnets"]]
+    for block in params["up_blocks"]:
+        cache["up"].append([proj(r) for r in block["resnets"]])
+    return cache
+
+
+def time_cache_step(cache, i: int):
+    """Step ``i``'s slice of a :func:`precompute_time_projections` cache."""
+    if isinstance(cache, dict):
+        return {k: time_cache_step(v, i) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [time_cache_step(v, i) for v in cache]
+    return cache[i]
+
+
+def precompute_cross_kv(context: torch.Tensor, params: dict, config: UNetConfig) -> dict:
+    """Cross-attention K/V for every transformer block, mirroring
+    ``unet_forward``'s traversal; computed once per generation."""
+
+    def block_kv(attn_params):
+        return [precompute_transformer_cross_kv(context, b) for b in attn_params["blocks"]]
+
+    cache = {"down": [], "mid": [], "up": []}
+    for block in params["down_blocks"]:
+        cache["down"].append([block_kv(a) for a in block.get("attentions", [])])
+    if config.mid_block:
+        cache["mid"] = [block_kv(a) for a in params["mid_block"]["attentions"]]
+    for block in params["up_blocks"]:
+        cache["up"].append([block_kv(a) for a in block.get("attentions", [])])
+    return cache
+
+
+def _shortcut(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """The resnet's 1x1 skip projection, as a token matmul."""
+    if "conv_shortcut" not in params:
+        return x
+    return conv1x1_tokens(x, params["conv_shortcut"])
+
+
+def resnet_block(
+    x: torch.Tensor,
+    temb: torch.Tensor,
+    params: dict,
+    *,
+    num_groups: int = 32,
+    t_pre: Optional[torch.Tensor] = None,
+    emit_stats: bool = False,
+):
+    """Resnet: GN -> SiLU -> conv1; + time projection; GN -> SiLU -> conv2;
+    + shortcut.  ``temb`` is already SiLU'd; ``t_pre`` the precomputed
+    (B, C_out) time projection.  ``emit_stats=True`` returns ``(out,
+    moments)``, the per-channel output moments for the next GroupNorm."""
+    t = linear(temb, params["time_emb_proj"]) if t_pre is None else t_pre
+    c1, c2 = params["conv1"], params["conv2"]
+    h, hstats = gn_silu_conv3x3_slab(
+        x, params["norm1"], c1["kernel"].to(x.dtype), c1["bias"],
+        num_groups=num_groups, emit_stats=True,
+    )
+    return gn_silu_conv3x3_slab(
+        h, params["norm2"], c2["kernel"].to(x.dtype), c2["bias"],
+        num_groups=num_groups, temb=t, residual=_shortcut(x, params),
+        stats=hstats, emit_stats=emit_stats,
+    )
+
+
+def attention_block(
+    x: torch.Tensor,
+    context: torch.Tensor,
+    params: dict,
+    *,
+    num_heads: int,
+    num_groups: int = 32,
+    implementation: str = "flash",
+    cross_kv: Optional[list] = None,
+    stats=None,
+) -> torch.Tensor:
+    """Transformer2D: GN(eps 1e-6, from the producer's ``stats`` when given)
+    -> proj_in -> transformer blocks -> proj_out -> + residual."""
+    b, h, w, c = x.shape
+    out = group_norm(x, params["norm"], num_groups=num_groups, eps=1e-6, stats=stats)
+    out = linear(out.reshape(b, h * w, c), params["proj_in"])
+    for i, block in enumerate(params["blocks"]):
+        out = transformer_block(
+            out, block, num_heads=num_heads, context=context,
+            implementation=implementation,
+            cross_kv=None if cross_kv is None else cross_kv[i],
+        )
+    out = linear(out, params["proj_out"])
+    return out.reshape(b, h, w, c) + x
+
+
+def downsample(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Stride-2 3x3 conv."""
+    return conv2d(x, params["kernel"], params["bias"], stride=2, padding=1)
+
+
+def upsample(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Nearest 2x + 3x3 conv, fused in the slab kernel's upsample mode."""
+    return nearest_up_conv2d(x, params["kernel"].to(x.dtype), params["bias"])
+
+
+def _heads_for_level(config: UNetConfig, channels: int) -> int:
+    """A fixed head count per level, or head_dim 64 when the config holds
+    the 0 sentinel (SD 2.x / SDXL)."""
+    if config.num_attention_heads > 0:
+        return config.num_attention_heads
+    return channels // 64
+
+
+def unet_forward(
+    latents: torch.Tensor,
+    timesteps: torch.Tensor,
+    context: torch.Tensor,
+    params: dict,
+    config: UNetConfig,
+    *,
+    attention_impl: str = "flash",
+    cross_kv: Optional[dict] = None,
+    time_cache: Optional[dict] = None,
+) -> torch.Tensor:
+    """Predict noise.  latents: (B, H, W, C_in); timesteps: (B,) or scalar;
+    context: (B, L, cross_attention_dim).  ``time_cache``: one step's slice
+    of :func:`precompute_time_projections` (then ``timesteps`` is unused)."""
+    if time_cache is not None:
+        temb = time_cache["temb"]
+    else:
+        temb = compute_time_embedding(
+            timesteps, params, config, batch=latents.shape[0], dtype=latents.dtype)
+    x, skips = unet_encode(
+        latents, temb, context, params, config, attention_impl=attention_impl,
+        cross_kv=cross_kv, time_proj=time_cache,
+    )
+    return unet_decode(
+        x, skips, temb, context, params, config, attention_impl=attention_impl,
+        cross_kv=cross_kv, time_proj=time_cache,
+    )
+
+
+def unet_encode(
+    latents: torch.Tensor,
+    temb: torch.Tensor,
+    context: torch.Tensor,
+    params: dict,
+    config: UNetConfig,
+    *,
+    attention_impl: str = "flash",
+    cross_kv: Optional[dict] = None,
+    time_proj: Optional[dict] = None,
+) -> tuple:
+    """Encoder + mid block: returns ``(x, skips)``."""
+    tp = time_proj
+    ng = config.norm_num_groups
+    context = context.to(latents.dtype)
+    x = conv2d(latents, params["conv_in"]["kernel"], params["conv_in"]["bias"], padding=1)
+    skips = [x]
+    for level, block in enumerate(params["down_blocks"]):
+        heads = _heads_for_level(config, config.block_out_channels[level])
+        has_attn = config.attention_levels[level]
+        for i, res in enumerate(block["resnets"]):
+            x = resnet_block(x, temb, res, num_groups=ng,
+                             t_pre=None if tp is None else tp["down"][level][i],
+                             emit_stats=has_attn)
+            if has_attn:
+                x, rstats = x
+                x = attention_block(
+                    x, context, block["attentions"][i], num_heads=heads,
+                    num_groups=ng, implementation=attention_impl,
+                    cross_kv=None if cross_kv is None else cross_kv["down"][level][i],
+                    stats=rstats,
+                )
+            skips.append(x)
+        if "downsample" in block:
+            x = downsample(x, block["downsample"])
+            skips.append(x)
+    if config.mid_block:
+        mid = params["mid_block"]
+        heads = _heads_for_level(config, config.block_out_channels[-1])
+        x, rstats = resnet_block(x, temb, mid["resnets"][0], num_groups=ng,
+                                 t_pre=None if tp is None else tp["mid"][0],
+                                 emit_stats=True)
+        x = attention_block(
+            x, context, mid["attentions"][0], num_heads=heads, num_groups=ng,
+            implementation=attention_impl,
+            cross_kv=None if cross_kv is None else cross_kv["mid"][0],
+            stats=rstats,
+        )
+        x = resnet_block(x, temb, mid["resnets"][1], num_groups=ng,
+                         t_pre=None if tp is None else tp["mid"][1])
+    return x, tuple(skips)
+
+
+def unet_decode(
+    x: torch.Tensor,
+    skips,
+    temb: torch.Tensor,
+    context: torch.Tensor,
+    params: dict,
+    config: UNetConfig,
+    *,
+    attention_impl: str = "flash",
+    cross_kv: Optional[dict] = None,
+    time_proj: Optional[dict] = None,
+) -> torch.Tensor:
+    """Decoder + output head, consuming :func:`unet_encode`'s output."""
+    tp = time_proj
+    ng = config.norm_num_groups
+    context = context.to(x.dtype)
+    skips = list(skips)
+    for rev, block in enumerate(params["up_blocks"]):
+        level = config.num_levels - 1 - rev
+        heads = _heads_for_level(config, config.block_out_channels[level])
+        has_attn = config.attention_levels[level]
+        for i, res in enumerate(block["resnets"]):
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = resnet_block(x, temb, res, num_groups=ng,
+                             t_pre=None if tp is None else tp["up"][rev][i],
+                             emit_stats=has_attn)
+            if has_attn:
+                x, rstats = x
+                x = attention_block(
+                    x, context, block["attentions"][i], num_heads=heads,
+                    num_groups=ng, implementation=attention_impl,
+                    cross_kv=None if cross_kv is None else cross_kv["up"][rev][i],
+                    stats=rstats,
+                )
+        if "upsample" in block:
+            x = upsample(x, block["upsample"])
+    x = silu(group_norm(x, params["norm_out"], num_groups=ng))
+    return conv2d(x, params["conv_out"]["kernel"], params["conv_out"]["bias"], padding=1)
+
+
+def _init_resnet(gen, in_ch, out_ch, time_dim, *, dtype):
+    params = {
+        "norm1": init_norm(gen, in_ch, dtype=dtype),
+        "conv1": init_conv2d(gen, in_ch, out_ch, 3, dtype=dtype),
+        "time_emb_proj": init_linear(gen, time_dim, out_ch, dtype=dtype),
+        "norm2": init_norm(gen, out_ch, dtype=dtype),
+        "conv2": init_conv2d(gen, out_ch, out_ch, 3, dtype=dtype),
+    }
+    if in_ch != out_ch:
+        params["conv_shortcut"] = init_conv2d(gen, in_ch, out_ch, 1, dtype=dtype)
+    return params
+
+
+def _init_attn_block(gen, ch, depth, context_dim, *, dtype):
+    return {
+        "norm": init_norm(gen, ch, dtype=dtype),
+        "proj_in": init_linear(gen, ch, ch, dtype=dtype),
+        "blocks": [init_transformer_block(gen, ch, context_dim=context_dim, dtype=dtype)
+                   for _ in range(depth)],
+        "proj_out": init_linear(gen, ch, ch, dtype=dtype),
+    }
+
+
+def init_unet(gen: torch.Generator, config: UNetConfig, *, dtype=torch.float32) -> dict:
+    """Random parameters with the JAX package's tree, shapes and bounds."""
+    _check_family(config)
+    time_dim = config.time_embed_dim
+    ch0 = config.block_out_channels[0]
+    params = {
+        "conv_in": init_conv2d(gen, config.in_channels, ch0, 3, dtype=dtype),
+        "time_embedding": {
+            "linear_1": init_linear(gen, ch0, time_dim, dtype=dtype),
+            "linear_2": init_linear(gen, time_dim, time_dim, dtype=dtype),
+        },
+    }
+
+    def attn(ch, level):
+        return _init_attn_block(gen, ch, config.transformer_layers_per_block[level],
+                                config.cross_attention_dim, dtype=dtype)
+
+    down_blocks, out_ch = [], ch0
+    for level, ch in enumerate(config.block_out_channels):
+        block = {"resnets": [], "attentions": []}
+        for _ in range(config.layers_per_block):
+            block["resnets"].append(_init_resnet(gen, out_ch, ch, time_dim, dtype=dtype))
+            out_ch = ch
+            if config.attention_levels[level]:
+                block["attentions"].append(attn(ch, level))
+        if level < config.num_levels - 1:
+            block["downsample"] = init_conv2d(gen, ch, ch, 3, dtype=dtype)
+        if not block["attentions"]:
+            del block["attentions"]
+        down_blocks.append(block)
+    params["down_blocks"] = down_blocks
+
+    if config.mid_block:
+        ch = config.block_out_channels[-1]
+        params["mid_block"] = {
+            "resnets": [_init_resnet(gen, ch, ch, time_dim, dtype=dtype),
+                        _init_resnet(gen, ch, ch, time_dim, dtype=dtype)],
+            "attentions": [attn(ch, config.num_levels - 1)],
+        }
+
+    skip_chs = [ch0]
+    for level, ch in enumerate(config.block_out_channels):
+        skip_chs.extend([ch] * config.layers_per_block)
+        if level < config.num_levels - 1:
+            skip_chs.append(ch)
+    up_blocks, prev_ch = [], config.block_out_channels[-1]
+    for rev in range(config.num_levels):
+        level = config.num_levels - 1 - rev
+        ch = config.block_out_channels[level]
+        block = {"resnets": [], "attentions": []}
+        for _ in range(config.layers_per_block + 1):
+            block["resnets"].append(
+                _init_resnet(gen, prev_ch + skip_chs.pop(), ch, time_dim, dtype=dtype))
+            prev_ch = ch
+            if config.attention_levels[level]:
+                block["attentions"].append(attn(ch, level))
+        if level > 0:
+            block["upsample"] = init_conv2d(gen, ch, ch, 3, dtype=dtype)
+        if not block["attentions"]:
+            del block["attentions"]
+        up_blocks.append(block)
+    params["up_blocks"] = up_blocks
+    params["norm_out"] = init_norm(gen, ch0, dtype=dtype)
+    params["conv_out"] = init_conv2d(gen, ch0, config.out_channels, 3, dtype=dtype)
+    return params

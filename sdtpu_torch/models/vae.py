@@ -1,0 +1,142 @@
+"""VAE decoder (AutoencoderKL).
+
+Counterpart of the decoder half of ``sdtpu/models/vae.py``: /scaling ->
+1x1 post-quant conv -> conv_in -> mid (resnet, single-head attention,
+resnet) -> up blocks (resnets + fused nearest-2x upsample conv) ->
+GN/SiLU/conv_out.  Resnets take the slab-kernel path, and the GroupNorm
+statistics chain through the up blocks from each producing kernel's
+moments, as in the JAX package's TPU program (``vae.py:245-264``).  The
+encoder belongs to the img2img slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdtpu_torch.config import VAEConfig
+from sdtpu_torch.kernels.conv2d import gn_silu_conv3x3_slab
+from sdtpu_torch.ops import (
+    attention,
+    conv1x1_tokens,
+    conv2d,
+    group_norm,
+    init_attention,
+    init_conv2d,
+    init_norm,
+    nearest_up_conv2d,
+    silu,
+)
+
+
+def _shortcut(x: torch.Tensor, params: dict) -> torch.Tensor:
+    if "conv_shortcut" not in params:
+        return x
+    return conv1x1_tokens(x, params["conv_shortcut"])
+
+
+def vae_resnet(
+    x: torch.Tensor, params: dict, *, num_groups: int = 32, stats=None,
+    emit_stats: bool = False,
+):
+    """Resnet without the time branch (eps 1e-6).  ``stats``: producer
+    moments of ``x`` for norm1 (ignored if the channel count differs);
+    ``emit_stats=True`` returns ``(out, moments)`` of the post-residual
+    output."""
+    if stats is not None and stats.shape[-1] != x.shape[-1]:
+        stats = None
+    c1, c2 = params["conv1"], params["conv2"]
+    h, hstats = gn_silu_conv3x3_slab(
+        x, params["norm1"], c1["kernel"].to(x.dtype), c1["bias"],
+        num_groups=num_groups, eps=1e-6, stats=stats, emit_stats=True,
+    )
+    return gn_silu_conv3x3_slab(
+        h, params["norm2"], c2["kernel"].to(x.dtype), c2["bias"],
+        num_groups=num_groups, eps=1e-6, residual=_shortcut(x, params),
+        stats=hstats, emit_stats=emit_stats,
+    )
+
+
+def vae_attention(
+    x: torch.Tensor, params: dict, *, num_groups: int = 32,
+    implementation: str = "flash", stats=None,
+) -> torch.Tensor:
+    """GN -> single-head self-attention over the spatial tokens -> residual."""
+    b, h, w, c = x.shape
+    out = group_norm(x, params["norm"], num_groups=num_groups, eps=1e-6, stats=stats)
+    out = attention(out.reshape(b, h * w, c), params["attn"], num_heads=1,
+                    implementation=implementation, residual=x.reshape(b, h * w, c))
+    return out.reshape(b, h, w, c)
+
+
+def _mid(x: torch.Tensor, params: dict, *, num_groups: int,
+         implementation: str = "flash") -> torch.Tensor:
+    x, st = vae_resnet(x, params["resnets"][0], num_groups=num_groups, emit_stats=True)
+    x = vae_attention(x, params["attention"], num_groups=num_groups,
+                      implementation=implementation, stats=st)
+    return vae_resnet(x, params["resnets"][1], num_groups=num_groups)
+
+
+def vae_decode(
+    latents: torch.Tensor, params: dict, config: VAEConfig, *,
+    attention_impl: str = "flash",
+) -> torch.Tensor:
+    """(B, H/8, W/8, latent) -> (B, H, W, 3) image in [-1, 1]."""
+    ng = config.norm_num_groups
+    h = latents / config.scaling_factor
+    h = conv2d(h, params["post_quant_conv"]["kernel"], params["post_quant_conv"]["bias"])
+    h = conv2d(h, params["conv_in"]["kernel"], params["conv_in"]["bias"], padding=1)
+    h = _mid(h, params["mid_block"], num_groups=ng, implementation=attention_impl)
+    st = None
+    for block in params["up_blocks"]:
+        for res in block["resnets"]:
+            h, st = vae_resnet(h, res, num_groups=ng, stats=st, emit_stats=True)
+        if "upsample" in block:
+            h, st = nearest_up_conv2d(
+                h, block["upsample"]["kernel"].to(h.dtype), block["upsample"]["bias"],
+                emit_stats=True)
+    h = silu(group_norm(h, params["norm_out"], num_groups=ng, eps=1e-6, stats=st))
+    return conv2d(h, params["conv_out"]["kernel"], params["conv_out"]["bias"], padding=1)
+
+
+def _init_vae_resnet(gen, in_ch, out_ch, *, dtype):
+    params = {
+        "norm1": init_norm(gen, in_ch, dtype=dtype),
+        "conv1": init_conv2d(gen, in_ch, out_ch, 3, dtype=dtype),
+        "norm2": init_norm(gen, out_ch, dtype=dtype),
+        "conv2": init_conv2d(gen, out_ch, out_ch, 3, dtype=dtype),
+    }
+    if in_ch != out_ch:
+        params["conv_shortcut"] = init_conv2d(gen, in_ch, out_ch, 1, dtype=dtype)
+    return params
+
+
+def init_vae_decoder(gen: torch.Generator, config: VAEConfig, *, dtype=torch.float32) -> dict:
+    """Random decoder parameters with the JAX package's tree and bounds."""
+    chs = config.block_out_channels
+    params = {
+        "post_quant_conv": init_conv2d(gen, config.latent_channels,
+                                       config.latent_channels, 1, dtype=dtype),
+        "conv_in": init_conv2d(gen, config.latent_channels, chs[-1], 3, dtype=dtype),
+        "mid_block": {
+            "resnets": [_init_vae_resnet(gen, chs[-1], chs[-1], dtype=dtype),
+                        _init_vae_resnet(gen, chs[-1], chs[-1], dtype=dtype)],
+            "attention": {
+                "norm": init_norm(gen, chs[-1], dtype=dtype),
+                "attn": init_attention(gen, chs[-1], qkv_bias=True, dtype=dtype),
+            },
+        },
+    }
+    up_blocks, in_ch = [], chs[-1]
+    for rev, ch in enumerate(reversed(chs)):
+        block = {"resnets": [
+            _init_vae_resnet(gen, in_ch if i == 0 else ch, ch, dtype=dtype)
+            for i in range(config.layers_per_block + 1)
+        ]}
+        in_ch = ch
+        if rev < len(chs) - 1:
+            block["upsample"] = init_conv2d(gen, ch, ch, 3, dtype=dtype)
+        up_blocks.append(block)
+    params["up_blocks"] = up_blocks
+    params["norm_out"] = init_norm(gen, chs[0], dtype=dtype)
+    params["conv_out"] = init_conv2d(gen, chs[0], config.out_channels, 3, dtype=dtype)
+    return params

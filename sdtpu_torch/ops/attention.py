@@ -1,0 +1,160 @@
+"""Multi-head attention and the SD transformer block.
+
+Counterpart of ``sdtpu/ops/attention.py``.  Latent self-attention
+(``implementation="flash"``, non-causal, no context) runs through the flash
+kernel with the head split done by the projections, which emit q/k/v
+head-major at the real head dim.  Cross-attention to the 77 text tokens and
+CLIP's causal attention stay dense: a matmul for the logits in float32, an
+f32 softmax, the weights cast to v's dtype, and a float32-accumulated P.V.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sdtpu_torch.kernels.flash_attention import flash_attention_packed
+from sdtpu_torch.ops.activations import geglu
+from sdtpu_torch.ops.linear import init_linear, linear
+from sdtpu_torch.ops.norm import init_norm, layer_norm
+
+
+def attention(
+    x: torch.Tensor,
+    params: dict,
+    *,
+    num_heads: int,
+    context: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    implementation: str = "dense",
+    kv_cache: Optional[dict] = None,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head (self or cross) attention; x: (B, Lq, D), context:
+    (B, Lk, Dctx) or None.  ``kv_cache``: precomputed cross-attention
+    ``{"k", "v"}`` (B, Lk, D).  ``residual`` is added to the output."""
+    b, lq, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"width {d} not divisible by {num_heads} heads")
+    head_dim = d // num_heads
+    if implementation == "flash" and not causal and context is None:
+        return _flash_attention_fused_projections(
+            x, params, num_heads=num_heads, head_dim=head_dim, residual=residual)
+    if implementation not in ("dense", "flash"):
+        raise ValueError(f"unknown attention implementation {implementation!r}")
+
+    ctx = x if context is None else context
+    q = linear(x, params["q"]).reshape(b, lq, num_heads, head_dim)
+    if kv_cache is not None:
+        k, v = kv_cache["k"], kv_cache["v"]
+    else:
+        k, v = linear(ctx, params["k"]), linear(ctx, params["v"])
+    k = k.reshape(b, k.shape[1], num_heads, head_dim)
+    v = v.reshape(b, v.shape[1], num_heads, head_dim)
+    out = _dense_attention(q, k, v, causal=causal).reshape(b, lq, d)
+    out = linear(out, params["out"])
+    return out if residual is None else residual + out
+
+
+def _flash_attention_fused_projections(
+    x: torch.Tensor, params: dict, *, num_heads: int, head_dim: int,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Self-attention through the flash kernel: the q/k/v projections emit
+    (B, H, L, Dh), the kernel returns (B, H, L, Dh), and the out-projection
+    contracts heads and head dim with a (H, Dh, C) view of its kernel."""
+    b, l, c = x.shape
+
+    def head_proj(p):
+        out = linear(x, p).reshape(b, l, num_heads, head_dim)
+        return out.permute(0, 2, 1, 3).contiguous()
+
+    o = flash_attention_packed(head_proj(params["q"]), head_proj(params["k"]),
+                               head_proj(params["v"]))
+    po = params["out"]
+    wo = po["kernel"].to(x.dtype).reshape(num_heads, head_dim, c)
+    out = torch.einsum("bhld,hdc->blc", o, wo)
+    if "bias" in po:
+        out = out + po["bias"].to(out.dtype)
+    return out if residual is None else residual + out
+
+
+def _dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """(B, L, H, Dh) inputs; f32 logits and softmax; P cast to v.dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        lq, lk = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def init_attention(
+    gen: torch.Generator,
+    dim: int,
+    *,
+    context_dim: Optional[int] = None,
+    qkv_bias: bool = True,
+    out_bias: bool = True,
+    dtype=torch.float32,
+) -> dict:
+    ctx = dim if context_dim is None else context_dim
+    return {
+        "q": init_linear(gen, dim, dim, use_bias=qkv_bias, dtype=dtype),
+        "k": init_linear(gen, ctx, dim, use_bias=qkv_bias, dtype=dtype),
+        "v": init_linear(gen, ctx, dim, use_bias=qkv_bias, dtype=dtype),
+        "out": init_linear(gen, dim, dim, use_bias=out_bias, dtype=dtype),
+    }
+
+
+def transformer_block(
+    x: torch.Tensor,
+    params: dict,
+    *,
+    num_heads: int,
+    context: torch.Tensor,
+    implementation: str = "dense",
+    cross_kv: Optional[dict] = None,
+) -> torch.Tensor:
+    """BasicTransformerBlock: LN -> self-attn -> LN -> cross-attn -> LN ->
+    GeGLU feed-forward, each with its residual."""
+    h = layer_norm(x, params["norm1"])
+    x = attention(h, params["attn1"], num_heads=num_heads,
+                  implementation=implementation, residual=x)
+    h = layer_norm(x, params["norm2"])
+    x = attention(h, params["attn2"], num_heads=num_heads, context=context,
+                  implementation=implementation, kv_cache=cross_kv, residual=x)
+    h = layer_norm(x, params["norm3"])
+    h = geglu(linear(h, params["ff"]["proj"]))
+    return x + linear(h, params["ff"]["out"])
+
+
+def precompute_transformer_cross_kv(context: torch.Tensor, params: dict) -> dict:
+    """Cross-attention K/V of one transformer block (constant over the
+    denoise loop)."""
+    return {
+        "k": linear(context, params["attn2"]["k"]),
+        "v": linear(context, params["attn2"]["v"]),
+    }
+
+
+def init_transformer_block(
+    gen: torch.Generator, dim: int, *, context_dim: int, dtype=torch.float32
+) -> dict:
+    mult = 4
+    return {
+        "norm1": init_norm(gen, dim, dtype=dtype),
+        "attn1": init_attention(gen, dim, qkv_bias=False, dtype=dtype),
+        "norm2": init_norm(gen, dim, dtype=dtype),
+        "attn2": init_attention(gen, dim, context_dim=context_dim,
+                                qkv_bias=False, dtype=dtype),
+        "norm3": init_norm(gen, dim, dtype=dtype),
+        "ff": {
+            "proj": init_linear(gen, dim, 2 * mult * dim, dtype=dtype),
+            "out": init_linear(gen, mult * dim, dim, dtype=dtype),
+        },
+    }

@@ -1,0 +1,227 @@
+"""Text-to-image pipeline.
+
+Counterpart of ``sdtpu/pipeline/pipeline.py`` for txt2img with DDPM and
+classifier-free guidance.  The JAX package compiles the whole request into
+one program; here it runs eagerly, in the same order:
+
+1. CLIP on the token rows, ordered ``[cond..., uncond...]`` under CFG;
+2. the cross-attention K/V of every transformer block and every time
+   projection of every step, computed once before the loop;
+3. per step: the latents doubled for CFG -> ``unet_forward`` -> CFG
+   combine -> ``ddpm_step`` with that step's noise;
+4. ``vae_decode`` and the uint8 conversion, on the device.
+
+``generate(seed=)`` draws the initial latents and then the per-step noise
+from one ``torch.Generator`` on the device; it does not reproduce
+``jax.random``'s bits.  ``txt2img`` takes both as explicit tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from sdtpu_torch.config import PipelineConfig, get_preset
+from sdtpu_torch.models.clip import clip_encode_windows
+from sdtpu_torch.models.unet import (
+    precompute_cross_kv,
+    precompute_time_projections,
+    time_cache_step,
+    unet_forward,
+)
+from sdtpu_torch.models.vae import vae_decode
+from sdtpu_torch.samplers import get_sampler
+from sdtpu_torch.utils.image import to_uint8
+
+
+class StableDiffusionPipeline:
+    """Tokenize on the host -> encode, denoise and decode on ``device``."""
+
+    def __init__(self, config: PipelineConfig, params: dict, tokenizer=None,
+                 *, device="cuda"):
+        if config.attention_impl not in ("auto", "flash") or config.conv_impl not in (
+                "auto", "gemm"):
+            raise NotImplementedError(
+                "the port runs the flash-attention and slab-conv kernel routes only "
+                f"(got attention_impl={config.attention_impl!r}, "
+                f"conv_impl={config.conv_impl!r})")
+        self.config = config
+        self.params = params
+        self.tokenizer = tokenizer
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_random(cls, preset: Union[str, PipelineConfig], *, seed: int = 0,
+                    device="cuda", tokenizer=None) -> "StableDiffusionPipeline":
+        """Seeded random weights (benchmarks and tests: speed does not depend
+        on the weight values)."""
+        from sdtpu_torch.utils.weights import init_pipeline_params
+
+        config = preset if isinstance(preset, PipelineConfig) else get_preset(preset)
+        return cls(config, init_pipeline_params(seed, config, device=device),
+                   tokenizer, device=device)
+
+    @classmethod
+    def from_params(cls, config: PipelineConfig, numpy_tree: dict, *, device="cuda",
+                    tokenizer=None) -> "StableDiffusionPipeline":
+        """The JAX package's parameter tree, as numpy arrays."""
+        from sdtpu_torch.utils.weights import params_from_numpy
+
+        return cls(config, params_from_numpy(numpy_tree, device=device), tokenizer,
+                   device=device)
+
+    def generate(
+        self,
+        prompt: str = "",
+        negative_prompt: str = "",
+        *,
+        cfg: Optional[bool] = None,
+        cfg_scale: Optional[float] = None,
+        num_inference_steps: Optional[int] = None,
+        seed: int = 0,
+        image_size: Optional[int] = None,
+        token_ids: Optional[np.ndarray] = None,
+        sampler: Optional[str] = None,
+        num_images: int = 1,
+        latents: Optional[np.ndarray] = None,
+        output: str = "uint8",
+        clip_skip: int = 0,
+        init_image=None,
+        mask_image=None,
+        control_image=None,
+        prompt_weighting: bool = False,
+        pag_scale: float = 0.0,
+        freeu=None,
+        encoder_cache_interval: int = 1,
+    ):
+        """Text -> image.  ``token_ids`` bypasses the tokenizer (one cond row,
+        or cond and uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the
+        drawn initial noise.  ``output``: "uint8" (B, H, W, 3) numpy,
+        "float" ([-1, 1] numpy) or "latents"."""
+        later = {
+            "init_image": (init_image is not None, "img2img/inpainting slice"),
+            "mask_image": (mask_image is not None, "img2img/inpainting slice"),
+            "control_image": (control_image is not None, "ControlNet slice"),
+            "prompt_weighting": (bool(prompt_weighting), "features slice"),
+            "pag_scale": (pag_scale != 0.0, "features slice"),
+            "freeu": (freeu is not None, "features slice"),
+            "encoder_cache_interval": (encoder_cache_interval != 1, "features slice"),
+            "num_images": (num_images != 1, "batching/serving slice (generate_batch)"),
+        }
+        for name, (used, where) in later.items():
+            if used:
+                raise NotImplementedError(f"generate({name}=...) belongs to the {where}")
+        cfg = self.config.default_cfg if cfg is None else cfg
+        cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
+        steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
+        get_sampler(sampler or self.config.default_sampler)  # raises if not ported
+        if steps < 1:
+            raise ValueError("num_inference_steps must be >= 1")
+        size = image_size or self.config.default_image_size
+        f = self.config.vae.downscale_factor
+        if size <= 0 or size % f:
+            raise ValueError(f"image_size must be a positive multiple of {f}")
+        if output not in ("uint8", "float", "latents"):
+            raise ValueError(f"unknown output {output!r}")
+
+        ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
+        batch = ids.shape[0] // 2 if cfg else ids.shape[0]
+        shape = (batch, size // f, size // f, self.config.vae.latent_channels)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        if latents is None:
+            lat0 = torch.randn(shape, generator=gen, device=self.device)
+        else:
+            lat0 = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
+            if lat0.ndim == 3:
+                lat0 = lat0[None]
+        noise = torch.randn((steps, *lat0.shape), generator=gen, device=self.device)
+        return self.txt2img(ids, lat0, noise, cfg=cfg, cfg_scale=cfg_scale,
+                            output=output, clip_skip=clip_skip)
+
+    def generate_batch(self, *args, **kwargs):
+        raise NotImplementedError("generate_batch belongs to the batching/serving slice")
+
+    @torch.inference_mode()
+    def txt2img(self, ids, latents: torch.Tensor, noise: torch.Tensor, *, cfg: bool,
+                cfg_scale: float, output: str = "uint8", clip_skip: int = 0):
+        """The whole request with its noise given: ``ids`` (rows, L) token
+        ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
+        float32 initial noise, ``noise`` (steps, B, h, w, 4) float32 DDPM
+        variance noise, one slice per step."""
+        cdt = self.config.compute_dtype
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=self.device)
+        hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
+                                        clip_skip=clip_skip)
+        context = hidden.to(cdt)
+        steps = noise.shape[0]
+        schedule = get_sampler("ddpm").make_schedule(
+            self.config.scheduler, steps, device=self.device)
+        lat = self.denoise(context, latents.float(), noise, schedule, cfg=cfg,
+                           cfg_scale=cfg_scale)
+        if output == "latents":
+            return lat.float().cpu().numpy()
+        img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae).float()
+        if output == "float":
+            return img.cpu().numpy()
+        return to_uint8(img).cpu().numpy()
+
+    def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float):
+        """The DDPM loop; ``context`` is (2B, L, D) under CFG, else (B, L, D)."""
+        ucfg = self.config.unet
+        unet = self.params["unet"]
+        cdt = self.config.compute_dtype
+        batch = latents.shape[0]
+        model_batch = 2 * batch if cfg else batch
+        cross_kv = precompute_cross_kv(context, unet, ucfg)
+        time_cache = precompute_time_projections(
+            schedule.timesteps, unet, ucfg, batch=model_batch, dtype=cdt)
+        sampler = get_sampler("ddpm")
+        lat = latents
+        for i in range(schedule.num_steps):
+            lat_in = torch.cat([lat, lat]) if cfg else lat
+            eps = unet_forward(
+                lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
+                cross_kv=cross_kv, time_cache=time_cache_step(time_cache, i),
+            ).float()
+            if cfg:
+                cond, uncond = eps[:batch], eps[batch:]
+                eps = uncond + cfg_scale * (cond - uncond)
+            lat = sampler.step(schedule, i, lat, eps, noise[i])
+        return lat
+
+    def _uncond_row(self) -> np.ndarray:
+        """BOS then EOS padding: the empty prompt's row for CFG's
+        unconditional branch when only the cond row was given."""
+        vocab = self.config.text_config.vocab_size
+        row = np.full((self.config.text_config.max_length,), vocab - 1, dtype=np.int64)
+        row[0] = vocab - 2
+        return row
+
+    def _tokenize(self, prompt, negative_prompt, cfg, token_ids) -> np.ndarray:
+        max_len = self.config.text_config.max_length
+        if token_ids is not None:
+            ids = np.asarray(token_ids)
+            if ids.ndim == 1:
+                ids = ids[None]
+        else:
+            if self.tokenizer is None:
+                raise ValueError("no tokenizer installed: pass token_ids")
+            texts = [prompt] + ([negative_prompt] if cfg else [])
+            enc = [self.tokenizer.encode_long(t, window=max_len) for t in texts]
+            n = max(len(e) // max_len for e in enc)
+            ids = np.asarray([
+                e if len(e) == n * max_len
+                else self.tokenizer.encode_long(t, window=max_len, num_windows=n)
+                for e, t in zip(enc, texts)
+            ])
+        if cfg and ids.shape[0] == 1:
+            n = ids.shape[1] // max_len
+            if self.tokenizer is not None:
+                neg = self.tokenizer.encode_long(negative_prompt, window=max_len,
+                                                 num_windows=n)
+                ids = np.concatenate([ids, np.asarray(neg)[None]], axis=0)
+            else:
+                ids = np.concatenate([ids, np.tile(self._uncond_row(), n)[None]], axis=0)
+        return np.asarray(ids, dtype=np.int32)

@@ -1,0 +1,284 @@
+"""The port's kernels (``sdtpu_torch.kernels``) against the JAX package's
+Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; here that version
+is held against the Pallas kernel run as ``tests/test_kernels.py`` runs it
+(``interpret=True`` with explicit tiles).  Tolerances:
+
+* float32: about 1e-5 -- the same function with float32 accumulation, the
+  two differing only in summation order;
+* bfloat16: max |port - jax| <= 2e-2 * max |jax| -- both round the prologue
+  output, P and the result to bf16 at the same points, so they differ by
+  about one bf16 rounding step (2^-8 relative) where an accumulation-order
+  difference lands on a rounding boundary.
+
+Tests marked ``gpu`` hold the CUDA kernels against the plain versions on the
+card; they skip on a machine without one.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdtpu.kernels import conv2d as jconv
+from sdtpu.kernels import flash_attention as jflash
+from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
+from sdtpu_torch.kernels import conv2d as tconv
+from sdtpu_torch.kernels import flash_attention as tflash
+from test_torch_ops import nn, tt
+
+torch.set_num_threads(1)
+
+BF16_REL = 2e-2
+_DT = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def close_dtype(got, want, dtype):
+    g, w = nn(got), nn(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=2e-5)
+    else:
+        assert np.abs(g - w).max() <= BF16_REL * np.abs(w).max()
+
+
+def _conv_case(rng, x_shape, co, *, temb=False, residual=False, stats=False, up=False):
+    b, h, w, ci = x_shape
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    case = {
+        "x": (rng.normal(size=x_shape) * 1.5 + 0.3).astype(np.float32),
+        "k": (rng.normal(size=(3, 3, ci, co)) * (9 * ci) ** -0.5).astype(np.float32),
+        "bias": (rng.normal(size=(co,)) * 0.1).astype(np.float32),
+        "norm": {"scale": (1 + 0.2 * rng.normal(size=(ci,))).astype(np.float32),
+                 "bias": (0.2 * rng.normal(size=(ci,))).astype(np.float32)},
+    }
+    if temb:
+        case["temb"] = rng.normal(size=(b, ci)).astype(np.float32)
+    if residual:
+        case["residual"] = rng.normal(size=(b, ho, wo, co)).astype(np.float32)
+    if stats:
+        x = case["x"]
+        case["stats"] = np.stack([x.mean(axis=(1, 2)), (x * x).mean(axis=(1, 2))], axis=1)
+    return case
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("temb,residual,stats,emit", [
+    (False, False, False, False),
+    (True, True, False, False),
+    (False, False, True, True),
+    (True, True, True, True),
+])
+def test_gn_silu_conv3x3_slab_matches_pallas(rng, dtype, temb, residual, stats, emit):
+    """Kernel A: the GN(+temb)+SiLU prologue, zero pad after the prologue,
+    3x3 conv, bias, residual, and the moments of the cast output."""
+    tdt, jdt = _DT[dtype]
+    c = _conv_case(rng, (2, 8, 8, 32), 64, temb=temb, residual=residual, stats=stats)
+    opt_t = {k: tt(c[k]) for k in ("temb", "stats") if k in c}
+    opt_j = {k: jnp.asarray(c[k]) for k in ("temb", "stats") if k in c}
+    if residual:
+        opt_t["residual"] = tt(c["residual"], tdt)
+        opt_j["residual"] = jnp.asarray(c["residual"], jdt)
+    got = tconv.gn_silu_conv3x3_slab(
+        tt(c["x"], tdt), {k: tt(v) for k, v in c["norm"].items()}, tt(c["k"], tdt),
+        tt(c["bias"]), num_groups=8, eps=1e-6, emit_stats=emit, **opt_t)
+    want = jconv.gn_silu_conv3x3_slab(
+        jnp.asarray(c["x"], jdt), c["norm"], jnp.asarray(c["k"], jdt),
+        jnp.asarray(c["bias"]), num_groups=8, eps=1e-6, emit_stats=emit,
+        h_tile=8, co_tile=64, interpret=True, **opt_j)
+    if emit:
+        (got, got_st), (want, want_st) = got, want
+        assert got_st.dtype == torch.float32 and tuple(got_st.shape) == (2, 2, 64)
+        np.testing.assert_allclose(nn(got_st), nn(want_st), rtol=1e-5, atol=1e-5)
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    close_dtype(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("emit", [False, True])
+def test_upsample_conv3x3_slab_matches_pallas(rng, dtype, emit):
+    """Kernel B: nearest-2x folded into the conv's input load."""
+    tdt, jdt = _DT[dtype]
+    c = _conv_case(rng, (2, 4, 4, 32), 64, up=True)
+    got = tconv.conv3x3_slab(tt(c["x"], tdt), tt(c["k"], tdt), tt(c["bias"]),
+                             upsample=True, emit_stats=emit)
+    want = jconv.conv3x3_gemm_slab(
+        jnp.asarray(c["x"], jdt), jnp.asarray(c["k"], jdt), jnp.asarray(c["bias"]),
+        h_tile=8, co_tile=64, upsample=True, emit_stats=emit, interpret=True)
+    if emit:
+        (got, got_st), (want, want_st) = got, want
+        np.testing.assert_allclose(nn(got_st), nn(want_st), rtol=1e-5, atol=1e-5)
+    assert tuple(got.shape) == (2, 8, 8, 64) == want.shape
+    close_dtype(got, want, dtype)
+
+
+def test_slab_prologue_pads_with_zero_not_silu_of_bias(rng):
+    """A pixel outside the map contributes 0 after the prologue: with a
+    kernel that only reads the top-left neighbour, the first output row and
+    column see the bias alone, however large SiLU(b) would be."""
+    x = rng.normal(size=(1, 4, 4, 8)).astype(np.float32)
+    k = np.zeros((3, 3, 8, 8), np.float32)
+    k[0, 0] = np.eye(8)
+    pro_b = np.full((1, 8), 5.0, np.float32)
+    out = tconv.conv3x3_slab(tt(x), tt(k), None, prologue_scale=tt(np.ones((1, 8))),
+                             prologue_bias=tt(pro_b))
+    assert float(out[0, 0].abs().max()) == 0.0
+    assert float(out[0, :, 0].abs().max()) == 0.0
+    assert float(out[0, 1:, 1:].abs().min()) > 0.0
+
+
+def test_slab_group_stats_cancel_at_large_mean_as_in_the_jax_kernel(rng):
+    """A known fault of the JAX package that the port reproduces: without
+    producer ``stats``, ``gn_silu_conv3x3_slab`` takes the group variance as
+    E[x^2] - mean^2 with no clamp (``sdtpu/kernels/conv2d.py:569``).  For a
+    group whose mean is large against its spread that difference cancels to
+    a negative number and the output is NaN, in both packages, while the
+    two-pass ``group_norm`` of the op path stays finite."""
+    from sdtpu.ops import group_norm
+
+    x = (1000.0 + 0.01 * rng.normal(size=(1, 8, 8, 32))).astype(np.float32)
+    k = (rng.normal(size=(3, 3, 32, 64)) * 0.05).astype(np.float32)
+    norm = {"scale": np.ones(32, np.float32), "bias": np.zeros(32, np.float32)}
+    got = tconv.gn_silu_conv3x3_slab(tt(x), {n: tt(v) for n, v in norm.items()}, tt(k),
+                                     num_groups=8)
+    want = jconv.gn_silu_conv3x3_slab(jnp.asarray(x), norm, jnp.asarray(k), num_groups=8,
+                                      h_tile=8, co_tile=64, interpret=True)
+    assert np.isnan(nn(got)).any() and np.isnan(nn(want)).any()
+    assert np.isfinite(nn(group_norm(jnp.asarray(x), norm, num_groups=8))).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_packed_matches_pallas(rng, dtype):
+    """Kernel C, with a key count that is no multiple of the Pallas key
+    block (so its masked tail is exercised); the port keeps the real head
+    dim, the JAX kernel pads it to 128 lanes, which must hold zeros."""
+    tdt, jdt = _DT[dtype]
+    b, h, lq, lk, d = 2, 2, 96, 200, 40
+    q, k, v = (rng.normal(size=(b, h, n, d)).astype(np.float32) for n in (lq, lk, lk))
+    got = tflash.flash_attention_packed(tt(q, tdt), tt(k, tdt), tt(v, tdt))
+
+    def pad(a):
+        return jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, 0), (0, 128 - d))), jdt)
+
+    want = jflash.flash_attention_packed(pad(q), pad(k), pad(v), d_real=d,
+                                         block_q=32, block_k=128, interpret=True)
+    assert tuple(got.shape) == (b, h, lq, d) and got.dtype == tdt
+    close_dtype(torch.nn.functional.pad(got.float(), (0, 128 - d)), want, dtype)
+
+
+def test_flash_attention_blhd_entry(rng):
+    """The (B, L, H, D) wrapper, against the JAX package's (which pads and
+    transposes around the same packed kernel)."""
+    q, k, v = (rng.normal(size=(1, n, 2, 16)).astype(np.float32) for n in (24, 40, 40))
+    got = tflash.flash_attention(tt(q), tt(k), tt(v))
+    want = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  block_q=128, block_k=128, interpret=True)
+    np.testing.assert_allclose(nn(got), nn(want), rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------- wrappers --
+
+def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
+    reset_launch_counts()
+    c = _conv_case(rng, (1, 4, 4, 8), 8)
+    x, k = tt(c["x"]), tt(c["k"])
+    np.testing.assert_array_equal(nn(tconv.conv3x3_slab(x, k)),
+                                  nn(tconv.conv3x3_slab_plain(x, k)))
+    np.testing.assert_array_equal(nn(tconv.conv3x3_slab(x, k, upsample=True)),
+                                  nn(tconv.conv3x3_slab_plain(x, k, upsample=True)))
+    q = tt(rng.normal(size=(1, 1, 5, 8)))
+    np.testing.assert_array_equal(nn(tflash.flash_attention_packed(q, q, q)),
+                                  nn(tflash.flash_attention_plain(q, q, q)))
+    assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
+                             "flash_attention": 0}
+
+
+def test_wrappers_raise_on_other_devices():
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tconv.conv3x3_slab(x, torch.empty((3, 3, 8, 8), device="meta"))
+    q = torch.empty((1, 1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_attention_packed(q, q, q)
+
+
+def test_build_finds_no_nvcc_and_raises(monkeypatch):
+    monkeypatch.setattr(os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_build_sources_and_content_hashed_library_names():
+    assert _build.sources() == ["conv3x3_slab", "flash_attention"]
+    names = {_build._lib_path(n) for n in _build.sources()}
+    assert len(names) == 2
+    assert all(os.path.dirname(p) == _build.BUILD_DIR for p in names)
+
+
+# ------------------------------------------------------------------ card --
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16_close(got, want):
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.abs(g - w).max() <= BF16_REL * np.abs(w).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,co,up", [
+    ((2, 16, 16, 64), 128, False),
+    ((1, 12, 20, 40), 72, False),   # ragged M and N tiles
+    ((1, 6, 10, 40), 72, True),
+])
+def test_cuda_conv3x3_slab_matches_plain(rng, x_shape, co, up):
+    dev = _cuda_or_skip()
+    c = _conv_case(rng, x_shape, co, residual=True, up=up)
+    b, ci = x_shape[0], x_shape[-1]
+    kw = dict(residual=tt(c["residual"], torch.bfloat16).to(dev), upsample=up,
+              emit_stats=True, prologue_scale=tt(rng.uniform(0.5, 1.5, (b, ci))).to(dev),
+              prologue_bias=tt(rng.normal(size=(b, ci))).to(dev))
+    x = tt(c["x"], torch.bfloat16).to(dev)
+    k = tt(c["k"], torch.bfloat16).to(dev)
+    bias = tt(c["bias"]).to(dev)
+    reset_launch_counts()
+    got, got_st = tconv.conv3x3_slab(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["conv3x3_slab_upsample" if up else "conv3x3_slab"] == 1
+    want, want_st = tconv.conv3x3_slab_plain(x, k, bias, **kw)
+    _bf16_close(got, want)
+    np.testing.assert_allclose(got_st.cpu().numpy(), want_st.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lk", [((2, 8, 256, 40), 256), ((1, 2, 77, 80), 100),
+                                      ((1, 1, 100, 512), 130)])
+def test_cuda_flash_attention_matches_plain(rng, shape, lk):
+    dev = _cuda_or_skip()
+    b, h, lq, d = shape
+    q = tt(rng.normal(size=shape), torch.bfloat16).to(dev)
+    k, v = (tt(rng.normal(size=(b, h, lk, d)), torch.bfloat16).to(dev) for _ in range(2))
+    got = tflash.flash_attention_packed(q, k, v)
+    torch.cuda.synchronize()
+    _bf16_close(got, tflash.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _cuda_or_skip()
+    x = torch.zeros((1, 4, 4, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tconv.conv3x3_slab(x, torch.zeros((3, 3, 12, 8), device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        tconv.conv3x3_slab(x.float()[..., :8], torch.zeros((3, 3, 8, 8), device=dev))
+    q = torch.zeros((1, 1, 4, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_packed(q, q, q)
