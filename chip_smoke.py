@@ -9,11 +9,12 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 2. build   -- compiles every ``sdtpu_torch/csrc/*.cu`` with nvcc for sm_90a
               into ``build/`` (one nvcc per source, all started together).
 3. kernels -- each hand-written kernel against its plain PyTorch version on
-              the card at the main path's shapes (bf16 tolerance stated per
-              line), then every kernel call configuration of the main path
-              timed with CUDA events: the kernel, its plain version, and one
-              library call for the same function as a yardstick.  Prints one
-              JSON ``{"kernels": [...]}`` line with per-image totals.
+              the card at the main paths' shapes (tolerance stated per
+              line), then every kernel call configuration of the two main
+              paths timed with CUDA events: the kernel, its plain version,
+              and one library call for the same function as a yardstick
+              (for the int8 slab conv, which no one call computes, two
+              float counterparts instead: kernel A and cuDNN bf16).
 4. e2e     -- ``StableDiffusionPipeline.from_random("tiny-sd")`` and one
               512x512, 25-step DDPM + CFG image (after a warm-up image);
               checks the image and the kernels' launch counts, prints
@@ -21,6 +22,15 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               forward and one VAE decode through the kernels and through
               the plain versions, beside the plain path's own bf16-versus-
               float32 difference.
+5. int8    -- the same pipeline after ``quantize_int8(transformer=True,
+              vae=True)``: the quantization's host seconds; the int8 slab
+              kernel checked and timed (phase 3's work) at every int8 call
+              shape; a warm-up and one timed image with exact launch counts
+              (every resnet conv on the int8 slab kernel); then the int8
+              UNet forward and VAE decode through the kernels against the
+              plain int8 route, beside the plain int8 route's own
+              bf16-vs-float32 difference (the tolerance's yardstick), its
+              int8-vs-bf16 difference, and the bf16 route's bf16-vs-f32.
 
 Every float32 reference on the card runs with TF32 off (cuBLAS and cuDNN).
 The last line is ``{"ok": true, "device": {...}}``.
@@ -31,22 +41,27 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
 from collections import Counter
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
-TOL_REL = 2e-2            # bf16: max |kernel - plain| <= TOL_REL * max |plain|
+TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
-E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "flash_attention": 226}
+E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
+              "flash_attention": 226}
 SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replaces)
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
     "conv3x3_slab_upsample": ("sdtpu_torch/csrc/conv3x3_slab.cu",
                               "sdtpu/kernels/conv2d.py:456"),
     "flash_attention": ("sdtpu_torch/csrc/flash_attention.cu",
                         "sdtpu/kernels/flash_attention.py:267"),
+    "conv3x3_slab_int8": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
+                          "sdtpu/kernels/conv2d.py:456"),
 }
 
 
@@ -113,10 +128,21 @@ def flash_cost(q_shape, lk):
     return 2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d
 
 
-def bound_ms(cost):
-    by, fl = cost
-    return max(by / PEAK_BYTES, fl / PEAK_BF16_FLOPS) * 1e3, (
-        "bytes" if by / PEAK_BYTES > fl / PEAK_BF16_FLOPS else "operations")
+def int8_conv_cost(x_shape, co, *, res, stats):
+    """(bytes, int8 ops) of one int8 slab call: x bf16, the int8 kernel,
+    bias, w_scale, the (B, Ci) prologue, the (Ci,) codes' scale and zero
+    point, the bf16 output, residual and moments."""
+    b, h, w, ci = x_shape
+    by = b * h * w * ci * 2 + 9 * ci * co + 2 * co * 4 + 2 * b * ci * 4 + 2 * ci * 4
+    by += b * h * w * co * 2 * (2 if res else 1)
+    by += b * 2 * co * 4 if stats else 0
+    return by, 2.0 * b * h * w * co * 9 * ci
+
+
+def bound_ms(cost, peak_ops=PEAK_BF16_FLOPS):
+    by, ops = cost
+    return max(by / PEAK_BYTES, ops / peak_ops) * 1e3, (
+        "bytes" if by / PEAK_BYTES > ops / peak_ops else "operations")
 
 
 def cuda_ms(torch, fn, reps):
@@ -186,18 +212,69 @@ def time_conv(torch, gen, cfg):
     t_k = cuda_ms(torch, lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), 5 if big else 20)
     t_p = cuda_ms(torch, lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
                   2 if big else 5)
-    # yardstick: one cuDNN bf16 conv on the prologued (and upsampled) input
+    return t_k, t_p, cudnn_ms(torch, x, k, bias, kw, 5 if big else 20)
+
+
+def cudnn_ms(torch, x, k, bias, kw, reps):
+    """Yardstick: one cuDNN bf16 conv on the prologued (and upsampled) input."""
+    import torch.nn.functional as F
+
     y = x
-    if pro:
+    if kw.get("prologue_scale") is not None:
         y = x.float() * kw["prologue_scale"][:, None, None, :] + kw["prologue_bias"][:, None, None, :]
         y = (y * torch.sigmoid(y)).to(torch.bfloat16)
-    if up:
+    if kw.get("upsample"):
         y = y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y_nchw = y.permute(0, 3, 1, 2)  # channels_last memory
     w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b16 = bias.to(torch.bfloat16)
-    t_l = cuda_ms(torch, lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1), 5 if big else 20)
-    return t_k, t_p, t_l
+    return cuda_ms(torch, lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1), reps)
+
+
+def int8_case(torch, gen, x_shape, co, res, stats):
+    """One int8 slab call configuration: check kernel D against its plain
+    version, then time D, the plain version, and the two float
+    counterparts at the same shape (kernel A, cuDNN bf16), which compute a
+    different function.  The codes' scale and zero point come from a
+    GroupNorm affine equal to batch 0's prologue, so they cover the
+    activations as the model's own do."""
+    from sdtpu_torch.kernels.conv2d import conv3x3_slab, conv3x3_slab_plain
+    from sdtpu_torch.utils.quant import act_qparams_from_norm, quantize_conv_w8a8
+
+    x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=True, res=res, up=False)
+    s, z = act_qparams_from_norm({"scale": kw["prologue_scale"][0],
+                                  "bias": kw["prologue_bias"][0]})
+    q, ws, zp = quantize_conv_w8a8(k, s, z)
+
+    def dev(a):
+        return torch.from_numpy(a).to("cuda")
+
+    q, qbias = dev(q), bias - dev(zp)
+    qkw = dict(kw, act_inv_scale=1.0 / dev(s), act_zp=dev(z), w_scale=dev(ws))
+    got = conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw)
+    want = conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw)
+    torch.cuda.synchronize()
+    serr = sref = 0.0
+    if stats:
+        (got, gst), (want, wst) = got, want
+        serr, sref = max_err(gst, wst)
+    err, ref = max_err(got, want)
+    share = float((got.float() != want.float()).float().mean())
+    ok = err <= TOL_REL * ref and serr <= TOL_REL * max(sref, 1e-30)
+    log(f"check conv3x3_slab_int8 x={tuple(x_shape)} co={co} residual={res} stats={stats}: "
+        f"max_abs_err={err:.4g} (max|plain|={ref:.4g}, tol {TOL_REL:g} rel), "
+        f"share of outputs differing {share:.3g}"
+        + (f", moments max_abs_err={serr:.4g} (max={sref:.4g})" if stats else "")
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("conv3x3_slab_int8 disagrees with its plain version")
+    big = x.numel() * co > 2**31
+    reps = 5 if big else 20
+    t_k = cuda_ms(torch, lambda: conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw), reps)
+    t_p = cuda_ms(torch, lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw), 2)
+    t_a = cuda_ms(torch, lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), reps)
+    t_l = cudnn_ms(torch, x, k, bias, kw, reps)
+    return err, share, t_k, t_p, t_a, t_l
 
 
 def time_flash(torch, gen, q_shape, lk):
@@ -215,9 +292,10 @@ def time_flash(torch, gen, q_shape, lk):
 
 
 def record_main_path_calls(torch, pipe, ids):
-    """The main path's kernel call configurations with their counts per
+    """A main path's kernel call configurations with their counts per
     image: one 1-step image recorded through shims, UNet calls (batch 2
-    under CFG) scaled to STEPS steps."""
+    under CFG) scaled to STEPS steps.  A conv configuration is (x shape,
+    Co, prologue, residual, upsample, moments, int8 kernel)."""
     # sys.modules: the package sdtpu_torch.ops re-exports a function named
     # ``attention`` that shadows its submodule of that name
     real_conv = sys.modules["sdtpu_torch.kernels.conv2d"].conv3x3_slab
@@ -227,7 +305,7 @@ def record_main_path_calls(torch, pipe, ids):
     def conv_shim(x, kernel, conv_bias=None, **kw):
         convs[(tuple(x.shape), kernel.shape[-1], kw.get("prologue_scale") is not None,
                kw.get("residual") is not None, bool(kw.get("upsample")),
-               bool(kw.get("emit_stats")))] += 1
+               bool(kw.get("emit_stats")), kernel.dtype == torch.int8)] += 1
         return real_conv(x, kernel, conv_bias, **kw)
 
     def flash_shim(q, k, v):
@@ -328,80 +406,43 @@ def main() -> int:
                   "byte_ms": 0.0, "op_ms": 0.0, "per_image_calls": 0} for n in SOURCES}
     rows = []
     for cfg, n in sorted(conv_calls.items()):
-        x_shape, co, pro, res, up, stats = cfg
-        t_k, t_p, t_l = time_conv(torch, gen, cfg)
+        x_shape, co, pro, res, up, stats, _ = cfg
+        t_k, t_p, t_l = time_conv(torch, gen, cfg[:6])
         cost = conv_cost(x_shape, co, pro=pro, res=res, up=up, stats=stats)
         rows.append(("conv3x3_slab_upsample" if up else "conv3x3_slab",
                      f"x={x_shape} co={co} pro={int(pro)} res={int(res)} st={int(stats)}",
-                     n, t_k, t_p, t_l, cost))
+                     n, t_k, t_p, t_l, cost, PEAK_BF16_FLOPS))
     for (q_shape, lk), n in sorted(flash_calls.items()):
         t_k, t_p, t_l = time_flash(torch, gen, q_shape, lk)
         rows.append(("flash_attention", f"q={q_shape} lk={lk}", n, t_k, t_p, t_l,
-                     flash_cost(q_shape, lk)))
-    details["configs"] = []
-    for name, desc, n, t_k, t_p, t_l, cost in rows:
-        b_ms, b_by = bound_ms(cost)
-        tot = totals[name]
-        tot["per_image_calls"] += n
-        tot["ms"] += n * t_k
-        tot["plain_ms"] += n * t_p
-        tot["library_ms"] += n * t_l
-        tot["bound_ms"] += n * b_ms
-        tot["byte_ms"] += n * cost[0] / PEAK_BYTES * 1e3
-        tot["op_ms"] += n * cost[1] / PEAK_BF16_FLOPS * 1e3
-        log(f"time {name} {desc} x{n}/image: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"library {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{cost[1] / t_k / 1e9:.1f} TFLOP/s")
-        details["configs"].append({"kernel": name, "config": desc, "per_image": n,
-                                   "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                                   "bound_ms": b_ms, "bound_by": b_by,
-                                   "bytes": cost[0], "flops": cost[1]})
+                     flash_cost(q_shape, lk), PEAK_BF16_FLOPS))
 
-    # phase 4: end to end
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    warm = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
-                         output="float")
-    warm_s = time.perf_counter() - t0
-    if warm.shape != (1, 512, 512, 3) or not np.isfinite(warm).all():
-        raise AssertionError(f"warm-up image: shape {warm.shape}, finite "
-                             f"{bool(np.isfinite(warm).all())}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    img = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
-    sec = time.perf_counter() - t0
-    counts = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"e2e: image {img.shape} {img.dtype}, pixel std {float(img.std()):.3f}, "
-        f"warm-up {warm_s:.3f} s, {sec:.4f} s/image, peak memory {peak / 2**30:.3f} GiB")
-    log(f"e2e launches: {counts} (expected {E2E_COUNTS})")
-    if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or float(img.std()) == 0.0:
-        raise AssertionError("e2e image is not a non-constant (1, 512, 512, 3) uint8 image")
+    # phase 4: end to end, bf16
+    counts, e2e = run_image(torch, np, pipe, ids, "e2e", launch_counts, reset_launch_counts)
+    log(f"e2e expected launches: {E2E_COUNTS}")
     if counts != E2E_COUNTS:
         raise AssertionError(f"launch counts {counts} != expected {E2E_COUNTS}")
-    details["e2e"] = {"s_per_image": sec, "warmup_s": warm_s, "peak_bytes": peak,
-                      "launches": counts}
+    details["e2e"] = e2e
 
     # control: one UNet forward and one VAE decode, kernels vs plain, beside
     # the plain path's bf16-vs-float32 difference
     from sdtpu_torch.models.unet import unet_forward
     from sdtpu_torch.models.vae import vae_decode
 
-    cfg = pipe.config
+    pcfg = pipe.config
     lat = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
     ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
     ts = torch.full((2,), 501.0, device="cuda")
     dec_in = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
     unet32, vae32 = (to_dtype(pipe.params[k], torch.float32) for k in ("unet", "vae_decoder"))
+
+    def unet(params, dt):
+        return unet_forward(lat.to(dt), ts, ctx.to(dt), params, pcfg.unet).float()
+
+    def vae(params, dt):
+        return vae_decode(dec_in.to(dt), params, pcfg.vae).float()
+
     with torch.inference_mode():
-        def unet(params, dt):
-            return unet_forward(lat.to(dt), ts, ctx.to(dt), params, cfg.unet).float()
-
-        def vae(params, dt):
-            return vae_decode(dec_in.to(dt), params, cfg.vae).float()
-
         k_unet = unet(pipe.params["unet"], torch.bfloat16)
         k_vae = vae(pipe.params["vae_decoder"], torch.bfloat16)
         with routed(conv3x3_slab_plain, flash_attention_plain):
@@ -409,6 +450,7 @@ def main() -> int:
             p_vae = vae(pipe.params["vae_decoder"], torch.bfloat16)
             f_unet = unet(unet32, torch.float32)
             f_vae = vae(vae32, torch.float32)
+    del unet32, vae32
     control = {}
     for what, k_out, p_out, f_out in (("unet_forward", k_unet, p_unet, f_unet),
                                       ("vae_decode", k_vae, p_vae, f_vae)):
@@ -425,13 +467,137 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{what}: kernels disagree with the plain path")
     details["control"] = control
+    pipe.params = None  # the int8 image's peak memory holds only its own tree
+
+    # phase 5: int8 (W8A8); kernel D checked and timed at every int8 call
+    # shape (phase 3's work for this path), then the int8 image
+    pipe_q = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
+    t0 = time.perf_counter()
+    pipe_q.quantize_int8(transformer=True, vae=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    log(f"int8: quantize_int8(transformer=True, vae=True) took {quant_s:.3f} s on the host")
+    details["quantize_s"] = quant_s
+    q_calls, _ = record_main_path_calls(torch, pipe_q, ids)
+    # kernel D at every int8 call shape of the int8 path
+    counterparts = {"kernel_A_ms": 0.0, "cudnn_bf16_ms": 0.0}
+    d_configs = []
+    for (x_shape, co, pro, res, up, stats, quant), n in sorted(q_calls.items()):
+        if not quant:
+            continue
+        err, share, t_k, t_p, t_a, t_l = int8_case(torch, gen, x_shape, co, res, stats)
+        errs["conv3x3_slab_int8"] = max(errs.get("conv3x3_slab_int8", 0.0), err)
+        counterparts["kernel_A_ms"] += n * t_a
+        counterparts["cudnn_bf16_ms"] += n * t_l
+        desc = f"x={x_shape} co={co} res={int(res)} st={int(stats)}"
+        cost = int8_conv_cost(x_shape, co, res=res, stats=stats)
+        rows.append(("conv3x3_slab_int8", desc, n, t_k, t_p, None, cost, PEAK_INT8_OPS))
+        d_configs.append({"config": desc, "per_image": n, "ms": t_k, "plain_ms": t_p,
+                          "float_counterpart_kernel_A_ms": t_a,
+                          "float_counterpart_cudnn_bf16_ms": t_l,
+                          "max_abs_err": err, "share_differing": share,
+                          "tops": cost[1] / t_k / 1e9})
+        log(f"float counterparts of conv3x3_slab_int8 {desc} (not the same function): "
+            f"kernel A {t_a:.4f} ms, cuDNN bf16 {t_l:.4f} ms; "
+            f"D {cost[1] / t_k / 1e9:.1f} TOP/s, A {cost[1] / t_a / 1e9:.1f} TFLOP/s, "
+            f"cuDNN {cost[1] / t_l / 1e9:.1f} TFLOP/s")
+    details["int8_configs"] = d_configs
+    details["configs"] = []
+    for name, desc, n, t_k, t_p, t_l, cost, peak in rows:
+        b_ms, b_by = bound_ms(cost, peak)
+        tot = totals[name]
+        tot["per_image_calls"] += n
+        tot["ms"] += n * t_k
+        tot["plain_ms"] += n * t_p
+        tot["library_ms"] = None if t_l is None else tot["library_ms"] + n * t_l
+        tot["bound_ms"] += n * b_ms
+        tot["byte_ms"] += n * cost[0] / PEAK_BYTES * 1e3
+        tot["op_ms"] += n * cost[1] / peak * 1e3
+        lib = "library none" if t_l is None else f"library {t_l:.4f} ms"
+        log(f"time {name} {desc} x{n}/image ({n * t_k:.3f} ms/image): kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, "
+            f"{lib}, bound {b_ms:.4f} ms ({b_by}), {cost[1] / t_k / 1e9:.1f} T(FL)OP/s")
+        details["configs"].append({"kernel": name, "config": desc, "per_image": n,
+                                   "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                                   "bound_ms": b_ms, "bound_by": b_by,
+                                   "bytes": cost[0], "ops": cost[1]})
+    log(f"float counterparts of conv3x3_slab_int8 per image (not the same function): "
+        f"kernel A {counterparts['kernel_A_ms']:.3f} ms, cuDNN bf16 "
+        f"{counterparts['cudnn_bf16_ms']:.3f} ms; D {totals['conv3x3_slab_int8']['ms']:.3f} ms")
+    details["int8_float_counterparts_per_image"] = counterparts
+
+    uparams = pipe_q.params["unet"]
+    n_unet = sum(len(b["resnets"]) for b in uparams["down_blocks"] + uparams["up_blocks"])
+    n_unet += len(uparams["mid_block"]["resnets"]) if "mid_block" in uparams else 0
+    vparams = pipe_q.params["vae_decoder"]
+    n_vae = len(vparams["mid_block"]["resnets"]) + sum(len(b["resnets"])
+                                                       for b in vparams["up_blocks"])
+    d_expected = 2 * n_unet * STEPS + 2 * n_vae
+    log(f"int8: {n_unet} UNet resnets x 2 convs x {STEPS} steps + {n_vae} VAE resnets x 2 "
+        f"convs = {d_expected} int8 slab convs per image")
+    q_expected = dict(E2E_COUNTS, conv3x3_slab=0, conv3x3_slab_int8=d_expected)
+    if d_expected != 478:
+        raise AssertionError(f"tiny-sd should have 478 resnet convs per image, got {d_expected}")
+    q_counts, q_e2e = run_image(torch, np, pipe_q, ids, "int8", launch_counts,
+                                reset_launch_counts)
+    log(f"int8 expected launches: {q_expected}")
+    if q_counts != q_expected:
+        raise AssertionError(f"int8 launch counts {q_counts} != expected {q_expected}")
+    details["int8"] = q_e2e
+
+    q32 = {k: to_dtype(pipe_q.params[k], torch.float32) for k in ("unet", "vae_decoder")}
+    with torch.inference_mode():
+        kq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
+        kq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
+        with routed(conv3x3_slab_plain, flash_attention_plain):
+            pq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
+            pq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
+            fq_unet = unet(q32["unet"], torch.float32)
+            fq_vae = vae(q32["vae_decoder"], torch.float32)
+        # one kernel on the card, the rest plain: how far a single kernel's
+        # bf16-level differences move the int8 route
+        with routed(conv3x3_slab_plain, sys.modules["sdtpu_torch.ops.attention"]
+                    .flash_attention_packed):
+            cq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
+            cq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
+    del q32
+    q_control = {}
+    for what, k_out, p_out, f_out, c_out, p_bf16 in (
+            ("unet_forward", kq_unet, pq_unet, fq_unet, cq_unet, p_unet),
+            ("vae_decode", kq_vae, pq_vae, fq_vae, cq_vae, p_vae)):
+        finite = bool(torch.isfinite(k_out).all())
+        d_kp = rel_l2(torch, k_out, p_out)
+        d_qf = rel_l2(torch, p_out, f_out)
+        d_cp = rel_l2(torch, c_out, p_out)
+        d_qb = rel_l2(torch, p_out, p_bf16)
+        d_pf = control[what]["plain_bf16_vs_f32"]
+        # an int8 code flips wherever a bf16-level difference crosses a
+        # rounding boundary, so the int8 route is judged against its own
+        # bf16-vs-f32 difference, as the bf16 route is against its own
+        ok = finite and d_kp <= max(2.0 * d_qf, 1e-2)
+        log(f"int8 control {what}: rel L2 kernels-vs-plain (int8) {d_kp:.4g}; plain int8 "
+            f"bf16-vs-f32 {d_qf:.4g}; only flash_attention on the card vs plain {d_cp:.4g}; "
+            f"plain int8-vs-bf16 {d_qb:.4g}; plain bf16-vs-f32 (bf16 route) {d_pf:.4g}; "
+            f"finite {finite}; tol max(2x int8 bf16-vs-f32, 1e-2)" + (" ok" if ok else " FAIL"))
+        q_control[what] = {"kernels_vs_plain": d_kp, "plain_int8_bf16_vs_f32": d_qf,
+                           "flash_only_vs_plain": d_cp, "plain_int8_vs_bf16": d_qb,
+                           "plain_bf16_vs_f32": d_pf}
+        if not ok:
+            raise AssertionError(f"int8 {what}: kernels disagree with the plain int8 route")
+    mse = float((kq_vae - k_vae).square().mean())
+    vae_psnr = 10.0 * math.log10(4.0 / mse) if mse > 0 else float("inf")
+    log(f"int8 VAE decode vs bf16 decode (kernels, same latents): PSNR {vae_psnr:.2f} dB "
+        f"(range 2, for information)")
+    q_control["vae_decode_psnr_db"] = vae_psnr
+    details["int8_control"] = q_control
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         tot = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name],
+            "launches": (q_counts if name == "conv3x3_slab_int8" else counts)[name],
+            "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["byte_ms"] > tot["op_ms"] else "operations",
             "library_ms": tot["library_ms"],
@@ -441,12 +607,41 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(details, f, indent=1)
     log("kernel times are per image: the sum over the main path's calls "
-        "(count per image x CUDA-event time per call)")
+        "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 are "
+        "the int8 image's, the others the bf16 image's")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_image(torch, np, pipe, ids, label, launch_counts, reset_launch_counts):
+    """A warm-up image, then one timed 512x512 STEPS-step image with the
+    launch counts zeroed just before it and read just after."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    warm = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
+                         output="float")
+    warm_s = time.perf_counter() - t0
+    if warm.shape != (1, 512, 512, 3) or not np.isfinite(warm).all():
+        raise AssertionError(f"{label} warm-up image: shape {warm.shape}, finite "
+                             f"{bool(np.isfinite(warm).all())}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    sec = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: image {img.shape} {img.dtype}, pixel std {float(img.std()):.3f}, "
+        f"warm-up {warm_s:.3f} s, {sec:.4f} s/image, peak memory {peak / 2**30:.3f} GiB")
+    log(f"{label} launches: {counts}")
+    if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or float(img.std()) == 0.0:
+        raise AssertionError(f"{label} image is not a non-constant (1, 512, 512, 3) uint8 image")
+    return counts, {"s_per_image": sec, "warmup_s": warm_s, "peak_bytes": peak,
+                    "launches": counts}
 
 
 if __name__ == "__main__":

@@ -9,6 +9,7 @@ plain versions count nothing.
 launch_counts = {
     "conv3x3_slab": 0,
     "conv3x3_slab_upsample": 0,
+    "conv3x3_slab_int8": 0,
     "flash_attention": 0,
 }
 

@@ -1,18 +1,30 @@
 """3x3 same-pad convolution with a fused GroupNorm(+temb)+SiLU prologue,
 bias + residual epilogue, optional output moments, and an optional fused
-nearest-2x upsample of the input.
+nearest-2x upsample of the input; with an int8 kernel, its W8A8 form.
 
 Counterpart of ``sdtpu/kernels/conv2d.py:conv3x3_gemm_slab`` and
 ``gn_silu_conv3x3_slab``.  On the card ``conv3x3_slab`` launches the CUDA
-kernel of ``csrc/conv3x3_slab.cu``; on the CPU it runs
-``conv3x3_slab_plain``, the same function in float32 with the same bf16
-rounding points:
+kernel of ``csrc/conv3x3_slab.cu`` (float) or ``csrc/conv3x3_slab_int8.cu``
+(int8 kernel); on the CPU it runs ``conv3x3_slab_plain``, the same function
+with the same rounding points.  Float kernel:
 
 * the prologue output is rounded to the activation dtype, and the conv's
   zero padding comes AFTER the prologue (a pad pixel is 0, not SiLU(b));
 * accumulation is float32, then bias, then residual, then the cast;
 * the moments are the per-channel mean and mean-of-squares of the CAST
   output over (H, W).
+
+int8 kernel (``act_inv_scale``, ``act_zp`` and ``w_scale`` given; the
+prologue is required and the upsample mode is not taken):
+
+* the float32 prologue output, NOT rounded to the activation dtype, is
+  quantized per input channel, ``q = clamp(round(y * act_inv_scale) + zp,
+  -128, 127)``, rounding half to even;
+* a pad pixel holds the zero point (the real value 0), not integer 0;
+* the contraction is an exact integer sum; the plain version takes it in
+  float64, where every partial sum of these magnitudes is exact;
+* float32(acc) * w_scale[co], then bias (the caller's bias minus the
+  zero-point correction), then residual, then the cast; moments as above.
 
 Layouts are the JAX package's: NHWC activations, HWIO kernels.
 """
@@ -27,6 +39,44 @@ import torch.nn.functional as F
 from sdtpu_torch.kernels import _build, launch_counts
 
 
+def _check_int8_args(kernel, prologue_scale, upsample, act_inv_scale, w_scale) -> bool:
+    """Whether this is the W8A8 form; raises on what it does not take."""
+    if kernel.dtype != torch.int8:
+        return False
+    if prologue_scale is None:
+        raise ValueError("conv3x3_slab: the int8 conv requires the affine prologue")
+    if upsample:
+        raise ValueError("conv3x3_slab: the int8 conv has no upsample mode")
+    if act_inv_scale is None or w_scale is None:
+        raise ValueError("conv3x3_slab: an int8 kernel needs act_inv_scale and w_scale")
+    return True
+
+
+def _moments(out: torch.Tensor) -> torch.Tensor:
+    of = out.float()
+    return torch.stack([of.mean(dim=(1, 2)), of.square().mean(dim=(1, 2))], dim=1)
+
+
+def _conv3x3_int8_plain(x, kernel, conv_bias, a, c, s, z, w_scale, residual, emit_stats):
+    ci = x.shape[-1]
+    z = torch.zeros(ci, device=x.device) if z is None else z.float()
+    y = x.float() * a.float()[:, None, None, :]
+    y = y + c.float()[:, None, None, :]
+    y = y * torch.sigmoid(y)
+    q = torch.clamp(torch.round(y * s.float()) + z, -128.0, 127.0)
+    zc = z.double()[None, :, None, None]
+    # the pad holds the zero point: pad q - z with 0, then add z back
+    qp = F.pad((q.double().permute(0, 3, 1, 2) - zc), (1, 1, 1, 1)) + zc
+    acc = F.conv2d(qp, kernel.double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    out = acc.float() * w_scale.float()
+    if conv_bias is not None:
+        out = out + conv_bias.float()
+    if residual is not None:
+        out = out + residual.float()
+    out = out.to(x.dtype)
+    return (out, _moments(out)) if emit_stats else out
+
+
 def conv3x3_slab_plain(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -37,8 +87,14 @@ def conv3x3_slab_plain(
     residual=None,
     upsample: bool = False,
     emit_stats: bool = False,
+    act_inv_scale=None,
+    act_zp=None,
+    w_scale=None,
 ):
     """The plain PyTorch version of the kernel (see the module docstring)."""
+    if _check_int8_args(kernel, prologue_scale, upsample, act_inv_scale, w_scale):
+        return _conv3x3_int8_plain(x, kernel, conv_bias, prologue_scale, prologue_bias,
+                                   act_inv_scale, act_zp, w_scale, residual, emit_stats)
     if prologue_scale is not None:
         y = x.float() * prologue_scale.float()[:, None, None, :]
         y = y + prologue_bias.float()[:, None, None, :]
@@ -56,20 +112,24 @@ def conv3x3_slab_plain(
     if residual is not None:
         acc = acc + residual.float()
     out = acc.to(x.dtype)
-    if not emit_stats:
-        return out
-    of = out.float()
-    return out, torch.stack([of.mean(dim=(1, 2)), of.square().mean(dim=(1, 2))], dim=1)
+    return (out, _moments(out)) if emit_stats else out
 
 
-def _lib():
-    lib = _build.load("conv3x3_slab")
+# pointer and int arguments of each source's launch function, before the stream
+_LAUNCH_ARGS = {"conv3x3_slab": (8, 6), "conv3x3_slab_int8": (11, 5)}
+
+
+def _lib(name: str):
+    """The library of ``csrc/<name>.cu`` with its two functions typed."""
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        lib.conv3x3_slab_launch.argtypes = [p] * 8 + [ctypes.c_int] * 6 + [p]
-        lib.conv3x3_slab_launch.restype = ctypes.c_int
-        lib.conv3x3_slab_m_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.conv3x3_slab_m_tiles.restype = ctypes.c_int
+        n_ptrs, n_ints = _LAUNCH_ARGS[name]
+        launch, m_tiles = getattr(lib, name + "_launch"), getattr(lib, name + "_m_tiles")
+        launch.argtypes = [p] * n_ptrs + [ctypes.c_int] * n_ints + [p]
+        launch.restype = ctypes.c_int
+        m_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
+        m_tiles.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -94,6 +154,9 @@ def conv3x3_slab(
     residual=None,
     upsample: bool = False,
     emit_stats: bool = False,
+    act_inv_scale=None,
+    act_zp=None,
+    w_scale=None,
 ):
     """NHWC stride-1 same-pad 3x3 conv (+bias) (+residual) with an optional
     per-(batch, channel) affine + SiLU prologue on the input.
@@ -102,49 +165,66 @@ def conv3x3_slab(
     kernel: (3, 3, Ci, Co); prologue_scale/bias: (B, Ci); residual:
     (B, H, W, Co).  ``emit_stats=True`` returns ``(out, moments)`` with
     moments (B, 2, Co) f32 = per-channel [mean, mean-of-squares] of the
-    output.  On the card every tensor must be contiguous, x, kernel and
-    residual bf16, Ci and Co multiples of 8."""
-    kw = dict(prologue_scale=prologue_scale, prologue_bias=prologue_bias,
-              residual=residual, upsample=upsample, emit_stats=emit_stats)
+    output.  An int8 kernel takes the W8A8 form with ``act_inv_scale`` and
+    ``act_zp`` (Ci,) and ``w_scale`` (Co,).  On the card every tensor must
+    be contiguous, x and residual bf16, the kernel bf16 or int8, Ci and Co
+    multiples of 8, and Ci a multiple of 32 for an int8 kernel."""
     if x.device.type == "cpu":
-        return conv3x3_slab_plain(x, kernel, conv_bias, **kw)
+        return conv3x3_slab_plain(
+            x, kernel, conv_bias, prologue_scale=prologue_scale, prologue_bias=prologue_bias,
+            residual=residual, upsample=upsample, emit_stats=emit_stats,
+            act_inv_scale=act_inv_scale, act_zp=act_zp, w_scale=w_scale)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_slab: unsupported device {x.device}")
+    quant = _check_int8_args(kernel, prologue_scale, upsample, act_inv_scale, w_scale)
     dev = x.device
     b, hx, wx, ci = x.shape
     h, w = (2 * hx, 2 * wx) if upsample else (hx, wx)
     co = kernel.shape[-1]
     if ci % 8 or co % 8:
         raise ValueError(f"conv3x3_slab: Ci={ci} and Co={co} must be multiples of 8")
+    if quant and ci % 32:
+        raise ValueError(f"conv3x3_slab: the int8 conv needs Ci={ci} a multiple of 32")
     _expect(x, "x", (b, hx, wx, ci), torch.bfloat16, dev)
-    _expect(kernel, "kernel", (3, 3, ci, co), torch.bfloat16, dev)
-    bias = (torch.zeros(co, device=dev, dtype=torch.float32) if conv_bias is None
-            else conv_bias.float().contiguous())
-    _expect(bias, "conv_bias", (co,), torch.float32, dev)
+    _expect(kernel, "kernel", (3, 3, ci, co), torch.int8 if quant else torch.bfloat16, dev)
+
+    def f32(t, name, shape):
+        t = t.float().contiguous()
+        _expect(t, name, shape, torch.float32, dev)
+        return t
+
+    bias = f32(torch.zeros(co, device=dev) if conv_bias is None else conv_bias,
+               "conv_bias", (co,))
     if (prologue_scale is None) != (prologue_bias is None):
         raise ValueError("conv3x3_slab: give both prologue_scale and prologue_bias")
     pa = pc = None
     if prologue_scale is not None:
-        pa = prologue_scale.float().contiguous()
-        pc = prologue_bias.float().contiguous()
-        _expect(pa, "prologue_scale", (b, ci), torch.float32, dev)
-        _expect(pc, "prologue_bias", (b, ci), torch.float32, dev)
+        pa = f32(prologue_scale, "prologue_scale", (b, ci))
+        pc = f32(prologue_bias, "prologue_bias", (b, ci))
     if residual is not None:
         _expect(residual, "residual", (b, h, w, co), torch.bfloat16, dev)
-    lib = _lib()
+    name = "conv3x3_slab_int8" if quant else "conv3x3_slab"
+    lib = _lib(name)
     out = torch.empty((b, h, w, co), device=dev, dtype=torch.bfloat16)
     part = None
     if emit_stats:
-        part = torch.empty((b, lib.conv3x3_slab_m_tiles(h, w), 2, co),
+        part = torch.empty((b, getattr(lib, name + "_m_tiles")(h, w), 2, co),
                            device=dev, dtype=torch.float32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.conv3x3_slab_launch(
-        ptr(x), ptr(kernel), ptr(bias), ptr(pa), ptr(pc), ptr(residual),
-        ptr(out), ptr(part), b, h, w, ci, co, int(upsample),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "conv3x3_slab")
-    launch_counts["conv3x3_slab_upsample" if upsample else "conv3x3_slab"] += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if quant:
+        qs = f32(act_inv_scale, "act_inv_scale", (ci,))
+        qz = f32(torch.zeros(ci, device=dev) if act_zp is None else act_zp, "act_zp", (ci,))
+        ws = f32(w_scale, "w_scale", (co,))
+        err = lib.conv3x3_slab_int8_launch(
+            ptr(x), ptr(kernel), ptr(bias), ptr(pa), ptr(pc), ptr(qs), ptr(qz), ptr(ws),
+            ptr(residual), ptr(out), ptr(part), b, h, w, ci, co, stream)
+    else:
+        err = lib.conv3x3_slab_launch(
+            ptr(x), ptr(kernel), ptr(bias), ptr(pa), ptr(pc), ptr(residual),
+            ptr(out), ptr(part), b, h, w, ci, co, int(upsample), stream)
+    _build.check(err, name)
+    launch_counts[name + ("_upsample" if upsample else "")] += 1
     if not emit_stats:
         return out
     return out, part.sum(dim=1) / float(h * w)
@@ -162,8 +242,13 @@ def gn_silu_conv3x3_slab(
     residual=None,
     stats=None,
     emit_stats: bool = False,
+    act_inv_scale=None,
+    act_zp=None,
+    w_scale=None,
 ):
-    """(x [+ temb]) -> GroupNorm -> SiLU -> 3x3 conv (+bias) (+residual).
+    """(x [+ temb]) -> GroupNorm -> SiLU -> 3x3 conv (+bias) (+residual);
+    with an int8 ``kernel`` and ``act_inv_scale``/``act_zp``/``w_scale``
+    its W8A8 form (``utils/quant.py``).
 
     The group statistics and the folded per-(batch, channel) affine
     GN(x + t) = x * (inv * gamma) + ((t - mu) * inv * gamma + beta) are
@@ -199,5 +284,6 @@ def gn_silu_conv3x3_slab(
     bb = off * a + norm_params["bias"].float()[None]
     return conv3x3_slab(
         x, kernel, conv_bias, prologue_scale=a, prologue_bias=bb,
-        residual=residual, emit_stats=emit_stats,
+        residual=residual, emit_stats=emit_stats, act_inv_scale=act_inv_scale,
+        act_zp=act_zp, w_scale=w_scale,
     )

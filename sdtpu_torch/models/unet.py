@@ -6,9 +6,9 @@ downsamples, fused nearest-2x upsamples, an optional mid block, and the
 encoder/decoder wiring with channel-concat skips popped LIFO.
 
 Every resnet takes the slab-kernel path of the JAX package's TPU program
-(``unet.py:255-285``): conv1 is GN+SiLU+conv with its output moments, conv2
-is GN(+temb)+SiLU+conv with the shortcut as its residual and GN statistics
-from conv1's moments.  A resnet followed by an attention block hands that
+(``unet.py:255-285``), with an int8 kernel where it is quantized: conv1 is
+GN+SiLU+conv with its output moments, conv2 is GN(+temb)+SiLU+conv with the
+shortcut as its residual and GN statistics from conv1's moments.  A resnet followed by an attention block hands that
 block its output moments for the block's GroupNorm.  The SDXL
 add-embedding and the LCM guidance embedding belong to the model-family
 slice and raise here.
@@ -37,6 +37,7 @@ from sdtpu_torch.ops import (
     timestep_embedding,
     transformer_block,
 )
+from sdtpu_torch.utils.quant import resnet_conv_args
 
 
 def _check_family(config: UNetConfig) -> None:
@@ -147,17 +148,18 @@ def resnet_block(
     """Resnet: GN -> SiLU -> conv1; + time projection; GN -> SiLU -> conv2;
     + shortcut.  ``temb`` is already SiLU'd; ``t_pre`` the precomputed
     (B, C_out) time projection.  ``emit_stats=True`` returns ``(out,
-    moments)``, the per-channel output moments for the next GroupNorm."""
+    moments)``, the per-channel output moments for the next GroupNorm.
+    Quantized convs run the int8 slab kernel where the resnet passes the
+    JAX package's routing rule, else dequantized (``utils/quant.py:
+    resnet_conv_args``)."""
     t = linear(temb, params["time_emb_proj"]) if t_pre is None else t_pre
-    c1, c2 = params["conv1"], params["conv2"]
+    (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
     h, hstats = gn_silu_conv3x3_slab(
-        x, params["norm1"], c1["kernel"].to(x.dtype), c1["bias"],
-        num_groups=num_groups, emit_stats=True,
+        x, params["norm1"], k1, b1, num_groups=num_groups, emit_stats=True, **q1,
     )
     return gn_silu_conv3x3_slab(
-        h, params["norm2"], c2["kernel"].to(x.dtype), c2["bias"],
-        num_groups=num_groups, temb=t, residual=_shortcut(x, params),
-        stats=hstats, emit_stats=emit_stats,
+        h, params["norm2"], k2, b2, num_groups=num_groups, temb=t,
+        residual=_shortcut(x, params), stats=hstats, emit_stats=emit_stats, **q2,
     )
 
 

@@ -26,6 +26,7 @@ from sdtpu_torch.ops import (
     nearest_up_conv2d,
     silu,
 )
+from sdtpu_torch.utils.quant import resnet_conv_args
 
 
 def _shortcut(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -41,18 +42,17 @@ def vae_resnet(
     """Resnet without the time branch (eps 1e-6).  ``stats``: producer
     moments of ``x`` for norm1 (ignored if the channel count differs);
     ``emit_stats=True`` returns ``(out, moments)`` of the post-residual
-    output."""
+    output.  Quantized convs are routed as in the UNet resnet."""
     if stats is not None and stats.shape[-1] != x.shape[-1]:
         stats = None
-    c1, c2 = params["conv1"], params["conv2"]
+    (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
     h, hstats = gn_silu_conv3x3_slab(
-        x, params["norm1"], c1["kernel"].to(x.dtype), c1["bias"],
-        num_groups=num_groups, eps=1e-6, stats=stats, emit_stats=True,
+        x, params["norm1"], k1, b1, num_groups=num_groups, eps=1e-6, stats=stats,
+        emit_stats=True, **q1,
     )
     return gn_silu_conv3x3_slab(
-        h, params["norm2"], c2["kernel"].to(x.dtype), c2["bias"],
-        num_groups=num_groups, eps=1e-6, residual=_shortcut(x, params),
-        stats=hstats, emit_stats=emit_stats,
+        h, params["norm2"], k2, b2, num_groups=num_groups, eps=1e-6,
+        residual=_shortcut(x, params), stats=hstats, emit_stats=emit_stats, **q2,
     )
 
 

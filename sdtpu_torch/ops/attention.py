@@ -6,6 +6,8 @@ kernel with the head split done by the projections, which emit q/k/v
 head-major at the real head dim.  Cross-attention to the 77 text tokens and
 CLIP's causal attention stay dense: a matmul for the logits in float32, an
 f32 softmax, the weights cast to v's dtype, and a float32-accumulated P.V.
+Quantized projections (``utils/quant.py``) go through ``linear``'s int8
+forms on both routes.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from sdtpu_torch.kernels.flash_attention import flash_attention_packed
 from sdtpu_torch.ops.activations import geglu
-from sdtpu_torch.ops.linear import init_linear, linear
+from sdtpu_torch.ops.linear import init_linear, linear, linear_q8_dyn
 from sdtpu_torch.ops.norm import init_norm, layer_norm
 
 
@@ -63,7 +65,9 @@ def _flash_attention_fused_projections(
 ) -> torch.Tensor:
     """Self-attention through the flash kernel: the q/k/v projections emit
     (B, H, L, Dh), the kernel returns (B, H, L, Dh), and the out-projection
-    contracts heads and head dim with a (H, Dh, C) view of its kernel."""
+    contracts heads and head dim with a (H, Dh, C) view of its kernel.
+    Quantized q/k/v projections are ``linear_q8`` per output feature (the
+    port keeps the real head dim, so there is no lane pad to keep zero)."""
     b, l, c = x.shape
 
     def head_proj(p):
@@ -73,6 +77,13 @@ def _flash_attention_fused_projections(
     o = flash_attention_packed(head_proj(params["q"]), head_proj(params["k"]),
                                head_proj(params["v"]))
     po = params["out"]
+    if "kernel_q" in po:
+        # int8 out-projection with a run-time scale per (b, l) row over all
+        # heads and lanes -- taken whenever the weight is int8, a calibrated
+        # static scale included, as the JAX package's flash route does
+        # (sdtpu/ops/attention.py:170-187)
+        out = linear_q8_dyn(o.permute(0, 2, 1, 3).reshape(b, l, c), po)
+        return out if residual is None else residual + out
     wo = po["kernel"].to(x.dtype).reshape(num_heads, head_dim, c)
     out = torch.einsum("bhld,hdc->blc", o, wo)
     if "bias" in po:

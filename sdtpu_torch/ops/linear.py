@@ -1,16 +1,120 @@
-"""Dense layer with (in, out) kernels, as the JAX package stores them."""
+"""Dense layer with (in, out) kernels, as the JAX package stores them, and
+its int8 (W8A8) forms.
+
+Counterpart of ``sdtpu/ops/linear.py``.  ``linear`` dispatches on the dict:
+``kernel_q`` with ``act_scale`` is the static W8A8 :func:`linear_q8`,
+``kernel_q`` alone the run-time-scaled :func:`linear_q8_dyn`.  The int8
+products are exact integer sums (:func:`int8_matmul`), never accumulated in
+a float type.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
+
+from sdtpu_torch.utils.quant import quantize_act
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def activation_capture(store: dict, site_by_kernel_id: dict):
+    """Record per-feature input abs-max for selected linears (int8
+    calibration, ``utils/calibrate.py``).
+
+    ``site_by_kernel_id`` maps ``id(params["kernel"])`` -> site path;
+    matched calls max-accumulate ``max |x|`` over all leading axes into
+    ``store[path]``.  Eager only: a traced or compiled forward has no values
+    and raises."""
+    _capture.store = store
+    _capture.sites = site_by_kernel_id
+    try:
+        yield store
+    finally:
+        _capture.store = None
+        _capture.sites = None
+
+
+def _maybe_capture(x: torch.Tensor, params: dict) -> None:
+    sites = getattr(_capture, "sites", None)
+    if not sites:
+        return
+    site = sites.get(id(params.get("kernel")))
+    if site is None:
+        return
+    if torch.jit.is_tracing() or torch.compiler.is_compiling():
+        raise RuntimeError(
+            "activation_capture needs concrete values: run the forward "
+            "eagerly during calibration")
+    amax = x.detach().float().abs().amax(dim=tuple(range(x.ndim - 1))).cpu().numpy()
+    store = _capture.store
+    prev = store.get(site)
+    store[site] = amax if prev is None else np.maximum(prev, amax)
+
+
+def int8_matmul(q: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 @ (K, N) int8 -> (..., N) int32, exact.
+
+    On the card this is cuBLAS's int8 GEMM (``torch._int_mm``: K and N
+    multiples of 8; fewer than 17 rows are padded); the JAX package leaves
+    the same product to XLA.  On the CPU the product runs in float64, whose
+    53-bit mantissa holds every sum of |q| <= 128 terms exactly."""
+    lead, k = q.shape[:-1], q.shape[-1]
+    q2 = q.reshape(-1, k)
+    if q.device.type == "cpu":
+        return (q2.double() @ kernel_q.double()).to(torch.int32).reshape(*lead, -1)
+    m = q2.shape[0]
+    if m <= 16:
+        q2 = torch.cat([q2, q2.new_zeros((17 - m, k))])
+    out = torch._int_mm(q2.contiguous(), kernel_q.contiguous())[:m]
+    return out.reshape(*lead, -1)
 
 
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
+    _maybe_capture(x, params)
+    if "kernel_q" in params:
+        if "act_scale" in params:
+            return linear_q8(x, params)
+        return linear_q8_dyn(x, params)
     out = torch.matmul(x, params["kernel"].to(x.dtype))
     bias = params.get("bias")
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def linear_q8(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """W8A8 linear: quantize ``x`` with the dict's per-feature affine code,
+    contract int8 x int8 -> int32, rescale per output feature, subtract the
+    zero-point correction and add the bias, in float32, then cast."""
+    acc = int8_matmul(quantize_act(x, params), params["kernel_q"])
+    out = acc.float() * params["w_scale"].float()
+    out = out - params["zp_corr"].float()
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def linear_q8_dyn(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """W8A8 linear with a run-time symmetric per-row scale: each row's
+    abs-max maps to +-127 (so no clip), the int32 product is rescaled by
+    the row scale and the per-output weight scale, then the bias."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
+    q = torch.round(xf / scale).to(torch.int8)
+    acc = int8_matmul(q, params["kernel_q"])
+    out = acc.float() * scale
+    out = out * params["w_scale"].float()
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def uniform(gen: torch.Generator, shape, dtype, bound: float) -> torch.Tensor:

@@ -72,6 +72,29 @@ class StableDiffusionPipeline:
         return cls(config, params_from_numpy(numpy_tree, device=device), tokenizer,
                    device=device)
 
+    def quantize_int8(self, *, vae: Optional[bool] = None, **kw) -> "StableDiffusionPipeline":
+        """Quantize the UNet's resnet convs to int8 (W8A8) in place; returns
+        self.  On the card each quantized resnet conv then runs the int8
+        slab kernel (kernel D).  ``kw`` goes to
+        ``utils/quant.py:quantize_pipeline_int8`` (``min_ch``,
+        ``transformer=False|True|"full"``, ``skip_down``/``skip_up``,
+        ``act_ranges``/``act_margin``, ``sigmas``).  ``vae=True`` adds the
+        VAE decoder's resnet convs; ``vae=None`` turns it on for few-step
+        presets (``default_steps <= 8``) and logs that it did, as the JAX
+        package does.  CLIP stays float."""
+        import logging
+
+        from sdtpu_torch.utils.quant import quantize_pipeline_int8
+
+        if vae is None:
+            vae = self.config.default_steps <= 8
+            if vae:
+                logging.getLogger("sdtpu_torch.pipeline").info(
+                    "quantize_int8: few-step preset %s: the int8 VAE decoder path "
+                    "is on (pass vae=False to leave it float)", self.config.name)
+        self.params = quantize_pipeline_int8(self.params, vae=vae, **kw)
+        return self
+
     def generate(
         self,
         prompt: str = "",
