@@ -10,11 +10,16 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               into ``build/`` (one nvcc per source, all started together).
 3. kernels -- each hand-written kernel against its plain PyTorch version on
               the card at the main paths' shapes (tolerance stated per
-              line), then every kernel call configuration of the two main
-              paths timed with CUDA events: the kernel, its plain version,
-              and one library call for the same function as a yardstick
-              (for the int8 slab conv, which no one call computes, two
-              float counterparts instead: kernel A and cuDNN bf16).
+              line), then every kernel call configuration of the main paths
+              timed with CUDA events: the kernel, its plain version, and one
+              library call for the same function as a yardstick (for the
+              int8 slab conv, which no one call computes, two float
+              counterparts instead: kernel A and cuDNN bf16).  Kernels F
+              and G are checked and timed at every call shape of the ring
+              and the packed routes, recorded from a one-step image of each,
+              and their device time is also read from torch.profiler (at
+              these shapes a call's kernel can be shorter than its
+              host-side enqueue, which then sets the CUDA-event time).
 4. e2e     -- ``StableDiffusionPipeline.from_random("tiny-sd")`` and one
               512x512, 25-step DDPM + CFG image (after a warm-up image);
               checks the image and the kernels' launch counts, prints
@@ -22,7 +27,23 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               forward and one VAE decode through the kernels and through
               the plain versions, beside the plain path's own bf16-versus-
               float32 difference.
-5. int8    -- the same pipeline after ``quantize_int8(transformer=True,
+5. ring    -- ``attention_impl="ring"`` under ``ring_context(LocalRing(4))``:
+              all four shards of the sequence-parallel ring on the one card,
+              every latent self-attention through kernel F (16 launches per
+              attention call); a warm-up and one timed image with exact launch
+              counts (derived from the tree), then the ring UNet forward and
+              VAE decode through the kernels against the plain ring route,
+              beside that route's bf16-vs-f32 difference, and (for
+              information) against the flash route.
+6. nccl    -- ``health_check`` on a one-rank NCCL group, and the ring over
+              ``ProcessGroupRing`` on it against ``LocalRing(1)``.
+7. packed  -- the flash route with ``_PACKED_OUT_PROJ`` on: every
+              self-attention's out-projection and residual add through
+              kernel G; an image with exact launch counts and the same
+              kernels-vs-plain control; then seconds per image of the
+              flash, packed and ring routes in turns (flash, packed, ring,
+              ring, packed, flash).
+8. int8    -- the same pipeline after ``quantize_int8(transformer=True,
               vae=True)``: the quantization's host seconds; the int8 slab
               kernel checked and timed (phase 3's work) at every int8 call
               shape; a warm-up and one timed image with exact launch counts
@@ -40,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -53,7 +75,8 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
-              "flash_attention": 226}
+              "flash_attention": 226, "flash_attention_stats": 0, "out_proj_packed": 0}
+RING = 4                  # shards of the sequence-parallel ring on the one card
 SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replaces)
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
     "conv3x3_slab_upsample": ("sdtpu_torch/csrc/conv3x3_slab.cu",
@@ -62,6 +85,10 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                         "sdtpu/kernels/flash_attention.py:267"),
     "conv3x3_slab_int8": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
                           "sdtpu/kernels/conv2d.py:456"),
+    "flash_attention_stats": ("sdtpu_torch/csrc/flash_attention.cu",
+                              "sdtpu/kernels/flash_attention.py:379"),
+    "out_proj_packed": ("sdtpu_torch/csrc/out_proj_packed.cu",
+                        "sdtpu/kernels/flash_attention.py:464"),
 }
 
 
@@ -71,26 +98,44 @@ def log(msg: str) -> None:
 
 # ---------------------------------------------------------------- routing --
 
-_SITES = (
-    ("sdtpu_torch.kernels.conv2d", "conv3x3_slab"),
-    ("sdtpu_torch.ops.conv", "conv3x3_slab"),
-    ("sdtpu_torch.ops.attention", "flash_attention_packed"),
-)
+_SITES = {  # each kernel wrapper's call sites on the main paths
+    "conv3x3_slab": (("sdtpu_torch.kernels.conv2d", "conv3x3_slab"),
+                     ("sdtpu_torch.ops.conv", "conv3x3_slab")),
+    "flash_attention_packed": (("sdtpu_torch.ops.attention", "flash_attention_packed"),),
+    "flash_attention_stats_packed": (("sdtpu_torch.parallel.ring_attention",
+                                      "flash_attention_stats_packed"),),
+    "out_proj_packed": (("sdtpu_torch.ops.attention", "out_proj_packed"),),
+}
 
 
 @contextlib.contextmanager
-def routed(conv_fn, flash_fn):
-    """Point every call site of the two kernel wrappers at other functions
-    (a recording shim, or the plain versions) for the duration."""
-    mods = [sys.modules[m] for m, _ in _SITES]
-    saved = [getattr(m, n) for m, (_, n) in zip(mods, _SITES)]
-    for m, (_, n) in zip(mods, _SITES):
-        setattr(m, n, flash_fn if n == "flash_attention_packed" else conv_fn)
+def routed(**fns):
+    """Point every call site of the named kernel wrappers at other
+    functions (a recording shim, or the plain versions) for the duration."""
+    saved = []
+    for key, fn in fns.items():
+        for mod, name in _SITES[key]:
+            m = sys.modules[mod]
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, fn)
     try:
         yield
     finally:
-        for m, (_, n), f in zip(mods, _SITES, saved):
-            setattr(m, n, f)
+        for m, name, f in reversed(saved):
+            setattr(m, name, f)
+
+
+def plain_routes():
+    from sdtpu_torch.kernels.conv2d import conv3x3_slab_plain
+    from sdtpu_torch.kernels.flash_attention import (
+        flash_attention_plain,
+        flash_attention_stats_plain,
+        out_proj_packed_plain,
+    )
+
+    return {"conv3x3_slab": conv3x3_slab_plain, "flash_attention_packed": flash_attention_plain,
+            "flash_attention_stats_packed": flash_attention_stats_plain,
+            "out_proj_packed": out_proj_packed_plain}
 
 
 # ---------------------------------------------------------- kernel cases --
@@ -128,6 +173,19 @@ def flash_cost(q_shape, lk):
     return 2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d
 
 
+def flash_stats_cost(q_shape, lk):
+    """Kernel C's bytes and operations plus the m and l rows it writes."""
+    b, h, lq, _ = q_shape
+    by, ops = flash_cost(q_shape, lk)
+    return by + 2 * b * h * lq * 4, ops
+
+
+def out_proj_cost(o_shape, c):
+    """o, w, the f32 bias, the residual read once; the output written once."""
+    b, h, l, d = o_shape
+    return b * h * l * d * 2 + h * d * c * 2 + c * 4 + 2 * b * l * c * 2, 2.0 * b * l * c * h * d
+
+
 def int8_conv_cost(x_shape, co, *, res, stats):
     """(bytes, int8 ops) of one int8 slab call: x bf16, the int8 kernel,
     bias, w_scale, the (B, Ci) prologue, the (Ci,) codes' scale and zero
@@ -155,6 +213,23 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call: the kernels' own time summed over ``reps``
+    calls under torch.profiler (CUDA activity only), so that a call whose
+    kernel is shorter than its host-side enqueue is not timed by the host.
+    None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    return us / 1e3 / reps if us > 0 else None
 
 
 def max_err(a, b):
@@ -291,35 +366,124 @@ def time_flash(torch, gen, q_shape, lk):
     return t_k, t_p, t_l
 
 
+def flash_stats_case(torch, gen, q_shape, lk):
+    """Kernel F at one call shape: out, m and l against the plain version
+    (each within TOL_REL of its max |plain|), then the times.  Library: the
+    flash SDPA that returns the log-sum-exp (m + log l, not m and l), or the
+    memory-efficient one where flash refuses the head dim."""
+    from sdtpu_torch.kernels.flash_attention import (
+        flash_attention_stats_packed,
+        flash_attention_stats_plain,
+    )
+
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(q_shape[:2] + (lk, q_shape[3]), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    got = flash_attention_stats_packed(q, k, v)
+    want = flash_attention_stats_plain(q, k, v)
+    torch.cuda.synchronize()
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    ok = all(e <= TOL_REL * r for e, r in errs)
+    log(f"check flash_attention_stats q={tuple(q_shape)} lk={lk}: "
+        + ", ".join(f"{n} max_abs_err={e:.4g} (max|plain|={r:.4g})"
+                    for n, (e, r) in zip(("out", "m", "l"), errs))
+        + f", tol {TOL_REL:g} rel" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("flash_attention_stats disagrees with its plain version")
+    t_k = cuda_ms(torch, lambda: flash_attention_stats_packed(q, k, v), 10)
+    t_p = cuda_ms(torch, lambda: flash_attention_stats_plain(q, k, v), 3)
+    aten = torch.ops.aten
+    libs = (("_scaled_dot_product_flash_attention", lambda: aten._scaled_dot_product_flash_attention(q, k, v)),
+            ("_scaled_dot_product_efficient_attention",
+             lambda: aten._scaled_dot_product_efficient_attention(q, k, v, None, True)))
+    t_l = lib_call = None
+    for name, fn in libs:
+        try:
+            t_l = cuda_ms(torch, fn, 10)
+        except RuntimeError as exc:
+            log(f"library {name} refuses q={tuple(q_shape)}: {str(exc).splitlines()[0]}")
+            continue
+        log(f"library for flash_attention_stats q={tuple(q_shape)} lk={lk}: aten.{name} "
+            f"(returns the log-sum-exp m + log l, not m and l): {t_l:.4f} ms")
+        lib_call = f"aten.{name}"
+        break
+    dev = {"kernel": device_ms(torch, lambda: flash_attention_stats_packed(q, k, v), 10),
+           "library": None if t_l is None else device_ms(torch, fn, 10),
+           "library_call": lib_call}
+    return errs[0][0], t_k, t_p, t_l, dev
+
+
+def out_proj_case(torch, gen, o_shape, c):
+    """Kernel G at one call shape against its plain version, then the
+    times.  Library: the default route's einsum + bias + residual in bf16
+    (three roundings where G rounds once)."""
+    from sdtpu_torch.kernels.flash_attention import out_proj_packed, out_proj_packed_plain
+
+    b, h, l, d = o_shape
+    o = torch.randn(o_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((h, d, c), generator=gen, device="cuda") * (h * d) ** -0.5).to(torch.bfloat16)
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    res = torch.randn((b, l, c), generator=gen, device="cuda").to(torch.bfloat16)
+    got = out_proj_packed(o, w, bias, res)
+    want = out_proj_packed_plain(o, w, bias, res)
+    torch.cuda.synchronize()
+    err, ref = max_err(got, want)
+    ok = err <= TOL_REL * ref
+    log(f"check out_proj_packed o={tuple(o_shape)} c={c}: max_abs_err={err:.4g} "
+        f"(max|plain|={ref:.4g}, rel {err / ref:.3g}, tol {TOL_REL:g})" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("out_proj_packed disagrees with its plain version")
+    b16 = bias.to(torch.bfloat16)
+    t_k = cuda_ms(torch, lambda: out_proj_packed(o, w, bias, res), 20)
+    t_p = cuda_ms(torch, lambda: out_proj_packed_plain(o, w, bias, res), 5)
+    t_l = cuda_ms(torch, lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res, 20)
+    dev = {"kernel": device_ms(torch, lambda: out_proj_packed(o, w, bias, res), 20),
+           "library": device_ms(torch, lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res,
+                                20),
+           "library_call": "einsum + bias + residual"}
+    return err, t_k, t_p, t_l, dev
+
+
 def record_main_path_calls(torch, pipe, ids):
     """A main path's kernel call configurations with their counts per
     image: one 1-step image recorded through shims, UNet calls (batch 2
-    under CFG) scaled to STEPS steps.  A conv configuration is (x shape,
-    Co, prologue, residual, upsample, moments, int8 kernel)."""
+    under CFG) scaled to STEPS steps.  Returns ``{wrapper: {config: n}}``;
+    a conv configuration is (x shape, Co, prologue, residual, upsample,
+    moments, int8 kernel), an attention one (q shape, Lk), an
+    out-projection one (o shape, C).  The ring context in force, if any,
+    applies."""
     # sys.modules: the package sdtpu_torch.ops re-exports a function named
     # ``attention`` that shadows its submodule of that name
-    real_conv = sys.modules["sdtpu_torch.kernels.conv2d"].conv3x3_slab
-    real_flash = sys.modules["sdtpu_torch.ops.attention"].flash_attention_packed
-    convs, flashes = Counter(), Counter()
+    real = {key: getattr(sys.modules[sites[0][0]], sites[0][1]) for key, sites in _SITES.items()}
+    calls = {key: Counter() for key in _SITES}
 
     def conv_shim(x, kernel, conv_bias=None, **kw):
-        convs[(tuple(x.shape), kernel.shape[-1], kw.get("prologue_scale") is not None,
-               kw.get("residual") is not None, bool(kw.get("upsample")),
-               bool(kw.get("emit_stats")), kernel.dtype == torch.int8)] += 1
-        return real_conv(x, kernel, conv_bias, **kw)
+        calls["conv3x3_slab"][(tuple(x.shape), kernel.shape[-1],
+                               kw.get("prologue_scale") is not None,
+                               kw.get("residual") is not None, bool(kw.get("upsample")),
+                               bool(kw.get("emit_stats")), kernel.dtype == torch.int8)] += 1
+        return real["conv3x3_slab"](x, kernel, conv_bias, **kw)
 
-    def flash_shim(q, k, v):
-        flashes[(tuple(q.shape), k.shape[2])] += 1
-        return real_flash(q, k, v)
+    def attn_shim(key):
+        def shim(q, k, v):
+            calls[key][(tuple(q.shape), k.shape[2])] += 1
+            return real[key](q, k, v)
+        return shim
 
-    with routed(conv_shim, flash_shim):
+    def out_proj_shim(o, w, bias, residual):
+        calls["out_proj_packed"][(tuple(o.shape), w.shape[-1])] += 1
+        return real["out_proj_packed"](o, w, bias, residual)
+
+    with routed(conv3x3_slab=conv_shim,
+                flash_attention_packed=attn_shim("flash_attention_packed"),
+                flash_attention_stats_packed=attn_shim("flash_attention_stats_packed"),
+                out_proj_packed=out_proj_shim):
         pipe.generate(token_ids=ids, num_inference_steps=1, seed=1, image_size=512)
 
     def per_image(shape):
         return STEPS if shape[0] == 2 else 1  # UNet runs at batch 2, the VAE at 1
 
-    return ({c: n * per_image(c[0]) for c, n in convs.items()},
-            {c: n * per_image(c[0]) for c, n in flashes.items()})
+    return {key: {c: n * per_image(c[0]) for c, n in cs.items()} for key, cs in calls.items()}
 
 
 def rel_l2(torch, a, b):
@@ -365,10 +529,10 @@ def main() -> int:
 
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
-    from sdtpu_torch.kernels.conv2d import conv3x3_slab_plain
-    from sdtpu_torch.kernels.flash_attention import flash_attention_plain
+    from sdtpu_torch.parallel import LocalRing, ring_context
 
     details = {"device": smi}
+    plain = plain_routes()
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -401,21 +565,59 @@ def main() -> int:
 
     ids = np.random.default_rng(40).integers(1, 49408, (2, 77))
     pipe = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
-    conv_calls, flash_calls = record_main_path_calls(torch, pipe, ids)
+    pcfg = pipe.config
+    pipe_ring = StableDiffusionPipeline(pcfg.replace(attention_impl="ring"), pipe.params,
+                                        device="cuda")
+    attn_mod = sys.modules["sdtpu_torch.ops.attention"]
+    calls = record_main_path_calls(torch, pipe, ids)
+    with ring_context(LocalRing(RING)):
+        ring_calls = record_main_path_calls(torch, pipe_ring, ids)
+    attn_mod._PACKED_OUT_PROJ = True
+    try:
+        packed_calls = record_main_path_calls(torch, pipe, ids)
+    finally:
+        attn_mod._PACKED_OUT_PROJ = False
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "byte_ms": 0.0, "op_ms": 0.0, "per_image_calls": 0} for n in SOURCES}
     rows = []
-    for cfg, n in sorted(conv_calls.items()):
+    for cfg, n in sorted(calls["conv3x3_slab"].items()):
         x_shape, co, pro, res, up, stats, _ = cfg
         t_k, t_p, t_l = time_conv(torch, gen, cfg[:6])
         cost = conv_cost(x_shape, co, pro=pro, res=res, up=up, stats=stats)
         rows.append(("conv3x3_slab_upsample" if up else "conv3x3_slab",
                      f"x={x_shape} co={co} pro={int(pro)} res={int(res)} st={int(stats)}",
                      n, t_k, t_p, t_l, cost, PEAK_BF16_FLOPS))
-    for (q_shape, lk), n in sorted(flash_calls.items()):
+    for (q_shape, lk), n in sorted(calls["flash_attention_packed"].items()):
         t_k, t_p, t_l = time_flash(torch, gen, q_shape, lk)
         rows.append(("flash_attention", f"q={q_shape} lk={lk}", n, t_k, t_p, t_l,
                      flash_cost(q_shape, lk), PEAK_BF16_FLOPS))
+    # F and G: besides the CUDA-event time of back-to-back calls, the
+    # profiler's device time, since at these shapes a call's kernel can be
+    # shorter than its host-side enqueue
+    device = {}
+    cases = [("flash_attention_stats", f"q={q} lk={lk}", n, flash_stats_cost(q, lk),
+              functools.partial(flash_stats_case, torch, gen, q, lk))
+             for (q, lk), n in sorted(ring_calls["flash_attention_stats_packed"].items())]
+    cases += [("out_proj_packed", f"o={o} c={c}", n, out_proj_cost(o, c),
+               functools.partial(out_proj_case, torch, gen, o, c))
+              for (o, c), n in sorted(packed_calls["out_proj_packed"].items())]
+    for name, desc, n, cost, case in cases:
+        err, t_k, t_p, t_l, dev = case()
+        errs[name] = max(errs.get(name, 0.0), err)
+        rows.append((name, desc, n, t_k, t_p, t_l, cost, PEAK_BF16_FLOPS))
+        fmt = {k: "not measured" if dev[k] is None else f"{dev[k]:.4f} ms"
+               for k in ("kernel", "library")}
+        log(f"device time {name} {desc}: kernel {fmt['kernel']}, library "
+            f"({dev['library_call']}) {fmt['library']} (torch.profiler, per call)")
+        details.setdefault("device_ms_per_call", []).append(
+            {"kernel": name, "config": desc, "per_image": n, "kernel_ms": dev["kernel"],
+             "library_ms": dev["library"], "library_call": dev["library_call"]})
+        tot = device.setdefault(name, {"kernel_ms": 0.0, "library_ms": 0.0})
+        for k in ("kernel", "library"):
+            tot[f"{k}_ms"] = None if dev[k] is None or tot[f"{k}_ms"] is None \
+                else tot[f"{k}_ms"] + n * dev[k]
+    details["device_ms_per_image"] = device
+    log(f"device time per image (torch.profiler): {device}")
 
     # phase 4: end to end, bf16
     counts, e2e = run_image(torch, np, pipe, ids, "e2e", launch_counts, reset_launch_counts)
@@ -429,47 +631,122 @@ def main() -> int:
     from sdtpu_torch.models.unet import unet_forward
     from sdtpu_torch.models.vae import vae_decode
 
-    pcfg = pipe.config
     lat = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
     ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
     ts = torch.full((2,), 501.0, device="cuda")
     dec_in = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
-    unet32, vae32 = (to_dtype(pipe.params[k], torch.float32) for k in ("unet", "vae_decoder"))
 
-    def unet(params, dt):
-        return unet_forward(lat.to(dt), ts, ctx.to(dt), params, pcfg.unet).float()
+    def unet(params, dt, impl="flash"):
+        return unet_forward(lat.to(dt), ts, ctx.to(dt), params, pcfg.unet,
+                            attention_impl=impl).float()
 
-    def vae(params, dt):
-        return vae_decode(dec_in.to(dt), params, pcfg.vae).float()
+    def vae(params, dt, impl="flash"):
+        return vae_decode(dec_in.to(dt), params, pcfg.vae, attention_impl=impl).float()
 
-    with torch.inference_mode():
-        k_unet = unet(pipe.params["unet"], torch.bfloat16)
-        k_vae = vae(pipe.params["vae_decoder"], torch.bfloat16)
-        with routed(conv3x3_slab_plain, flash_attention_plain):
-            p_unet = unet(pipe.params["unet"], torch.bfloat16)
-            p_vae = vae(pipe.params["vae_decoder"], torch.bfloat16)
-            f_unet = unet(unet32, torch.float32)
-            f_vae = vae(vae32, torch.float32)
-    del unet32, vae32
-    control = {}
-    for what, k_out, p_out, f_out in (("unet_forward", k_unet, p_unet, f_unet),
-                                      ("vae_decode", k_vae, p_vae, f_vae)):
-        finite = bool(torch.isfinite(k_out).all())
-        d_kp = rel_l2(torch, k_out, p_out)
-        d_pf = rel_l2(torch, p_out, f_out)
-        d_kf = rel_l2(torch, k_out, f_out)
-        ok = finite and d_kp <= max(2.0 * d_pf, 1e-2)
-        log(f"control {what}: rel L2 kernels-vs-plain (bf16) {d_kp:.4g}; plain bf16-vs-f32 "
-            f"{d_pf:.4g}; kernels-vs-plain-f32 {d_kf:.4g}; finite {finite}; "
-            f"tol max(2x bf16-vs-f32, 1e-2)" + (" ok" if ok else " FAIL"))
-        control[what] = {"kernels_vs_plain": d_kp, "plain_bf16_vs_f32": d_pf,
-                         "kernels_vs_f32": d_kf}
-        if not ok:
-            raise AssertionError(f"{what}: kernels disagree with the plain path")
+    def route_outputs(params, impl="flash"):
+        """(kernels bf16, plain bf16, plain f32) of the UNet forward and of
+        the VAE decode through one attention route."""
+        params32 = {k: to_dtype(params[k], torch.float32) for k in ("unet", "vae_decoder")}
+        with torch.inference_mode():
+            k_out = (unet(params["unet"], torch.bfloat16, impl),
+                     vae(params["vae_decoder"], torch.bfloat16, impl))
+            with routed(**plain):
+                p_out = (unet(params["unet"], torch.bfloat16, impl),
+                         vae(params["vae_decoder"], torch.bfloat16, impl))
+                f_out = (unet(params32["unet"], torch.float32, impl),
+                         vae(params32["vae_decoder"], torch.float32, impl))
+        return k_out, p_out, f_out
+
+    def judge(label, outs):
+        """kernels vs plain <= max(2 x the plain route's bf16-vs-f32, 1e-2)."""
+        result = {}
+        for i, what in enumerate(("unet_forward", "vae_decode")):
+            k_out, p_out, f_out = (o[i] for o in outs)
+            finite = bool(torch.isfinite(k_out).all())
+            d_kp = rel_l2(torch, k_out, p_out)
+            d_pf = rel_l2(torch, p_out, f_out)
+            d_kf = rel_l2(torch, k_out, f_out)
+            ok = finite and d_kp <= max(2.0 * d_pf, 1e-2)
+            log(f"{label} {what}: rel L2 kernels-vs-plain (bf16) {d_kp:.4g}; plain "
+                f"bf16-vs-f32 {d_pf:.4g}; kernels-vs-plain-f32 {d_kf:.4g}; finite {finite}; "
+                f"tol max(2x bf16-vs-f32, 1e-2)" + (" ok" if ok else " FAIL"))
+            result[what] = {"kernels_vs_plain": d_kp, "plain_bf16_vs_f32": d_pf,
+                            "kernels_vs_f32": d_kf}
+            if not ok:
+                raise AssertionError(f"{label} {what}: kernels disagree with the plain route")
+        return result
+
+    flash_outs = route_outputs(pipe.params)
+    (k_unet, k_vae), (p_unet, p_vae), _ = flash_outs
+    control = judge("control", flash_outs)
     details["control"] = control
-    pipe.params = None  # the int8 image's peak memory holds only its own tree
 
-    # phase 5: int8 (W8A8); kernel D checked and timed at every int8 call
+    # derived from the tree: the self-attention calls per image (every UNet
+    # transformer block per step, the VAE mid-block's attention once)
+    uparams = pipe.params["unet"]
+    n_blocks = sum(len(a["blocks"]) for blk in uparams["down_blocks"] + uparams["up_blocks"]
+                   for a in blk.get("attentions", []))
+    n_blocks += sum(len(a["blocks"]) for a in uparams.get("mid_block", {}).get("attentions", []))
+    n_self = STEPS * n_blocks + 1
+    log(f"{n_blocks} UNet transformer blocks x {STEPS} steps + 1 VAE attention = {n_self} "
+        f"self-attention calls per image")
+    if n_self != E2E_COUNTS["flash_attention"]:
+        raise AssertionError(f"{n_self} self-attention calls, but kernel C runs "
+                             f"{E2E_COUNTS['flash_attention']} times per image")
+
+    # phase 5: the sequence-parallel ring on the one card, kernel F
+    ring_expected = dict(E2E_COUNTS, flash_attention=0, flash_attention_stats=RING * RING * n_self)
+    with ring_context(LocalRing(RING)):
+        ring_counts, ring_e2e = run_image(torch, np, pipe_ring, ids, "ring", launch_counts,
+                                          reset_launch_counts)
+        log(f"ring expected launches ({RING}x{RING} F launches per self-attention call): "
+            f"{ring_expected}")
+        if ring_counts != ring_expected:
+            raise AssertionError(f"ring launch counts {ring_counts} != expected {ring_expected}")
+        ring_outs = route_outputs(pipe.params, "ring")
+    details["ring"] = ring_e2e
+    details["ring_control"] = judge("ring control", ring_outs)
+    for i, what in enumerate(("unet_forward", "vae_decode")):
+        d = rel_l2(torch, ring_outs[0][i], flash_outs[0][i])
+        log(f"ring vs flash route (kernels, bf16) {what}: rel L2 {d:.4g} (for information)")
+        details["ring_control"][what]["ring_vs_flash"] = d
+
+    # phase 6: one-rank NCCL group: health_check and the ring over it
+    details["nccl"] = nccl_phase(torch)
+
+    # phase 7: the packed out-projection, kernel G
+    packed_expected = dict(E2E_COUNTS, out_proj_packed=n_self)
+    attn_mod._PACKED_OUT_PROJ = True
+    try:
+        packed_counts, packed_e2e = run_image(torch, np, pipe, ids, "packed", launch_counts,
+                                              reset_launch_counts)
+        log(f"packed expected launches: {packed_expected}")
+        if packed_counts != packed_expected:
+            raise AssertionError(
+                f"packed launch counts {packed_counts} != expected {packed_expected}")
+        details["packed"] = packed_e2e
+        details["packed_control"] = judge("packed control", route_outputs(pipe.params))
+    finally:
+        attn_mod._PACKED_OUT_PROJ = False
+    # the three routes' seconds per image in turns inside this call (host-
+    # side variance between calls is large)
+    turns = []
+    for route in ("flash", "packed", "ring", "ring", "packed", "flash"):
+        attn_mod._PACKED_OUT_PROJ = route == "packed"
+        try:
+            with ring_context(LocalRing(RING) if route == "ring" else None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (pipe_ring if route == "ring" else pipe).generate(
+                    token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+                turns.append((route, time.perf_counter() - t0))
+        finally:
+            attn_mod._PACKED_OUT_PROJ = False
+    log("s/image in turns: " + ", ".join(f"{r} {t:.4f}" for r, t in turns))
+    details["route_turns_s"] = turns
+    pipe.params = pipe_ring.params = None  # the int8 image's peak memory holds only its own tree
+
+    # phase 8: int8 (W8A8); kernel D checked and timed at every int8 call
     # shape (phase 3's work for this path), then the int8 image
     pipe_q = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
     t0 = time.perf_counter()
@@ -478,7 +755,7 @@ def main() -> int:
     quant_s = time.perf_counter() - t0
     log(f"int8: quantize_int8(transformer=True, vae=True) took {quant_s:.3f} s on the host")
     details["quantize_s"] = quant_s
-    q_calls, _ = record_main_path_calls(torch, pipe_q, ids)
+    q_calls = record_main_path_calls(torch, pipe_q, ids)["conv3x3_slab"]
     # kernel D at every int8 call shape of the int8 path
     counterparts = {"kernel_A_ms": 0.0, "cudnn_bf16_ms": 0.0}
     d_configs = []
@@ -549,15 +826,14 @@ def main() -> int:
     with torch.inference_mode():
         kq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
         kq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
-        with routed(conv3x3_slab_plain, flash_attention_plain):
+        with routed(**plain):
             pq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
             pq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
             fq_unet = unet(q32["unet"], torch.float32)
             fq_vae = vae(q32["vae_decoder"], torch.float32)
         # one kernel on the card, the rest plain: how far a single kernel's
         # bf16-level differences move the int8 route
-        with routed(conv3x3_slab_plain, sys.modules["sdtpu_torch.ops.attention"]
-                    .flash_attention_packed):
+        with routed(conv3x3_slab=plain["conv3x3_slab"]):
             cq_unet = unet(pipe_q.params["unet"], torch.bfloat16)
             cq_vae = vae(pipe_q.params["vae_decoder"], torch.bfloat16)
     del q32
@@ -596,7 +872,8 @@ def main() -> int:
         tot = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": (q_counts if name == "conv3x3_slab_int8" else counts)[name],
+            "launches": {"conv3x3_slab_int8": q_counts, "flash_attention_stats": ring_counts,
+                         "out_proj_packed": packed_counts}.get(name, counts)[name],
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["byte_ms"] > tot["op_ms"] else "operations",
@@ -608,12 +885,45 @@ def main() -> int:
             json.dump(details, f, indent=1)
     log("kernel times are per image: the sum over the main path's calls "
         "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 are "
-        "the int8 image's, the others the bf16 image's")
+        "the int8 image's, of flash_attention_stats the ring image's, of out_proj_packed "
+        "the packed image's, the others the bf16 image's")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def nccl_phase(torch):
+    """A one-rank NCCL group on the card: ``health_check`` over it, and the
+    ring over ``ProcessGroupRing`` (its all_gather on NCCL) against
+    ``LocalRing(1)``, bitwise.  Several ranks would need several cards."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sdtpu_torch.parallel import LocalRing, ProcessGroupRing, health_check, ring_attention
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        report = health_check()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        q, k, v = (torch.randn((2, 256, 8, 40), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        same = bool(torch.equal(ring_attention(q, k, v, ProcessGroupRing()),
+                                ring_attention(q, k, v, LocalRing(1))))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    log(f"nccl: health_check on a 1-rank NCCL group: {report}; ring over ProcessGroupRing "
+        f"== LocalRing(1) bitwise: {same}" + (" ok" if report["ok"] and same else " FAIL"))
+    if not (report["ok"] and same):
+        raise AssertionError("the one-rank NCCL group is not healthy")
+    return {"health_check": report, "process_group_ring_equals_local": same}
 
 
 def run_image(torch, np, pipe, ids, label, launch_counts, reset_launch_counts):

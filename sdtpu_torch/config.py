@@ -126,6 +126,9 @@ class PipelineConfig:
     # The port routes latent self-attention through the flash kernel and
     # every resnet / up-block conv through the slab kernel ("auto"); on a
     # CPU tensor each kernel wrapper runs its plain PyTorch version.
+    # attention_impl="ring" runs sequence-parallel ring attention over the
+    # active sdtpu_torch.parallel.ring_context (dense where the token count
+    # does not shard, e.g. the 77-token text context).
     attention_impl: str = "auto"
     conv_impl: str = "auto"
 

@@ -1,17 +1,27 @@
 // Non-causal flash attention over head-major (B*H, L, D) bf16 tensors with
-// an f32 online softmax.
+// an f32 online softmax, in two compile-time modes of one kernel:
 //
-// Replaces the TPU kernel sdtpu/kernels/flash_attention.py:
-// flash_attention_packed -> _flash_attention_packed_impl -> _kernel, used by
-// the UNet's self-attention (ops/attention.py) and the VAE mid-block's
-// single-head attention (models/vae.py).
+// * C (STATS = false) replaces sdtpu/kernels/flash_attention.py:
+//   flash_attention_packed -> _flash_attention_packed_impl -> _kernel, used
+//   by the UNet's self-attention (ops/attention.py) and the VAE mid-block's
+//   single-head attention (models/vae.py).
+// * F (STATS = true) replaces sdtpu/kernels/flash_attention.py:
+//   flash_attention_stats -> _kernel(emit_stats=True), the per-KV-block
+//   primitive of ring attention (parallel/ring_attention.py): the same
+//   output, normalised over this KV block only, plus each row's running max
+//   m of the scaled scores and running sum l = sum exp(s_j - m), both f32,
+//   from which the ring merges its blocks exactly.  Both plans write them:
+//   one row's l is spread over the four lanes of an mma.sync quad (each
+//   lane sums its own key columns), so the quad reduces it before lane 0
+//   writes m and l once.
 //
 // What it computes, per (batch*head, query row):
 //   s_j = q . k_j / sqrt(D)                 (f32, keys j < Lk only)
 //   running max m, running sum l = sum exp(s_j - m) in f32
 //   acc = sum bf16(exp(s_j - m)) * v_j      (P rounded to bf16 before P.V,
 //                                            as the TPU kernel does)
-//   out = bf16(acc / l), or 0 where l == 0
+//   out = bf16(acc * (1/l)), with 1/l -> 1 where l == 0 (acc is 0 there)
+//   F only: m_out = m (natural-log units), l_out = l
 // The head dim is taken as it is (40/80/160/512 on the main path): it is
 // zero-padded to the MMA depth inside shared memory only (40 -> 48), and the
 // output holds exactly D columns.
@@ -25,7 +35,10 @@
 // stay in registers (the S accumulator's layout is the P operand's layout),
 // only the current K tile and a transposed V tile sit in shared memory.
 // Loads are synchronous 16-byte loads (no cp.async/TMA ring, no wgmma):
-// those are the known gaps to the bound.
+// those are the known gaps to the bound.  F at the ring's shard shapes (a
+// quarter of the rows against a quarter of the keys, n = 4) has a sixteenth
+// of a C call's work on a quarter of its grid (16 blocks at D = 160), so
+// there it is bound by too few blocks and by the host-side launch loop.
 //
 // D <= 160 keeps the output accumulator in registers (64-row query tiles,
 // 64-key tiles).  The VAE's D = 512 does not fit that plan (a 64 x 512 f32
@@ -73,10 +86,11 @@ struct Plan {
   static constexpr size_t SMEM = Q_BYTES + K_BYTES + V_BYTES + O_BYTES;
 };
 
-template <int DP, int NW, int BKV, bool OSMEM>
+template <int DP, int NW, int BKV, bool OSMEM, bool STATS>
 __global__ void __launch_bounds__(NW * 32) flash_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ m_out, float* __restrict__ l_out,
     int Lq, int Lk, int D, float scale_log2) {
   using P = Plan<DP, NW, BKV, OSMEM>;
   constexpr int NT = P::NT, BQ = P::BQ, LDQ = P::LDQ, LDV = P::LDV;
@@ -220,9 +234,22 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
   for (int h = 0; h < 2; ++h) {
     l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
     l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
-    inv[h] = l_r[h] == 0.f ? 0.f : 1.f / l_r[h];
+    inv[h] = l_r[h] == 0.f ? 1.f : 1.f / l_r[h];
   }
   const int r0 = q0 + row, r1 = r0 + 8;
+  if (STATS && t == 0) {
+    // m_r is in log2 units (scores scaled by log2(e)/sqrt(D)); ln 2 turns
+    // it back into the natural-log max of the scaled scores
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < Lq) {
+      m_out[bh * Lq + r0] = m_r[0] * LN2;
+      l_out[bh * Lq + r0] = l_r[0];
+    }
+    if (r1 < Lq) {
+      m_out[bh * Lq + r1] = m_r[1] * LN2;
+      l_out[bh * Lq + r1] = l_r[1];
+    }
+  }
 #pragma unroll
   for (int nt = 0; nt < NO; ++nt) {
     const int col = nt * 8 + 2 * t;
@@ -244,11 +271,12 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
   }
 }
 
-template <int DP, int NW, int BKV, bool OSMEM>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
-                   int Lq, int Lk, int D, float scale_log2, cudaStream_t s) {
+template <int DP, int NW, int BKV, bool OSMEM, bool STATS>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* m,
+                   float* l, int BH, int Lq, int Lk, int D, float scale_log2,
+                   cudaStream_t s) {
   using P = Plan<DP, NW, BKV, OSMEM>;
-  auto kern = flash_kernel<DP, NW, BKV, OSMEM>;
+  auto kern = flash_kernel<DP, NW, BKV, OSMEM, STATS>;
   if (P::SMEM > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
@@ -257,28 +285,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
   const dim3 grid((Lq + P::BQ - 1) / P::BQ, BH);
   kern<<<grid, P::NT, P::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk,
-      D, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, l,
+      Lq, Lk, D, scale_log2);
   return cudaGetLastError();
+}
+
+template <bool STATS>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* m, float* l,
+             int BH, int Lq, int Lk, int D, void* stream) {
+  if (D % 8 || D <= 0 || D > 512 || Lq <= 0 || Lk <= 0 || BH <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float sl = 1.4426950408889634f / sqrtf((float)D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return (int)launch<32, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 48) return (int)launch<48, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 64) return (int)launch<64, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 80) return (int)launch<80, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 96) return (int)launch<96, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 128) return (int)launch<128, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  if (D <= 160) return (int)launch<160, 4, 64, false, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
+  return (int)launch<512, 2, 32, true, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sl, s);
 }
 
 }  // namespace
 
-// q: (BH, Lq, D), k/v: (BH, Lk, D), o: (BH, Lq, D), all bf16 and contiguous.
-// D must be a multiple of 8 and at most 512.  Returns a cudaError_t.
+// Kernel C.  q: (BH, Lq, D), k/v: (BH, Lk, D), o: (BH, Lq, D), all bf16 and
+// contiguous.  D must be a multiple of 8 and at most 512.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int BH, int Lq, int Lk, int D,
                                       void* stream) {
-  if (D % 8 || D <= 0 || D > 512 || Lq <= 0 || Lk <= 0 || BH <= 0)
-    return (int)cudaErrorInvalidValue;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch<32, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 48) return (int)launch<48, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 64) return (int)launch<64, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 80) return (int)launch<80, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 96) return (int)launch<96, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 128) return (int)launch<128, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  if (D <= 160) return (int)launch<160, 4, 64, false>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
-  return (int)launch<512, 2, 32, true>(q, k, v, o, BH, Lq, Lk, D, scale_log2, s);
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, stream);
+}
+
+// Kernel F: as C, plus m and l, each (BH, Lq) f32 and contiguous.
+extern "C" int flash_attention_stats_launch(const void* q, const void* k, const void* v,
+                                            void* o, void* m, void* l, int BH, int Lq,
+                                            int Lk, int D, void* stream) {
+  return dispatch<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), BH,
+                        Lq, Lk, D, stream);
 }

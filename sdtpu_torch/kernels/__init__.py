@@ -11,6 +11,8 @@ launch_counts = {
     "conv3x3_slab_upsample": 0,
     "conv3x3_slab_int8": 0,
     "flash_attention": 0,
+    "flash_attention_stats": 0,
+    "out_proj_packed": 0,
 }
 
 

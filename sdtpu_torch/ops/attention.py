@@ -8,18 +8,34 @@ CLIP's causal attention stay dense: a matmul for the logits in float32, an
 f32 softmax, the weights cast to v's dtype, and a float32-accumulated P.V.
 Quantized projections (``utils/quant.py``) go through ``linear``'s int8
 forms on both routes.
+
+``implementation="ring"`` is the JAX package's ring route: linear q/k/v,
+then sequence-parallel ring attention over the active ``ring_context``
+(``parallel/ring_attention.py``, kernel F on the card), else -- no context,
+cross-attention, a token count the ring does not divide -- dense attention.
+
+With ``SDTPU_PACKED_OUT_PROJ=1`` (read at import, as in the JAX package;
+``_PACKED_OUT_PROJ`` may be set at run time) the flash route's float
+out-projection and its residual add run as kernel G (``out_proj_packed``)
+wherever a residual is given.  One difference by design: the JAX program
+ignores the flag on the CPU, while the port runs G's plain version there,
+so that the CPU tests drive the route.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
-from sdtpu_torch.kernels.flash_attention import flash_attention_packed
+from sdtpu_torch.kernels.flash_attention import flash_attention_packed, out_proj_packed
 from sdtpu_torch.ops.activations import geglu
 from sdtpu_torch.ops.linear import init_linear, linear, linear_q8_dyn
 from sdtpu_torch.ops.norm import init_norm, layer_norm
+from sdtpu_torch.parallel.ring_attention import maybe_ring_attention
+
+_PACKED_OUT_PROJ = os.environ.get("SDTPU_PACKED_OUT_PROJ", "0") not in ("0", "false", "")
 
 
 def attention(
@@ -43,7 +59,7 @@ def attention(
     if implementation == "flash" and not causal and context is None:
         return _flash_attention_fused_projections(
             x, params, num_heads=num_heads, head_dim=head_dim, residual=residual)
-    if implementation not in ("dense", "flash"):
+    if implementation not in ("dense", "flash", "ring"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
 
     ctx = x if context is None else context
@@ -54,7 +70,12 @@ def attention(
         k, v = linear(ctx, params["k"]), linear(ctx, params["v"])
     k = k.reshape(b, k.shape[1], num_heads, head_dim)
     v = v.reshape(b, v.shape[1], num_heads, head_dim)
-    out = _dense_attention(q, k, v, causal=causal).reshape(b, lq, d)
+    out = None
+    if implementation == "ring" and not causal:
+        out = maybe_ring_attention(q, k, v)
+    if out is None:
+        out = _dense_attention(q, k, v, causal=causal)
+    out = out.reshape(b, lq, d)
     out = linear(out, params["out"])
     return out if residual is None else residual + out
 
@@ -85,6 +106,8 @@ def _flash_attention_fused_projections(
         out = linear_q8_dyn(o.permute(0, 2, 1, 3).reshape(b, l, c), po)
         return out if residual is None else residual + out
     wo = po["kernel"].to(x.dtype).reshape(num_heads, head_dim, c)
+    if residual is not None and _PACKED_OUT_PROJ:
+        return out_proj_packed(o, wo, po.get("bias"), residual)
     out = torch.einsum("bhld,hdc->blc", o, wo)
     if "bias" in po:
         out = out + po["bias"].to(out.dtype)

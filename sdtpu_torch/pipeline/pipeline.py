@@ -41,13 +41,18 @@ class StableDiffusionPipeline:
 
     def __init__(self, config: PipelineConfig, params: dict, tokenizer=None,
                  *, device="cuda"):
-        if config.attention_impl not in ("auto", "flash") or config.conv_impl not in (
+        if config.attention_impl not in ("auto", "flash", "ring") or config.conv_impl not in (
                 "auto", "gemm"):
             raise NotImplementedError(
-                "the port runs the flash-attention and slab-conv kernel routes only "
-                f"(got attention_impl={config.attention_impl!r}, "
+                "the port runs the flash- and ring-attention and slab-conv kernel routes "
+                f"only (got attention_impl={config.attention_impl!r}, "
                 f"conv_impl={config.conv_impl!r})")
         self.config = config
+        # "auto" is the flash route on every device: on a CPU tensor each
+        # kernel wrapper runs its plain version.  "ring" runs ring attention
+        # over the ring_context active when generate is called (dense where
+        # there is none).
+        self.attention_impl = "ring" if config.attention_impl == "ring" else "flash"
         self.params = params
         self.tokenizer = tokenizer
         self.device = torch.device(device)
@@ -185,7 +190,8 @@ class StableDiffusionPipeline:
                            cfg_scale=cfg_scale)
         if output == "latents":
             return lat.float().cpu().numpy()
-        img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae).float()
+        img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae,
+                         attention_impl=self.attention_impl).float()
         if output == "float":
             return img.cpu().numpy()
         return to_uint8(img).cpu().numpy()
@@ -206,7 +212,8 @@ class StableDiffusionPipeline:
             lat_in = torch.cat([lat, lat]) if cfg else lat
             eps = unet_forward(
                 lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
-                cross_kv=cross_kv, time_cache=time_cache_step(time_cache, i),
+                attention_impl=self.attention_impl, cross_kv=cross_kv,
+                time_cache=time_cache_step(time_cache, i),
             ).float()
             if cfg:
                 cond, uncond = eps[:batch], eps[batch:]

@@ -192,7 +192,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
     np.testing.assert_array_equal(nn(tflash.flash_attention_packed(q, q, q)),
                                   nn(tflash.flash_attention_plain(q, q, q)))
     assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
-                             "conv3x3_slab_int8": 0, "flash_attention": 0}
+                             "conv3x3_slab_int8": 0, "flash_attention": 0,
+                             "flash_attention_stats": 0, "out_proj_packed": 0}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -211,9 +212,10 @@ def test_build_finds_no_nvcc_and_raises(monkeypatch):
 
 
 def test_build_sources_and_content_hashed_library_names():
-    assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "flash_attention"]
+    assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "flash_attention",
+                                "out_proj_packed"]
     names = {_build._lib_path(n) for n in _build.sources()}
-    assert len(names) == 3
+    assert len(names) == 4
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in names)
 
 

@@ -265,7 +265,7 @@ def test_attention(rng, case, residual):
 def test_attention_rejects_unknown_implementation(rng):
     p = port_params(_attn_params(rng, 8, 8, bias=True))
     with pytest.raises(ValueError):
-        tops.attention(torch.zeros(1, 3, 8), p, num_heads=2, implementation="ring")
+        tops.attention(torch.zeros(1, 3, 8), p, num_heads=2, implementation="xla")
 
 
 def _block_params(rng, dim, ctx_dim):
