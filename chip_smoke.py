@@ -52,6 +52,23 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               plain int8 route, beside the plain int8 route's own
               bf16-vs-float32 difference (the tolerance's yardstick), its
               int8-vs-bf16 difference, and the bf16 route's bf16-vs-f32.
+9. probes  -- the kernels of the measurement entry points: E (the whole-map
+              conv of ``conv2d(impl="gemm")``) at the tiny-sd resnet shapes
+              that ``plan_co_tile`` accepts, H and I (every chain count) at
+              two latent self-attention shapes, J (int8 bitwise, bf16) at
+              the probe's two GEMM shapes, each against its plain version,
+              then timed beside its bound, its plain version and one
+              library call (CUDA events and profiler device time); then
+              every kernel variant the tools run, at the tools' own shapes
+              and inputs, against its plain version (``ab_conv``'s E and A
+              with and without prologue; C, H and every chain variant of I
+              at tiny-sd b1 and b8, SD2.1 768 and SDXL 1024, the plain
+              attention over blocks of query rows); then each tool's ``main()`` (``sdtpu_torch/tools/``) at a short
+              chain, with the launch counters held to the calls it made.
+
+A flash kernel's bound counts one exponential per score at 16 per clock
+per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
+operations.
 
 Every float32 reference on the card runs with TF32 off (cuBLAS and cuDNN).
 The last line is ``{"ok": true, "device": {...}}``.
@@ -69,13 +86,22 @@ import sys
 import time
 from collections import Counter
 
+# event_ms: CUDA events around back-to-back calls; device_ms: the kernels'
+# own time under torch.profiler, so that a call whose kernel is shorter than
+# its host-side enqueue is not timed by the host
+from sdtpu_torch.tools import device_ms, event_ms
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
-              "flash_attention": 226, "flash_attention_stats": 0, "out_proj_packed": 0}
+              "flash_attention": 226, "flash_attention_stats": 0, "out_proj_packed": 0,
+              "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
+              "dot_bf16": 0, "dot_int8": 0}
+EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
+SMS = 132                 # H100 SXM
 RING = 4                  # shards of the sequence-parallel ring on the one card
 SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replaces)
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
@@ -89,7 +115,15 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                               "sdtpu/kernels/flash_attention.py:379"),
     "out_proj_packed": ("sdtpu_torch/csrc/out_proj_packed.cu",
                         "sdtpu/kernels/flash_attention.py:464"),
+    "conv3x3_gemm": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:606"),
+    "flash_attention_legacy": ("sdtpu_torch/csrc/flash_attention.cu",
+                               "tools/probe_flash_vpu.py:105"),
+    "flash_attention_nq": ("sdtpu_torch/csrc/flash_nq.cu", "tools/probe_flash_2stream.py:124"),
+    "dot_bf16": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
+    "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
 }
+PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
+                 "dot_int8")
 
 
 def log(msg: str) -> None:
@@ -169,15 +203,17 @@ def conv_cost(x_shape, co, *, pro, res, up, stats):
 
 
 def flash_cost(q_shape, lk):
+    """(bytes, tensor operations, exponentials): one exponential per score."""
     b, h, lq, d = q_shape
-    return 2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d
+    return (2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d,
+            float(b * h * lq * lk))
 
 
 def flash_stats_cost(q_shape, lk):
     """Kernel C's bytes and operations plus the m and l rows it writes."""
     b, h, lq, _ = q_shape
-    by, ops = flash_cost(q_shape, lk)
-    return by + 2 * b * h * lq * 4, ops
+    by, ops, exps = flash_cost(q_shape, lk)
+    return by + 2 * b * h * lq * 4, ops, exps
 
 
 def out_proj_cost(o_shape, c):
@@ -197,39 +233,18 @@ def int8_conv_cost(x_shape, co, *, res, stats):
     return by, 2.0 * b * h * w * co * 9 * ci
 
 
-def bound_ms(cost, peak_ops=PEAK_BF16_FLOPS):
-    by, ops = cost
-    return max(by / PEAK_BYTES, ops / peak_ops) * 1e3, (
-        "bytes" if by / PEAK_BYTES > ops / peak_ops else "operations")
+def bound_terms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
+    """(byte ms, operation ms): bytes / PEAK_BYTES, and the larger of
+    operations / ``peak_ops`` and, for a flash kernel's (bytes, ops, exps),
+    exponentials / ``exp_rate`` (per second)."""
+    t_ops = max(cost[1] / peak_ops, cost[2] / exp_rate if len(cost) > 2 else 0.0)
+    return cost[0] / PEAK_BYTES * 1e3, t_ops * 1e3
 
 
-def cuda_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps):
-    """Device time per call: the kernels' own time summed over ``reps``
-    calls under torch.profiler (CUDA activity only), so that a call whose
-    kernel is shorter than its host-side enqueue is not timed by the host.
-    None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return us / 1e3 / reps if us > 0 else None
+def bound_ms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
+    """(ms, "bytes" or "operations"): the larger of the two bound terms."""
+    t_by, t_ops = bound_terms(cost, peak_ops, exp_rate)
+    return max(t_by, t_ops), "bytes" if t_by > t_ops else "operations"
 
 
 def max_err(a, b):
@@ -284,8 +299,8 @@ def time_conv(torch, gen, cfg):
     x_shape, co, pro, res, up, stats = cfg
     x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=pro, res=res, up=up)
     big = x.numel() * co > 2**31
-    t_k = cuda_ms(torch, lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), 5 if big else 20)
-    t_p = cuda_ms(torch, lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
+    t_k = event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), 5 if big else 20)
+    t_p = event_ms(lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
                   2 if big else 5)
     return t_k, t_p, cudnn_ms(torch, x, k, bias, kw, 5 if big else 20)
 
@@ -303,7 +318,7 @@ def cudnn_ms(torch, x, k, bias, kw, reps):
     y_nchw = y.permute(0, 3, 1, 2)  # channels_last memory
     w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b16 = bias.to(torch.bfloat16)
-    return cuda_ms(torch, lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1), reps)
+    return event_ms(lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1), reps)
 
 
 def int8_case(torch, gen, x_shape, co, res, stats):
@@ -345,9 +360,9 @@ def int8_case(torch, gen, x_shape, co, res, stats):
         raise AssertionError("conv3x3_slab_int8 disagrees with its plain version")
     big = x.numel() * co > 2**31
     reps = 5 if big else 20
-    t_k = cuda_ms(torch, lambda: conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw), reps)
-    t_p = cuda_ms(torch, lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw), 2)
-    t_a = cuda_ms(torch, lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), reps)
+    t_k = event_ms(lambda: conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw), reps)
+    t_p = event_ms(lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw), 2)
+    t_a = event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), reps)
     t_l = cudnn_ms(torch, x, k, bias, kw, reps)
     return err, share, t_k, t_p, t_a, t_l
 
@@ -360,9 +375,9 @@ def time_flash(torch, gen, q_shape, lk):
     q = torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn(q_shape[:2] + (lk, q_shape[3]), generator=gen,
                         device="cuda").to(torch.bfloat16) for _ in range(2))
-    t_k = cuda_ms(torch, lambda: flash_attention_packed(q, k, v), 10)
-    t_p = cuda_ms(torch, lambda: flash_attention_plain(q, k, v), 3)
-    t_l = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    t_k = event_ms(lambda: flash_attention_packed(q, k, v), 10)
+    t_p = event_ms(lambda: flash_attention_plain(q, k, v), 3)
+    t_l = event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
     return t_k, t_p, t_l
 
 
@@ -390,8 +405,8 @@ def flash_stats_case(torch, gen, q_shape, lk):
         + f", tol {TOL_REL:g} rel" + (" ok" if ok else " FAIL"))
     if not ok:
         raise AssertionError("flash_attention_stats disagrees with its plain version")
-    t_k = cuda_ms(torch, lambda: flash_attention_stats_packed(q, k, v), 10)
-    t_p = cuda_ms(torch, lambda: flash_attention_stats_plain(q, k, v), 3)
+    t_k = event_ms(lambda: flash_attention_stats_packed(q, k, v), 10)
+    t_p = event_ms(lambda: flash_attention_stats_plain(q, k, v), 3)
     aten = torch.ops.aten
     libs = (("_scaled_dot_product_flash_attention", lambda: aten._scaled_dot_product_flash_attention(q, k, v)),
             ("_scaled_dot_product_efficient_attention",
@@ -399,7 +414,7 @@ def flash_stats_case(torch, gen, q_shape, lk):
     t_l = lib_call = None
     for name, fn in libs:
         try:
-            t_l = cuda_ms(torch, fn, 10)
+            t_l = event_ms(fn, 10)
         except RuntimeError as exc:
             log(f"library {name} refuses q={tuple(q_shape)}: {str(exc).splitlines()[0]}")
             continue
@@ -407,8 +422,8 @@ def flash_stats_case(torch, gen, q_shape, lk):
             f"(returns the log-sum-exp m + log l, not m and l): {t_l:.4f} ms")
         lib_call = f"aten.{name}"
         break
-    dev = {"kernel": device_ms(torch, lambda: flash_attention_stats_packed(q, k, v), 10),
-           "library": None if t_l is None else device_ms(torch, fn, 10),
+    dev = {"kernel": device_ms(lambda: flash_attention_stats_packed(q, k, v), 10),
+           "library": None if t_l is None else device_ms(fn, 10),
            "library_call": lib_call}
     return errs[0][0], t_k, t_p, t_l, dev
 
@@ -434,11 +449,11 @@ def out_proj_case(torch, gen, o_shape, c):
     if not ok:
         raise AssertionError("out_proj_packed disagrees with its plain version")
     b16 = bias.to(torch.bfloat16)
-    t_k = cuda_ms(torch, lambda: out_proj_packed(o, w, bias, res), 20)
-    t_p = cuda_ms(torch, lambda: out_proj_packed_plain(o, w, bias, res), 5)
-    t_l = cuda_ms(torch, lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res, 20)
-    dev = {"kernel": device_ms(torch, lambda: out_proj_packed(o, w, bias, res), 20),
-           "library": device_ms(torch, lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res,
+    t_k = event_ms(lambda: out_proj_packed(o, w, bias, res), 20)
+    t_p = event_ms(lambda: out_proj_packed_plain(o, w, bias, res), 5)
+    t_l = event_ms(lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res, 20)
+    dev = {"kernel": device_ms(lambda: out_proj_packed(o, w, bias, res), 20),
+           "library": device_ms(lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res,
                                 20),
            "library_call": "einsum + bias + residual"}
     return err, t_k, t_p, t_l, dev
@@ -524,6 +539,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("float32 references: torch.backends.cuda.matmul.allow_tf32=False, "
         "torch.backends.cudnn.allow_tf32=False")
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    exp_rate = EXP_PER_CLOCK_SM * SMS * sm_mhz * 1e6
+    log(f"exponential units: {EXP_PER_CLOCK_SM}/clock/SM x {SMS} SMs x {sm_mhz:.0f} MHz "
+        f"(clocks.max.sm) = {exp_rate:.4g} exp/s")
 
     import numpy as np
 
@@ -531,7 +552,7 @@ def main() -> int:
     from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
     from sdtpu_torch.parallel import LocalRing, ring_context
 
-    details = {"device": smi}
+    details = {"device": smi, "sm_clock_max_mhz": sm_mhz, "exp_per_s": exp_rate}
     plain = plain_routes()
 
     # phase 2: build
@@ -578,7 +599,8 @@ def main() -> int:
     finally:
         attn_mod._PACKED_OUT_PROJ = False
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "byte_ms": 0.0, "op_ms": 0.0, "per_image_calls": 0} for n in SOURCES}
+                  "bound_ms_without_exp": 0.0, "byte_ms": 0.0, "op_ms": 0.0,
+                  "per_image_calls": 0} for n in SOURCES}
     rows = []
     for cfg, n in sorted(calls["conv3x3_slab"].items()):
         x_shape, co, pro, res, up, stats, _ = cfg
@@ -781,23 +803,31 @@ def main() -> int:
     details["int8_configs"] = d_configs
     details["configs"] = []
     for name, desc, n, t_k, t_p, t_l, cost, peak in rows:
-        b_ms, b_by = bound_ms(cost, peak)
+        b_ms, b_by = bound_ms(cost, peak, exp_rate)
+        b_old = bound_ms(cost[:2], peak)[0]
+        t_by, t_ops = bound_terms(cost, peak, exp_rate)
         tot = totals[name]
         tot["per_image_calls"] += n
         tot["ms"] += n * t_k
         tot["plain_ms"] += n * t_p
         tot["library_ms"] = None if t_l is None else tot["library_ms"] + n * t_l
         tot["bound_ms"] += n * b_ms
-        tot["byte_ms"] += n * cost[0] / PEAK_BYTES * 1e3
-        tot["op_ms"] += n * cost[1] / peak * 1e3
+        tot["bound_ms_without_exp"] += n * b_old
+        tot["byte_ms"] += n * t_by
+        tot["op_ms"] += n * t_ops
         lib = "library none" if t_l is None else f"library {t_l:.4f} ms"
+        old = f", without the exp term {b_old:.4f} ms" if len(cost) > 2 else ""
         log(f"time {name} {desc} x{n}/image ({n * t_k:.3f} ms/image): kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms, "
-            f"{lib}, bound {b_ms:.4f} ms ({b_by}), {cost[1] / t_k / 1e9:.1f} T(FL)OP/s")
+            f"{lib}, bound {b_ms:.4f} ms ({b_by}{old}), {cost[1] / t_k / 1e9:.1f} T(FL)OP/s")
         details["configs"].append({"kernel": name, "config": desc, "per_image": n,
                                    "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                                    "bound_ms": b_ms, "bound_by": b_by,
+                                   "bound_ms_without_exp": b_old,
                                    "bytes": cost[0], "ops": cost[1]})
+    log("per-image bounds with the exp term (without): " + ", ".join(
+        f"{n} {totals[n]['bound_ms']:.3f} ({totals[n]['bound_ms_without_exp']:.3f}) ms"
+        for n in ("flash_attention", "flash_attention_stats")))
     log(f"float counterparts of conv3x3_slab_int8 per image (not the same function): "
         f"kernel A {counterparts['kernel_A_ms']:.3f} ms, cuDNN bf16 "
         f"{counterparts['cudnn_bf16_ms']:.3f} ms; D {totals['conv3x3_slab_int8']['ms']:.3f} ms")
@@ -867,8 +897,16 @@ def main() -> int:
     q_control["vae_decode_psnr_db"] = vae_psnr
     details["int8_control"] = q_control
 
+    # phase 9: the measurement entry points' kernels E, H, I, J
+    probes = probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts)
+    details["probes"] = probes
+
     kernels = []
     for name, (src, replaces) in SOURCES.items():
+        if name in PROBE_KERNELS:
+            kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                            **probes["kernels"][name]})
+            continue
         tot = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -886,12 +924,230 @@ def main() -> int:
     log("kernel times are per image: the sum over the main path's calls "
         "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 are "
         "the int8 image's, of flash_attention_stats the ring image's, of out_proj_packed "
-        "the packed image's, the others the bf16 image's")
+        "the packed image's, the others the bf16 image's; for the probe kernels "
+        f"{', '.join(PROBE_KERNELS)} the times are sums over phase 9's check calls (one per "
+        "shape and variant) and the launches those of their tool's run")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------- probes --
+
+E_SHAPES = ((2, 64, 64, 320), (2, 32, 32, 640), (2, 16, 16, 1280))  # tiny-sd resnets, Ci = Co
+HI_SHAPES = ((2, 8, 4096, 40), (2, 8, 1024, 80))                  # tiny-sd self-attention
+TOOL_CHAIN = 3                                                      # calls per timed chain
+
+
+def judge_probe(torch, name, desc, got, want, *, exact=False):
+    """Fail unless ``got`` equals ``want`` (bitwise when ``exact``, else
+    within TOL_REL of max |want|); returns the max abs error."""
+    torch.cuda.synchronize()
+    if exact:
+        err = float((got.double() - want.double()).abs().max())
+        ref = float(want.double().abs().max())
+        ok = bool(torch.equal(got, want))
+        tol = "bitwise"
+    else:
+        err, ref = max_err(got, want)
+        ok = err <= TOL_REL * ref
+        tol = f"tol {TOL_REL:g} rel"
+    log(f"check {name} {desc}: max_abs_err={err:.4g} (max|plain|={ref:.4g}, {tol})"
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"{name} {desc} disagrees with its plain version")
+    return err
+
+
+def by_rows(torch, fn, q, k, v, elems=1 << 28):
+    """``fn(q, k, v)`` over blocks of q's rows, each block's f32 scores at
+    most ``elems``: query rows are independent, so this is the plain
+    attention over the whole of q at shapes whose score matrix is tens of GB."""
+    step = max(1, elems // (q.shape[0] * q.shape[1] * k.shape[2]))
+    return torch.cat([fn(q[:, :, i:i + step], k, v) for i in range(0, q.shape[2], step)], dim=2)
+
+
+def tool_checks(torch, errs):
+    """Every kernel variant that the tools run, on the tools' own inputs and
+    shapes, against its plain version (``errs[name]`` collects the errors):
+    ab_conv's E and A with and without prologue, and at every shape of the
+    flash probes C, H and I at each card variant."""
+    from sdtpu_torch.kernels.conv2d import (
+        conv3x3_gemm_plain,
+        conv3x3_slab,
+        conv3x3_slab_plain,
+        gn_silu_conv3x3_slab,
+        plan_co_tile,
+    )
+    from sdtpu_torch.kernels.flash_attention import flash_attention_packed, flash_attention_plain
+    from sdtpu_torch.ops import conv2d
+    from sdtpu_torch.tools import ab_conv, probe_flash_vpu
+    from sdtpu_torch.tools.probe_flash_2stream import CARD_VARIANTS, flash_2q
+    from sdtpu_torch.tools.probe_flash_vpu import legacy_flash, legacy_flash_plain, qkv_inputs
+    from sdtpu_torch.utils.quant import slab_plan_ok
+
+    for b, h, w, c in E_SHAPES + tuple(ab_conv.DEFAULT_SHAPES):
+        x, k, bias, norm = ab_conv.conv_inputs(b, h, w, c)
+        desc, g = f"ab_conv x={(b, h, w, c)} co={c}", 32 if c % 32 == 0 else 16
+        if plan_co_tile((b, h, w, c), (3, 3, c, c)) is not None:
+            errs["conv3x3_gemm"].append(judge_probe(
+                torch, "conv3x3_gemm", desc, conv2d(x, k, bias, padding=1, impl="gemm"),
+                conv3x3_gemm_plain(x, k, bias)))
+        if slab_plan_ok((b, h, w, c), (3, 3, c, c)):
+            judge_probe(torch, "conv3x3_slab", desc, conv3x3_slab(x, k, bias),
+                        conv3x3_slab_plain(x, k, bias))
+            got = gn_silu_conv3x3_slab(x, norm, k, bias, num_groups=g)
+            with routed(conv3x3_slab=conv3x3_slab_plain):
+                want = gn_silu_conv3x3_slab(x, norm, k, bias, num_groups=g)
+            judge_probe(torch, "conv3x3_slab", desc + " gn-prologue", got, want)
+        del x, k
+    for label, b, h, l, d in probe_flash_vpu.SHAPES:
+        q, k, v = qkv_inputs(b, h, l, d)
+        desc = f"{label} q=k=v={(b, h, l, d)}"
+        judge_probe(torch, "flash_attention", desc, flash_attention_packed(q, k, v),
+                    by_rows(torch, flash_attention_plain, q, k, v))
+        # flash_2q_plain is legacy_flash_plain behind its Lq check, so one
+        # reference serves H and every variant of I (on its first lq rows)
+        want = by_rows(torch, legacy_flash_plain, q, k, v)
+        errs["flash_attention_legacy"].append(judge_probe(
+            torch, "flash_attention_legacy", desc, legacy_flash(q, k, v), want))
+        for nq, bq in CARD_VARIANTS:
+            lq = l // (nq * bq) * (nq * bq)  # the largest Lq the variant takes
+            qi = q if lq == l else q[:, :, :lq].contiguous()
+            errs["flash_attention_nq"].append(judge_probe(
+                torch, "flash_attention_nq", f"nq={nq} bq={bq} {desc} lq={lq}",
+                flash_2q(qi, k, v, bq=bq, nq=nq), want[:, :, :lq]))
+        del q, k, v, want
+        torch.cuda.empty_cache()
+
+
+def probe_case(torch, name, desc, run, plain, library, cost, peak, exp_rate, *, exact=False):
+    """One probe kernel at one shape: ``run()`` against ``plain()`` (bitwise
+    when ``exact``, else within TOL_REL of max |plain|), then the kernel,
+    plain and library times by CUDA events and the kernel's and library's
+    device times by the profiler, beside the bound."""
+    err = judge_probe(torch, name, desc, run(), plain(), exact=exact)
+    t_k, t_p, t_l = event_ms(run, 10), event_ms(plain, 3), event_ms(library, 10)
+    d_k, d_l = device_ms(run, 10), device_ms(library, 10)
+    b_ms, b_by = bound_ms(cost, peak, exp_rate)
+    t_by, t_ops = bound_terms(cost, peak, exp_rate)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    old = f", without the exp term {bound_ms(cost[:2], peak)[0]:.4f} ms" if len(cost) > 2 else ""
+    log(f"time {name} {desc}: kernel {t_k:.4f} ms (device {fmt(d_k)}), plain {t_p:.4f} ms, "
+        f"library {t_l:.4f} ms (device {fmt(d_l)}), bound {b_ms:.4f} ms ({b_by}{old}), "
+        f"{cost[1] / t_k / 1e9:.1f} T(FL)OP/s")
+    return {"config": desc, "max_abs_err": err, "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+            "library_ms": t_l, "library_device_ms": d_l, "bound_ms": b_ms, "bound_by": b_by,
+            "byte_ms": t_by, "op_ms": t_ops}
+
+
+def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
+    """Phase 9: E, H, I and J against their plain versions and timed, then
+    each tool's main() with the launch counters held to its calls.  Returns
+    the per-kernel sums for the kernels line and every case."""
+    import torch.nn.functional as F
+
+    from sdtpu_torch.kernels.conv2d import conv3x3_gemm, conv3x3_gemm_plain, plan_co_tile
+    from sdtpu_torch.tools import ab_conv, probe_flash_2stream, probe_flash_vpu, probe_int8_dot
+    from sdtpu_torch.tools.probe_flash_2stream import CARD_VARIANTS, flash_2q, flash_2q_plain
+    from sdtpu_torch.tools.probe_flash_vpu import legacy_flash, legacy_flash_plain
+    from sdtpu_torch.tools.probe_int8_dot import dot_inputs, dot_plain, make
+
+    t0 = time.perf_counter()
+    cases = {n: [] for n in PROBE_KERNELS}
+    for b, h, w, c in E_SHAPES:
+        if plan_co_tile((b, h, w, c), (3, 3, c, c)) is None:
+            raise AssertionError(f"plan_co_tile refuses {(b, h, w, c)}")
+        x, k, bias, _ = conv_inputs(torch, gen, (b, h, w, c), c, pro=False, res=False, up=False)
+        x_nchw, b16 = x.permute(0, 3, 1, 2), bias.to(torch.bfloat16)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cases["conv3x3_gemm"].append(probe_case(
+            torch, "conv3x3_gemm", f"x={(b, h, w, c)} co={c}",
+            lambda: conv3x3_gemm(x, k, bias), lambda: conv3x3_gemm_plain(x, k, bias),
+            lambda: F.conv2d(x_nchw, k_oihw, b16, padding=1),
+            conv_cost((b, h, w, c), c, pro=False, res=False, up=False, stats=False),
+            PEAK_BF16_FLOPS, exp_rate))
+    sdpa = F.scaled_dot_product_attention
+    for b, h, l, d in HI_SHAPES:
+        q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        cases["flash_attention_legacy"].append(probe_case(
+            torch, "flash_attention_legacy", f"q=k=v={(b, h, l, d)}",
+            lambda: legacy_flash(q, k, v), lambda: legacy_flash_plain(q, k, v),
+            lambda: sdpa(q, k, v), flash_cost((b, h, l, d), l), PEAK_BF16_FLOPS, exp_rate))
+        for nq, bq in CARD_VARIANTS:
+            lq = l // (nq * bq) * (nq * bq)  # the largest Lq the variant takes
+            qi = q[:, :, :lq].contiguous()
+            cases["flash_attention_nq"].append(probe_case(
+                torch, "flash_attention_nq", f"nq={nq} bq={bq} q={(b, h, lq, d)} lk={l}",
+                lambda: flash_2q(qi, k, v, bq=bq, nq=nq),
+                lambda: flash_2q_plain(qi, k, v, bq=bq, nq=nq),
+                lambda: sdpa(qi, k, v), flash_cost((b, h, lq, d), l), PEAK_BF16_FLOPS,
+                exp_rate))
+    for m, kk, n in probe_int8_dot.SHAPES:
+        x8, w8, x16, w16 = dot_inputs(m, kk, n)
+        f16 = make(m, kk, n, torch.bfloat16, torch.float32, torch.bfloat16)
+        f8 = make(m, kk, n, torch.int8, torch.int32, torch.int32)
+        desc = f"({m},{kk})@({kk},{n})"
+        cases["dot_bf16"].append(probe_case(
+            torch, "dot_bf16", desc, lambda: f16(x16, w16),
+            lambda: dot_plain(x16, w16, torch.float32, torch.bfloat16),
+            lambda: torch.matmul(x16, w16), (2 * (m * kk + kk * n + m * n), 2.0 * m * kk * n),
+            PEAK_BF16_FLOPS, exp_rate))
+        cases["dot_int8"].append(probe_case(
+            torch, "dot_int8", desc, lambda: f8(x8, w8),
+            lambda: dot_plain(x8, w8, torch.int32, torch.int32),
+            lambda: torch._int_mm(x8, w8), (m * kk + kk * n + 4 * m * n, 2.0 * m * kk * n),
+            PEAK_INT8_OPS, exp_rate, exact=True))
+    tool_errs = {n: [] for n in PROBE_KERNELS}
+    tool_checks(torch, tool_errs)
+    checks_s = time.perf_counter() - t0
+
+    runs = ((ab_conv, [str(TOOL_CHAIN)] + ["x".join(map(str, s)) for s in
+                                           E_SHAPES + tuple(ab_conv.DEFAULT_SHAPES)]),
+            (probe_flash_vpu, [str(TOOL_CHAIN)]), (probe_flash_2stream, [str(TOOL_CHAIN)]),
+            (probe_int8_dot, [str(10 * TOOL_CHAIN)]))
+    tool_launches, tool_runs = {}, []
+    for mod, argv in runs:
+        tool = mod.__name__.rsplit(".", 1)[1]
+        log(f"tool: python -m sdtpu_torch.tools.{tool} {' '.join(argv)}")
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        calls = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = {key: n for key, n in launch_counts.items() if n}
+        log(f"tool {tool}: {secs:.1f} s; launches {counts}, calls of each wrapper {dict(calls)}"
+            + (" ok" if counts == dict(calls) else " FAIL"))
+        if counts != dict(calls):
+            raise AssertionError(f"{tool}: launches {counts} != its calls {dict(calls)}")
+        tool_launches.update({k: n for k, n in counts.items() if k in PROBE_KERNELS})
+        tool_runs.append({"tool": tool, "argv": argv, "s": secs, "launches": counts})
+    if set(tool_launches) != set(PROBE_KERNELS):
+        raise AssertionError(f"the tools launched {sorted(tool_launches)}, not every probe "
+                             f"kernel {PROBE_KERNELS}")
+
+    kernels = {}
+    for name, rows in cases.items():
+        dev = [r["device_ms"] for r in rows]
+        kernels[name] = {
+            "launches": tool_launches[name],
+            "max_abs_err": max([r["max_abs_err"] for r in rows] + tool_errs[name]),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("bytes" if sum(r["byte_ms"] for r in rows) > sum(r["op_ms"] for r in rows)
+                         else "operations"),
+            "library_ms": sum(r["library_ms"] for r in rows),
+        }
+        log(f"probe kernel {name}: {len(rows)} check calls, sums: kernel {kernels[name]['ms']:.4f} "
+            f"ms, device " + ("not measured" if None in dev else f"{sum(dev):.4f} ms")
+            + f", plain {kernels[name]['plain_ms']:.4f} ms, library "
+            f"{kernels[name]['library_ms']:.4f} ms, bound {kernels[name]['bound_ms']:.4f} ms")
+    log(f"probes: checks and times {checks_s:.1f} s, tools "
+        f"{sum(r['s'] for r in tool_runs):.1f} s")
+    return {"kernels": kernels, "cases": cases, "tools": tool_runs}
 
 
 def nccl_phase(torch):

@@ -7,6 +7,16 @@
 // _slab_kernel (reached through gn_silu_conv3x3_slab for the resnets and
 // through ops/conv.py:nearest_up_conv2d for the up-blocks).
 //
+// Kernel E, conv3x3_gemm_launch below, replaces the whole-map TPU kernel
+// sdtpu/kernels/conv2d.py:conv3x3_gemm -> _kernel (pallas_call at :606),
+// reached through ops/conv.py:conv2d(impl="gemm") where plan_co_tile
+// accepts the shape.  It is this kernel with no prologue, no residual, no
+// moments and a null bias: the f32 accumulator rounded once to bf16, the
+// bias added afterwards in bf16 by the caller, as the TPU kernel leaves it
+// to XLA.  Holding the whole padded map in one grid cell is a VMEM
+// artefact of the TPU version; here the map is tiled like every other
+// conv, so its bound and its gaps are this kernel's (below).
+//
 // What it computes, per output pixel p = (b, y, x) and output channel co:
 //   in(b, u, v, ci) = x(b, u, v, ci)                       (UPSAMPLE: x(b, u/2, v/2, ci))
 //   yv = bf16(silu(in * a[b, ci] + c[b, ci]))              (HAS_PRO; else in)
@@ -59,7 +69,7 @@ template <bool UPSAMPLE, bool HAS_PRO, bool HAS_RES, bool STATS>
 __global__ void __launch_bounds__(NT) conv3x3_kernel(
     const __nv_bfloat16* __restrict__ x,    // (B, Hin, Win, Ci)
     const __nv_bfloat16* __restrict__ w,    // (3, 3, Ci, Co)
-    const float* __restrict__ bias,         // (Co)
+    const float* __restrict__ bias,         // (Co), or null (kernel E)
     const float* __restrict__ pa,           // (B, Ci) prologue scale
     const float* __restrict__ pc,           // (B, Ci) prologue offset
     const __nv_bfloat16* __restrict__ res,  // (B, H, W, Co)
@@ -187,7 +197,7 @@ __global__ void __launch_bounds__(NT) conv3x3_kernel(
   for (int in = 0; in < 4; ++in) {
     const int col = n0 + wn * 32 + in * 8 + 2 * t;
     if (col >= Co) continue;  // Co % 8 == 0, so col + 1 < Co here
-    const float b0 = bias[col], b1 = bias[col + 1];
+    const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
 #pragma unroll
     for (int im = 0; im < 2; ++im) {
 #pragma unroll
@@ -300,4 +310,16 @@ extern "C" int conv3x3_slab_launch(const void* x, const void* w, const void* bia
     err = pa ? launch_res<false, true>(has_res, st, grid, s, x, w, bias, pa, pc, res, out, part, H, W, Ci, Co)
              : launch_res<false, false>(has_res, st, grid, s, x, w, bias, pa, pc, res, out, part, H, W, Ci, Co);
   return (int)err;
+}
+
+// Kernel E: bf16(sum of the nine taps' products in f32), no bias.  x is
+// (B, H, W, Ci), w (3, 3, Ci, Co), out (B, H, W, Co), all bf16; Ci and Co
+// multiples of 8.  Returns a cudaError_t.
+extern "C" int conv3x3_gemm_launch(const void* x, const void* w, void* out, int B, int H,
+                                   int W, int Ci, int Co, void* stream) {
+  if (Ci % 8 || Co % 8 || B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((H * W + BM - 1) / BM, (Co + BN - 1) / BN, B);
+  return (int)launch<false, false, false, false>(grid, static_cast<cudaStream_t>(stream), x,
+                                                 w, nullptr, nullptr, nullptr, nullptr, out,
+                                                 nullptr, H, W, Ci, Co);
 }

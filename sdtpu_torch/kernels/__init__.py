@@ -13,6 +13,11 @@ launch_counts = {
     "flash_attention": 0,
     "flash_attention_stats": 0,
     "out_proj_packed": 0,
+    "conv3x3_gemm": 0,
+    "flash_attention_legacy": 0,
+    "flash_attention_nq": 0,
+    "dot_bf16": 0,
+    "dot_int8": 0,
 }
 
 

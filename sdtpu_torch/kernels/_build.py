@@ -7,8 +7,9 @@ Each ``sdtpu_torch/csrc/<name>.cu`` compiles on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The hash is of the source text, so an edited source is rebuilt and a stale
-library is never loaded.  The sources expose a plain C interface: every
+The hash is of the source text and of every header in ``csrc/`` (the
+``.cuh`` files the sources include), so an edited source or header is
+rebuilt and a stale library is never loaded.  The sources expose a plain C interface: every
 pointer and the stream pass as ``c_void_p``, and each launch function
 returns the launch's ``cudaError_t``, which the Python wrapper raises on.
 Nothing here runs at import: the package imports on a machine without
@@ -59,9 +60,12 @@ def sources() -> list:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for n in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, n), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names=None, *, ptxas_verbose: bool = False) -> dict:

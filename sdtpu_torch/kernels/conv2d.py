@@ -1,6 +1,8 @@
 """3x3 same-pad convolution with a fused GroupNorm(+temb)+SiLU prologue,
 bias + residual epilogue, optional output moments, and an optional fused
-nearest-2x upsample of the input; with an int8 kernel, its W8A8 form.
+nearest-2x upsample of the input; with an int8 kernel, its W8A8 form; and
+the plain whole-map 3x3 conv of the ``conv2d(impl="gemm")`` route (kernel
+E, ``conv3x3_gemm``, at the end of this module).
 
 Counterpart of ``sdtpu/kernels/conv2d.py:conv3x3_gemm_slab`` and
 ``gn_silu_conv3x3_slab``.  On the card ``conv3x3_slab`` launches the CUDA
@@ -130,18 +132,21 @@ def _lib(name: str):
         launch.restype = ctypes.c_int
         m_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
         m_tiles.restype = ctypes.c_int
+        if name == "conv3x3_slab":  # kernel E's entry in the same library
+            lib.conv3x3_gemm_launch.argtypes = [p] * 3 + [ctypes.c_int] * 5 + [p]
+            lib.conv3x3_gemm_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+def _expect(t: torch.Tensor, name: str, shape, dtype, device, what="conv3x3_slab") -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"conv3x3_slab: {name} must be {dtype} {tuple(shape)} on {device}, "
+            f"{what}: {name} must be {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
     if not t.is_contiguous():
-        raise ValueError(f"conv3x3_slab: {name} must be contiguous")
+        raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def conv3x3_slab(
@@ -287,3 +292,101 @@ def gn_silu_conv3x3_slab(
         residual=residual, emit_stats=emit_stats, act_inv_scale=act_inv_scale,
         act_zp=act_zp, w_scale=w_scale,
     )
+
+
+# -- kernel E: the whole-map conv of the conv2d(impl="gemm") route ----------
+#
+# The JAX package's routing rule for it, copied: ``plan_co_tile`` decides
+# whether ``sdtpu/ops/conv.py:conv2d(impl="gemm")`` sends a 3x3 conv to the
+# whole-map kernel (``sdtpu/kernels/conv2d.py:32-99``).  Its VMEM budget
+# and estimate are the TPU kernel's, kept so that the port routes the same
+# shapes to the same function; they are not a memory budget of the card.
+
+_VMEM_BUDGET = 72 * 1024 * 1024
+
+
+def _vmem_estimate(h, w, ci, co_tile, itemsize=2) -> int:
+    """The JAX package's per-grid-cell VMEM estimate of the whole-map
+    kernel (a routing rule, see above)."""
+    in_b = (h + 2) * (w + 2) * ci * itemsize * 2
+    k_b = 9 * ci * co_tile * itemsize * 2
+    out_b = h * w * co_tile * itemsize * 2
+    acc_b = h * w * co_tile * 4 * 2
+    core_b = h * w * ci * itemsize
+    return in_b + k_b + out_b + acc_b + core_b
+
+
+def _co_tile_candidates(co: int):
+    """Tile widths in the JAX package's order: exact, then 128-multiple
+    divisors of co, then padding 128-multiples, largest first."""
+    exact = [co]
+    divisors = [t for t in (640, 512, 384, 256, 128)
+                if t < co and t % 128 == 0 and co % t == 0]
+    padded = [t for t in (512, 384, 256, 128)
+              if t < co and t % 128 == 0 and co % t != 0]
+    return exact + divisors + padded
+
+
+def plan_co_tile(x_shape, kernel_shape):
+    """The JAX package's routing rule for the whole-map kernel: its co_tile,
+    or None for another route.  A 3x3 kernel, H and W multiples of 8, Ci
+    and Co >= 64, H*W <= 4096, and a co_tile whose VMEM estimate fits the
+    TPU budget."""
+    _, h, w, ci = x_shape
+    kh, kw, _, co = kernel_shape
+    if (kh, kw) != (3, 3) or h % 8 != 0 or w % 8 != 0:
+        return None
+    if ci < 64 or co < 64:
+        return None
+    if h * w > 64 * 64:
+        return None
+    for co_tile in _co_tile_candidates(co):
+        if _vmem_estimate(h, w, ci, co_tile) <= _VMEM_BUDGET:
+            return co_tile
+    return None
+
+
+def fits_fused(x_shape, kernel_shape) -> bool:
+    return plan_co_tile(x_shape, kernel_shape) is not None
+
+
+def conv3x3_gemm_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
+                       co_tile: int = 256) -> torch.Tensor:
+    """Kernel E's function: the nine taps accumulated in float32, rounded
+    once to x's dtype, then ``bias.to(x.dtype)`` added in x's dtype (two
+    roundings, where kernel A adds its bias in float32).  ``co_tile`` only
+    pads in the JAX package and changes no value."""
+    acc = F.conv2d(x.float().permute(0, 3, 1, 2), kernel.float().permute(3, 2, 0, 1),
+                   padding=1).permute(0, 2, 3, 1)
+    out = acc.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def conv3x3_gemm(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
+                 co_tile: int = 256) -> torch.Tensor:
+    """Kernel E.  NHWC stride-1 same-pad 3x3 conv: x (B, H, W, Ci), kernel
+    (3, 3, Ci, Co) -> (B, H, W, Co) in x's dtype, with the bias added after
+    the cast (see :func:`conv3x3_gemm_plain`).  ``co_tile`` is kept for
+    parity with the JAX signature; the card ignores it.  On the card x and
+    the kernel must be contiguous bf16 and Ci and Co multiples of 8."""
+    if x.device.type == "cpu":
+        return conv3x3_gemm_plain(x, kernel, bias, co_tile=co_tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_gemm: unsupported device {x.device}")
+    b, h, w, ci = x.shape
+    co = kernel.shape[-1]
+    if ci % 8 or co % 8:
+        raise ValueError(f"conv3x3_gemm: Ci={ci} and Co={co} must be multiples of 8")
+    _expect(x, "x", (b, h, w, ci), torch.bfloat16, x.device, "conv3x3_gemm")
+    _expect(kernel, "kernel", (3, 3, ci, co), torch.bfloat16, x.device, "conv3x3_gemm")
+    out = torch.empty((b, h, w, co), device=x.device, dtype=torch.bfloat16)
+    err = _lib("conv3x3_slab").conv3x3_gemm_launch(
+        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, ci, co,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "conv3x3_gemm")
+    launch_counts["conv3x3_gemm"] += 1
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out

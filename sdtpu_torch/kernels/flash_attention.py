@@ -16,6 +16,9 @@ form with softmax statistics, and the packed out-projection.
 The JAX kernels pad the head dim to 128 lanes; here every tensor keeps the
 real head dim, and the CUDA kernels (``csrc/flash_attention.cu``,
 ``csrc/out_proj_packed.cu``) pad the MMA depth inside shared memory only.
+The probe kernels H and I (``sdtpu_torch/tools/probe_flash_vpu.py`` and
+``probe_flash_2stream.py``) are modes of the same kernel template
+(``csrc/flash_attention.cuh``) and use this module's helpers.
 On the CPU each wrapper runs its plain version: the same function in
 float32, with the probabilities rounded to v's dtype before the P.V
 product as the TPU kernel rounds them.
@@ -78,6 +81,8 @@ def _flash_lib():
         lib.flash_attention_launch.restype = i
         lib.flash_attention_stats_launch.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.flash_attention_stats_launch.restype = i
+        lib.flash_attention_legacy_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.flash_attention_legacy_launch.restype = i
         lib._typed = True
     return lib
 

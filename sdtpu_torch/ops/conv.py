@@ -2,9 +2,11 @@
 
 Counterpart of ``sdtpu/ops/conv.py``.  ``conv2d`` is the plain convolution
 the JAX package leaves to XLA (conv_in/conv_out, the stride-2 downsamples,
-the VAE's 1x1 convs); ``nearest_up_conv2d`` is the up-block's
-nearest-2x + 3x3 conv, which goes through the slab kernel's fused upsample
-mode (``kernels/conv2d.py``).
+the VAE's 1x1 convs), and with ``impl="gemm"`` the JAX package's kernel
+route for 3x3 same-pad convs (kernel E, else the slab kernel without
+prologue); ``nearest_up_conv2d`` is the up-block's nearest-2x + 3x3 conv,
+which goes through the slab kernel's fused upsample mode
+(``kernels/conv2d.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from sdtpu_torch.kernels.conv2d import conv3x3_slab
+from sdtpu_torch.kernels.conv2d import conv3x3_gemm, conv3x3_slab, plan_co_tile
 from sdtpu_torch.ops.linear import uniform
+from sdtpu_torch.utils.quant import slab_plan_ok
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -27,14 +30,30 @@ def conv2d(
     *,
     stride: Union[int, Tuple[int, int]] = 1,
     padding: Padding = 0,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """NHWC conv; ``padding`` is a symmetric int or explicit
     ``((top, bottom), (left, right))`` (the VAE encoder's asymmetric
-    ``((0, 1), (0, 1))`` stride-2 pad)."""
+    ``((0, 1), (0, 1))`` stride-2 pad).
+
+    ``impl="gemm"`` routes a 3x3 stride-1 pad-1 conv as
+    ``sdtpu/ops/conv.py:44-63`` does: to kernel E where the JAX package's
+    ``plan_co_tile`` accepts the shape, else to the slab kernel without
+    prologue where the slab shape rule accepts it, else to ``F.conv2d``.
+    ``impl="xla"`` (the default) always takes ``F.conv2d``."""
+    if impl not in ("xla", "gemm"):
+        raise ValueError(f"conv2d: unknown impl {impl!r} (expected 'xla' or 'gemm')")
     if isinstance(stride, int):
         stride = (stride, stride)
     if isinstance(padding, int):
         padding = ((padding, padding), (padding, padding))
+    if (impl == "gemm" and stride == (1, 1) and tuple(kernel.shape[:2]) == (3, 3)
+            and padding == ((1, 1), (1, 1))):
+        co_tile = plan_co_tile(x.shape, kernel.shape)
+        if co_tile is not None:
+            return conv3x3_gemm(x, kernel.to(x.dtype), bias, co_tile=co_tile)
+        if slab_plan_ok(x.shape, kernel.shape):
+            return conv3x3_slab(x, kernel.to(x.dtype), bias)
     (top, bottom), (left, right) = padding
     xc = x.permute(0, 3, 1, 2)
     if (top, left) == (bottom, right):

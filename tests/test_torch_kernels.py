@@ -193,7 +193,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
                                   nn(tflash.flash_attention_plain(q, q, q)))
     assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
                              "conv3x3_slab_int8": 0, "flash_attention": 0,
-                             "flash_attention_stats": 0, "out_proj_packed": 0}
+                             "flash_attention_stats": 0, "out_proj_packed": 0,
+                             "conv3x3_gemm": 0, "flash_attention_legacy": 0,
+                             "flash_attention_nq": 0, "dot_bf16": 0, "dot_int8": 0}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -212,10 +214,10 @@ def test_build_finds_no_nvcc_and_raises(monkeypatch):
 
 
 def test_build_sources_and_content_hashed_library_names():
-    assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "flash_attention",
-                                "out_proj_packed"]
+    assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "dot", "flash_attention",
+                                "flash_nq", "out_proj_packed"]
     names = {_build._lib_path(n) for n in _build.sources()}
-    assert len(names) == 4
+    assert len(names) == 6
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in names)
 
 
