@@ -10,8 +10,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               into ``build/`` (one nvcc per source, all started together).
 3. kernels -- each hand-written kernel against its plain PyTorch version on
               the card at the main paths' shapes (tolerance stated per
-              line), then every kernel call configuration of the main paths
-              timed with CUDA events: the kernel, its plain version, and one
+              line; the slab conv also at its split-K shapes, and its
+              pre-pass and split-K reduction alone), then every kernel call
+              configuration of the main paths timed with CUDA events, each
+              slab conv configuration with its split S: the kernel, its
+              plain version, and one
               library call for the same function as a yardstick (for the
               int8 slab conv, which no one call computes, two float
               counterparts instead: kernel A and cuDNN bf16).  Kernels F
@@ -22,7 +25,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               host-side enqueue, which then sets the CUDA-event time).
 4. e2e     -- ``StableDiffusionPipeline.from_random("tiny-sd")`` and one
               512x512, 25-step DDPM + CFG image (after a warm-up image);
-              checks the image and the kernels' launch counts, prints
+              checks the image and the kernels' launch counts (the slab
+              conv's pre-pass and split-K reductions derived from the
+              recorded calls and the split plan), prints
               seconds per image and peak memory; then one full-width UNet
               forward and one VAE decode through the kernels and through
               the plain versions, beside the plain path's own bf16-versus-
@@ -54,7 +59,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               int8-vs-bf16 difference, and the bf16 route's bf16-vs-f32.
 9. probes  -- the kernels of the measurement entry points: E (the whole-map
               conv of ``conv2d(impl="gemm")``) at the tiny-sd resnet shapes
-              that ``plan_co_tile`` accepts, H and I (every chain count) at
+              that ``plan_co_tile`` accepts (two of them split-K) and at a
+              ragged split-K shape, H and I (every chain count) at
               two latent self-attention shapes, J (int8 bitwise, bf16) at
               the probe's two GEMM shapes, each against its plain version,
               then timed beside its bound, its plain version and one
@@ -96,6 +102,9 @@ PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
+# the bf16 image's launches of each wrapper; the slab conv's pre-pass and
+# split-K reduction (conv3x3_slab_prologue, conv3x3_slab_splitk) are added
+# per path from its recorded calls (conv_sub_counts)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
               "flash_attention": 226, "flash_attention_stats": 0, "out_proj_packed": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
@@ -107,6 +116,10 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
     "conv3x3_slab_upsample": ("sdtpu_torch/csrc/conv3x3_slab.cu",
                               "sdtpu/kernels/conv2d.py:456"),
+    "conv3x3_slab_prologue": ("sdtpu_torch/csrc/conv3x3_slab.cu",
+                              "sdtpu/kernels/conv2d.py:456"),
+    "conv3x3_slab_splitk": ("sdtpu_torch/csrc/conv3x3_slab.cu",
+                            "sdtpu/kernels/conv2d.py:456"),
     "flash_attention": ("sdtpu_torch/csrc/flash_attention.cu",
                         "sdtpu/kernels/flash_attention.py:267"),
     "conv3x3_slab_int8": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
@@ -122,6 +135,8 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
     "dot_bf16": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
 }
+MAIN_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "conv3x3_slab_prologue",
+                "conv3x3_slab_splitk", "flash_attention")  # launched by the bf16 image
 PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
                  "dot_int8")
 
@@ -292,21 +307,25 @@ def check_flash(torch, gen, q_shape):
 
 
 def time_conv(torch, gen, cfg):
-    import torch.nn.functional as F
-
+    """Kernel, plain and cuDNN ms by CUDA events, then the kernel's (every
+    kernel of the wrapper call) and cuDNN's device ms by the profiler."""
     from sdtpu_torch.kernels.conv2d import conv3x3_slab, conv3x3_slab_plain
 
     x_shape, co, pro, res, up, stats = cfg
     x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=pro, res=res, up=up)
     big = x.numel() * co > 2**31
-    t_k = event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), 5 if big else 20)
+    reps = 5 if big else 20
+    run = functools.partial(conv3x3_slab, x, k, bias, emit_stats=stats, **kw)
+    lib = cudnn_call(torch, x, k, bias, kw)
+    t_k = event_ms(run, reps)
     t_p = event_ms(lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
-                  2 if big else 5)
-    return t_k, t_p, cudnn_ms(torch, x, k, bias, kw, 5 if big else 20)
+                   2 if big else 5)
+    return t_k, t_p, event_ms(lib, reps), device_ms(run, 10), device_ms(lib, 10)
 
 
-def cudnn_ms(torch, x, k, bias, kw, reps):
-    """Yardstick: one cuDNN bf16 conv on the prologued (and upsampled) input."""
+def cudnn_call(torch, x, k, bias, kw):
+    """Yardstick: one cuDNN bf16 conv on the prologued (and upsampled)
+    input, as a function of no arguments."""
     import torch.nn.functional as F
 
     y = x
@@ -318,7 +337,7 @@ def cudnn_ms(torch, x, k, bias, kw, reps):
     y_nchw = y.permute(0, 3, 1, 2)  # channels_last memory
     w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b16 = bias.to(torch.bfloat16)
-    return event_ms(lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1), reps)
+    return lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1)
 
 
 def int8_case(torch, gen, x_shape, co, res, stats):
@@ -363,7 +382,7 @@ def int8_case(torch, gen, x_shape, co, res, stats):
     t_k = event_ms(lambda: conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw), reps)
     t_p = event_ms(lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw), 2)
     t_a = event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), reps)
-    t_l = cudnn_ms(torch, x, k, bias, kw, reps)
+    t_l = event_ms(cudnn_call(torch, x, k, bias, kw), reps)
     return err, share, t_k, t_p, t_a, t_l
 
 
@@ -501,6 +520,69 @@ def record_main_path_calls(torch, pipe, ids):
     return {key: {c: n * per_image(c[0]) for c, n in cs.items()} for key, cs in calls.items()}
 
 
+def conv_sub_counts(conv_calls):
+    """The slab conv's pre-pass and split-K reduction launches per image of
+    a path, from its recorded float slab calls and the split plan."""
+    from sdtpu_torch.kernels.conv2d import conv3x3_launches
+
+    subs = {"conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0}
+    for (x_shape, co, pro, _res, up, _stats, quant), n in conv_calls.items():
+        if quant:
+            continue
+        for key, v in conv3x3_launches("conv3x3_slab", x_shape, co, prologue=pro,
+                                       upsample=up).items():
+            if key in subs:
+                subs[key] += n * v
+    return subs
+
+
+def check_prologue(torch, gen, x_shape):
+    """The pre-pass alone against its plain version (tolerance TOL_REL)."""
+    from sdtpu_torch.kernels.conv2d import conv3x3_prologue, conv3x3_prologue_plain
+
+    x, _, _, kw = conv_inputs(torch, gen, x_shape, 8, pro=True, res=False, up=False)
+    a, c = kw["prologue_scale"], kw["prologue_bias"]
+    got, want = conv3x3_prologue(x, a, c), conv3x3_prologue_plain(x, a, c)
+    torch.cuda.synchronize()
+    err, ref = max_err(got, want)
+    ok = err <= TOL_REL * ref
+    log(f"check conv3x3_slab_prologue x={tuple(x_shape)}: max_abs_err={err:.4g} "
+        f"(max|plain|={ref:.4g}, tol {TOL_REL:g} rel)" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("conv3x3_prologue disagrees with its plain version")
+    return err
+
+
+def splitk_inputs(torch, gen, ws_shape, *, res):
+    splits, b, h, w, co = ws_shape
+    ws = torch.randn(ws_shape, generator=gen, device="cuda")
+    bias = torch.randn((co,), generator=gen, device="cuda") * 0.1
+    r = (torch.randn((b, h, w, co), generator=gen, device="cuda").to(torch.bfloat16)
+         if res else None)
+    return ws, bias, r
+
+
+def check_splitk(torch, gen, ws_shape, res):
+    """The split-K reduction alone against its plain version: the same
+    float32 additions in the same order, so the output bitwise; moments
+    within TOL_REL."""
+    from sdtpu_torch.kernels.conv2d import conv3x3_splitk_reduce, splitk_reduce_plain
+
+    ws, bias, r = splitk_inputs(torch, gen, ws_shape, res=res)
+    got, gst = conv3x3_splitk_reduce(ws, bias, r, emit_stats=True)
+    want, wst = splitk_reduce_plain(ws, bias, r, emit_stats=True)
+    torch.cuda.synchronize()
+    err, ref = max_err(got, want)
+    serr, sref = max_err(gst, wst)
+    ok = bool(torch.equal(got, want)) and serr <= TOL_REL * sref
+    log(f"check conv3x3_slab_splitk ws={tuple(ws_shape)} residual={res}: max_abs_err={err:.4g} "
+        f"(bitwise), moments max_abs_err={serr:.4g} (max={sref:.4g}, tol {TOL_REL:g} rel)"
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("conv3x3_splitk_reduce disagrees with its plain version")
+    return err
+
+
 def rel_l2(torch, a, b):
     return float(torch.linalg.vector_norm((a.float() - b.float()).flatten())
                  / torch.linalg.vector_norm(b.float().flatten()))
@@ -550,6 +632,13 @@ def main() -> int:
 
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
+    from sdtpu_torch.kernels.conv2d import (
+        conv3x3_prologue,
+        conv3x3_prologue_plain,
+        conv3x3_splitk_reduce,
+        plan_conv3x3_split,
+        splitk_reduce_plain,
+    )
     from sdtpu_torch.parallel import LocalRing, ring_context
 
     details = {"device": smi, "sm_clock_max_mhz": sm_mhz, "exp_per_s": exp_rate}
@@ -577,9 +666,17 @@ def main() -> int:
         ((1, 512, 512, 256), 128, True, False, False, True),
         ((2, 16, 16, 1280), 1280, False, False, True, False),
         ((1, 256, 256, 256), 256, False, False, True, True),
+        # split-K shapes (S = 4, 2, 2): residual and moments through the reduction
+        ((2, 16, 16, 2560), 1280, True, True, False, True),
+        ((2, 32, 32, 640), 640, True, True, False, True),
+        ((1, 64, 64, 512), 512, True, True, False, True),
     ]:
         name, err = check_conv(torch, gen, case)
         errs[name] = max(errs.get(name, 0.0), err)
+    errs["conv3x3_slab_prologue"] = max(check_prologue(torch, gen, s) for s in (
+        (2, 64, 64, 320), (2, 16, 16, 2560), (1, 512, 512, 256)))
+    errs["conv3x3_slab_splitk"] = max(check_splitk(torch, gen, s, r) for s, r in (
+        ((4, 2, 16, 16, 1280), True), ((2, 2, 32, 32, 640), False), ((2, 1, 64, 64, 512), True)))
     for q_shape in [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160), (1, 1, 4096, 512)]:
         name, err = check_flash(torch, gen, q_shape)
         errs[name] = max(errs.get(name, 0.0), err)
@@ -602,13 +699,66 @@ def main() -> int:
                   "bound_ms_without_exp": 0.0, "byte_ms": 0.0, "op_ms": 0.0,
                   "per_image_calls": 0} for n in SOURCES}
     rows = []
+    # the profiler's device time per image beside the CUDA-event sums: a
+    # small conv's back-to-back calls can be bound by their host-side
+    # enqueue (three kernels and their checks), which events then time
+    device = {}
+
+    def add_device(name, n, d_k, d_l=None):
+        tot = device.setdefault(name, {"kernel_ms": 0.0, "library_ms": 0.0})
+        for key, d in (("kernel_ms", d_k), ("library_ms", d_l)):
+            tot[key] = None if d is None or tot[key] is None else tot[key] + n * d
+
+    def fmt_ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    details["conv_configs"] = []
     for cfg, n in sorted(calls["conv3x3_slab"].items()):
         x_shape, co, pro, res, up, stats, _ = cfg
-        t_k, t_p, t_l = time_conv(torch, gen, cfg[:6])
+        b, hx, wx, ci = x_shape
+        h, w = (2 * hx, 2 * wx) if up else (hx, wx)
+        splits = plan_conv3x3_split(b, h, w, ci, co)
+        details["conv_configs"].append({"x": list(x_shape), "co": co, "pro": pro, "res": res,
+                                        "up": up, "stats": stats, "per_image": n,
+                                        "split": splits})
+        t_k, t_p, t_l, d_k, d_l = time_conv(torch, gen, cfg[:6])
         cost = conv_cost(x_shape, co, pro=pro, res=res, up=up, stats=stats)
-        rows.append(("conv3x3_slab_upsample" if up else "conv3x3_slab",
-                     f"x={x_shape} co={co} pro={int(pro)} res={int(res)} st={int(stats)}",
-                     n, t_k, t_p, t_l, cost, PEAK_BF16_FLOPS))
+        desc = f"x={x_shape} co={co} pro={int(pro)} res={int(res)} st={int(stats)} S={splits}"
+        name = "conv3x3_slab_upsample" if up else "conv3x3_slab"
+        rows.append((name, desc, n, t_k, t_p, t_l, cost, PEAK_BF16_FLOPS))
+        add_device(name, n, d_k, d_l)
+        details["conv_configs"][-1].update(device_ms=d_k, cudnn_device_ms=d_l)
+        log(f"device time {name} {desc}: kernels {fmt_ms(d_k)}, cuDNN {fmt_ms(d_l)} "
+            f"(torch.profiler, per call)")
+        # the call's sub-kernels alone: the pre-pass, the split-K reduction
+        if pro:
+            x, _, _, kw = conv_inputs(torch, gen, x_shape, 8, pro=True, res=False, up=False)
+            a, c = kw["prologue_scale"], kw["prologue_bias"]
+            run = functools.partial(conv3x3_prologue, x, a, c)
+            rows.append(("conv3x3_slab_prologue", f"x={x_shape}", n, event_ms(run, 20),
+                         event_ms(lambda: conv3x3_prologue_plain(x, a, c), 5), None,
+                         (2 * x.numel() * 2 + 2 * b * ci * 4, 0.0), PEAK_BF16_FLOPS))
+            d_sub = device_ms(run, 10)
+            add_device("conv3x3_slab_prologue", n, d_sub)
+            details["conv_configs"][-1]["prologue_device_ms"] = d_sub
+            share = "" if None in (d_sub, d_k) else f", {100 * d_sub / d_k:.1f}% of the call's"
+            log(f"device time conv3x3_slab_prologue x={x_shape}: {fmt_ms(d_sub)}{share}")
+            del x
+        if splits > 1:
+            ws_shape = (splits, b, h, w, co)
+            ws, bias, r = splitk_inputs(torch, gen, ws_shape, res=res)
+            run = functools.partial(conv3x3_splitk_reduce, ws, bias, r, emit_stats=stats)
+            d_sub = device_ms(run, 10)
+            add_device("conv3x3_slab_splitk", n, d_sub)
+            details["conv_configs"][-1]["splitk_device_ms"] = d_sub
+            share = "" if None in (d_sub, d_k) else f", {100 * d_sub / d_k:.1f}% of the call's"
+            log(f"device time conv3x3_slab_splitk ws={ws_shape}: {fmt_ms(d_sub)}{share}")
+            rows.append(("conv3x3_slab_splitk", f"ws={ws_shape} res={int(res)} st={int(stats)}",
+                         n, event_ms(run, 20),
+                         event_ms(lambda: splitk_reduce_plain(ws, bias, r, emit_stats=stats), 5),
+                         None, (ws.numel() * 4 + co * 4 + b * h * w * co * 2 * (2 if res else 1)
+                                + (b * 2 * co * 4 if stats else 0), 0.0), PEAK_BF16_FLOPS))
+            del ws
     for (q_shape, lk), n in sorted(calls["flash_attention_packed"].items()):
         t_k, t_p, t_l = time_flash(torch, gen, q_shape, lk)
         rows.append(("flash_attention", f"q={q_shape} lk={lk}", n, t_k, t_p, t_l,
@@ -616,7 +766,6 @@ def main() -> int:
     # F and G: besides the CUDA-event time of back-to-back calls, the
     # profiler's device time, since at these shapes a call's kernel can be
     # shorter than its host-side enqueue
-    device = {}
     cases = [("flash_attention_stats", f"q={q} lk={lk}", n, flash_stats_cost(q, lk),
               functools.partial(flash_stats_case, torch, gen, q, lk))
              for (q, lk), n in sorted(ring_calls["flash_attention_stats_packed"].items())]
@@ -643,9 +792,13 @@ def main() -> int:
 
     # phase 4: end to end, bf16
     counts, e2e = run_image(torch, np, pipe, ids, "e2e", launch_counts, reset_launch_counts)
-    log(f"e2e expected launches: {E2E_COUNTS}")
-    if counts != E2E_COUNTS:
-        raise AssertionError(f"launch counts {counts} != expected {E2E_COUNTS}")
+    e2e_expected = dict(E2E_COUNTS, **conv_sub_counts(calls["conv3x3_slab"]))
+    log(f"e2e expected launches: {e2e_expected}")
+    if counts != e2e_expected:
+        raise AssertionError(f"launch counts {counts} != expected {e2e_expected}")
+    idle = [name for name in MAIN_KERNELS if counts[name] == 0]
+    if idle:
+        raise AssertionError(f"the bf16 image launched no {idle}")
     details["e2e"] = e2e
 
     # control: one UNet forward and one VAE decode, kernels vs plain, beside
@@ -717,7 +870,8 @@ def main() -> int:
                              f"{E2E_COUNTS['flash_attention']} times per image")
 
     # phase 5: the sequence-parallel ring on the one card, kernel F
-    ring_expected = dict(E2E_COUNTS, flash_attention=0, flash_attention_stats=RING * RING * n_self)
+    ring_expected = dict(E2E_COUNTS, flash_attention=0, flash_attention_stats=RING * RING * n_self,
+                         **conv_sub_counts(ring_calls["conv3x3_slab"]))
     with ring_context(LocalRing(RING)):
         ring_counts, ring_e2e = run_image(torch, np, pipe_ring, ids, "ring", launch_counts,
                                           reset_launch_counts)
@@ -737,7 +891,8 @@ def main() -> int:
     details["nccl"] = nccl_phase(torch)
 
     # phase 7: the packed out-projection, kernel G
-    packed_expected = dict(E2E_COUNTS, out_proj_packed=n_self)
+    packed_expected = dict(E2E_COUNTS, out_proj_packed=n_self,
+                           **conv_sub_counts(packed_calls["conv3x3_slab"]))
     attn_mod._PACKED_OUT_PROJ = True
     try:
         packed_counts, packed_e2e = run_image(torch, np, pipe, ids, "packed", launch_counts,
@@ -842,7 +997,8 @@ def main() -> int:
     d_expected = 2 * n_unet * STEPS + 2 * n_vae
     log(f"int8: {n_unet} UNet resnets x 2 convs x {STEPS} steps + {n_vae} VAE resnets x 2 "
         f"convs = {d_expected} int8 slab convs per image")
-    q_expected = dict(E2E_COUNTS, conv3x3_slab=0, conv3x3_slab_int8=d_expected)
+    q_expected = dict(E2E_COUNTS, conv3x3_slab=0, conv3x3_slab_int8=d_expected,
+                      **conv_sub_counts(q_calls))
     if d_expected != 478:
         raise AssertionError(f"tiny-sd should have 478 resnet convs per image, got {d_expected}")
     q_counts, q_e2e = run_image(torch, np, pipe_q, ids, "int8", launch_counts,
@@ -1103,6 +1259,11 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
             PEAK_INT8_OPS, exp_rate, exact=True))
     tool_errs = {n: [] for n in PROBE_KERNELS}
     tool_checks(torch, tool_errs)
+    # E at a ragged split-K shape (S = 2; ragged M, Ci and N tiles)
+    x, k, bias, _ = conv_inputs(torch, gen, (1, 12, 20, 40), 72, pro=False, res=False, up=False)
+    tool_errs["conv3x3_gemm"].append(judge_probe(
+        torch, "conv3x3_gemm", "x=(1, 12, 20, 40) co=72 S=2", conv3x3_gemm(x, k, bias),
+        conv3x3_gemm_plain(x, k, bias)))
     checks_s = time.perf_counter() - t0
 
     runs = ((ab_conv, [str(TOOL_CHAIN)] + ["x".join(map(str, s)) for s in

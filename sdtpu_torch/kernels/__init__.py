@@ -3,12 +3,18 @@
 Each wrapper runs its plain version for a tensor on the CPU and launches its
 CUDA kernel for a tensor on the card (it raises on anything else).  Every
 launch of a CUDA kernel adds one to its entry in ``launch_counts``; the
-plain versions count nothing.
+plain versions count nothing.  A float 3x3 conv counts its GEMM under its
+wrapper's name (``conv3x3_slab``, ``conv3x3_slab_upsample``,
+``conv3x3_gemm``), and its prologue pre-pass and split-K reduction, where it
+runs them, under ``conv3x3_slab_prologue`` and ``conv3x3_slab_splitk``
+(``kernels/conv2d.py:conv3x3_launches``).
 """
 
 launch_counts = {
     "conv3x3_slab": 0,
     "conv3x3_slab_upsample": 0,
+    "conv3x3_slab_prologue": 0,
+    "conv3x3_slab_splitk": 0,
     "conv3x3_slab_int8": 0,
     "flash_attention": 0,
     "flash_attention_stats": 0,

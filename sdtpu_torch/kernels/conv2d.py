@@ -6,9 +6,13 @@ E, ``conv3x3_gemm``, at the end of this module).
 
 Counterpart of ``sdtpu/kernels/conv2d.py:conv3x3_gemm_slab`` and
 ``gn_silu_conv3x3_slab``.  On the card ``conv3x3_slab`` launches the CUDA
-kernel of ``csrc/conv3x3_slab.cu`` (float) or ``csrc/conv3x3_slab_int8.cu``
+kernels of ``csrc/conv3x3_slab.cu`` (float) or ``csrc/conv3x3_slab_int8.cu``
 (int8 kernel); on the CPU it runs ``conv3x3_slab_plain``, the same function
-with the same rounding points.  Float kernel:
+with the same rounding points.  The float conv is up to three kernels, each
+with its own wrapper, plain version and launch count: the prologue as an
+elementwise pre-pass (``conv3x3_prologue``), the GEMM, and, where
+``plan_conv3x3_split`` splits the K loop, the fixed-order reduction of the
+slices' float32 partial sums (``conv3x3_splitk_reduce``).  Float kernel:
 
 * the prologue output is rounded to the activation dtype, and the conv's
   zero padding comes AFTER the prologue (a pad pixel is 0, not SiLU(b));
@@ -59,6 +63,54 @@ def _moments(out: torch.Tensor) -> torch.Tensor:
     return torch.stack([of.mean(dim=(1, 2)), of.square().mean(dim=(1, 2))], dim=1)
 
 
+def conv3x3_prologue_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """The pre-pass's function: ``silu(x * scale[b, ci] + bias[b, ci])`` in
+    float32, rounded to x's dtype (the kernel's rounding point)."""
+    y = x.float() * scale.float()[:, None, None, :]
+    y = y + bias.float()[:, None, None, :]
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def conv3x3_split_plain(x: torch.Tensor, kernel: torch.Tensor, splits: int, *,
+                        upsample: bool = False) -> torch.Tensor:
+    """The split GEMM's function: (S, B, H, W, Co) float32 partial sums, slice
+    s over K steps [s*KT//S, (s+1)*KT//S) of the flattened K loop (KT =
+    ``slab_k_steps(Ci)``; step k is tap k // ceil(Ci/BK), channels
+    BK * (k % ceil(Ci/BK)) onwards) of x (prologue applied) padded by one
+    zero pixel."""
+    y = x.float()
+    if upsample:
+        y = y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    b, h, w, ci = y.shape
+    co = kernel.shape[-1]
+    yp = F.pad(y, (0, 0, 1, 1, 1, 1))
+    nch, kt = -(-ci // SLAB_BK), slab_k_steps(ci)
+    out = torch.zeros((splits, b, h, w, co), dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        for k in range(s * kt // splits, (s + 1) * kt // splits):
+            tap, ch = divmod(k, nch)
+            ty, tx = divmod(tap, 3)
+            c0, c1 = ch * SLAB_BK, min(ci, ch * SLAB_BK + SLAB_BK)
+            out[s] += yp[:, ty:ty + h, tx:tx + w, c0:c1] @ kernel[ty, tx, c0:c1].float()
+    return out
+
+
+def splitk_reduce_plain(ws: torch.Tensor, bias=None, residual=None, *,
+                        emit_stats: bool = False, dtype=torch.bfloat16):
+    """The reduction's function: the slices of ``ws`` (S, B, H, W, Co)
+    summed in float32 in order, then bias, then residual, one rounding to
+    ``dtype``; with the moments of the rounded output."""
+    acc = ws[0]
+    for s in range(1, ws.shape[0]):
+        acc = acc + ws[s]
+    if bias is not None:
+        acc = acc + bias.float()
+    if residual is not None:
+        acc = acc + residual.float()
+    out = acc.to(dtype)
+    return (out, _moments(out)) if emit_stats else out
+
+
 def _conv3x3_int8_plain(x, kernel, conv_bias, a, c, s, z, w_scale, residual, emit_stats):
     ci = x.shape[-1]
     z = torch.zeros(ci, device=x.device) if z is None else z.float()
@@ -97,12 +149,8 @@ def conv3x3_slab_plain(
     if _check_int8_args(kernel, prologue_scale, upsample, act_inv_scale, w_scale):
         return _conv3x3_int8_plain(x, kernel, conv_bias, prologue_scale, prologue_bias,
                                    act_inv_scale, act_zp, w_scale, residual, emit_stats)
-    if prologue_scale is not None:
-        y = x.float() * prologue_scale.float()[:, None, None, :]
-        y = y + prologue_bias.float()[:, None, None, :]
-        y = (y * torch.sigmoid(y)).to(x.dtype)
-    else:
-        y = x
+    y = x if prologue_scale is None else conv3x3_prologue_plain(x, prologue_scale,
+                                                                 prologue_bias)
     if upsample:
         y = y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     acc = F.conv2d(
@@ -117,26 +165,82 @@ def conv3x3_slab_plain(
     return (out, _moments(out)) if emit_stats else out
 
 
-# pointer and int arguments of each source's launch function, before the stream
-_LAUNCH_ARGS = {"conv3x3_slab": (8, 6), "conv3x3_slab_int8": (11, 5)}
+# the GEMM's tiles (``csrc/conv3x3_slab.cu``; ``_lib`` checks the library
+# reports the same) and the split-K plan's limits
+SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES = 128, 128, 32, 4
+SMS = 132                              # H100 SXM
+MIN_SLICE_K_STEPS = 2 * SLAB_STAGES    # K steps a slice keeps: its ring fills twice
+MAX_SPLITS = 16
+
+# C entry points: (pointer arguments, int arguments) before the stream
+_SIGNATURES = {
+    "conv3x3_slab": {"conv3x3_slab_launch": (7, 7), "conv3x3_prologue_launch": (4, 4),
+                     "conv3x3_splitk_reduce_launch": (5, 5)},
+    "conv3x3_slab_int8": {"conv3x3_slab_int8_launch": (11, 5)},
+}
 
 
 def _lib(name: str):
-    """The library of ``csrc/<name>.cu`` with its two functions typed."""
+    """The library of ``csrc/<name>.cu`` with its functions typed."""
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        n_ptrs, n_ints = _LAUNCH_ARGS[name]
-        launch, m_tiles = getattr(lib, name + "_launch"), getattr(lib, name + "_m_tiles")
-        launch.argtypes = [p] * n_ptrs + [ctypes.c_int] * n_ints + [p]
-        launch.restype = ctypes.c_int
+        for fn, (n_ptrs, n_ints) in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = [p] * n_ptrs + [ctypes.c_int] * n_ints + [p]
+            f.restype = ctypes.c_int
+        m_tiles = getattr(lib, name + "_m_tiles")
         m_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
         m_tiles.restype = ctypes.c_int
-        if name == "conv3x3_slab":  # kernel E's entry in the same library
-            lib.conv3x3_gemm_launch.argtypes = [p] * 3 + [ctypes.c_int] * 5 + [p]
-            lib.conv3x3_gemm_launch.restype = ctypes.c_int
+        if name == "conv3x3_slab":
+            lib.conv3x3_slab_tile.argtypes = [ctypes.c_int]
+            lib.conv3x3_slab_tile.restype = ctypes.c_int
+            tiles = tuple(lib.conv3x3_slab_tile(i) for i in range(4))
+            if tiles != (SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES):
+                raise RuntimeError(f"conv3x3_slab.cu runs tiles (BM, BN, BK, stages) {tiles}, "
+                                   f"the split plan assumes {(SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES)}")
         lib._typed = True
     return lib
+
+
+def slab_k_steps(ci: int) -> int:
+    """The GEMM's K steps: 9 taps x ceil(Ci / BK) channel chunks."""
+    return 9 * -(-ci // SLAB_BK)
+
+
+def slab_blocks(b: int, h: int, w: int, co: int) -> int:
+    """Blocks of one unsplit GEMM launch over an H x W output map."""
+    return -(-(h * w) // SLAB_BM) * -(-co // SLAB_BN) * b
+
+
+def plan_conv3x3_split(b: int, h: int, w: int, ci: int, co: int) -> int:
+    """S, the slices of the K loop for a conv with an H x W OUTPUT map: the
+    smallest S whose grid of S x ``slab_blocks`` blocks is at least one
+    block per SM (one full wave), capped so that each slice keeps at least
+    ``MIN_SLICE_K_STEPS`` K steps (and at ``MAX_SPLITS``); 1 where the grid
+    is full already."""
+    blocks = slab_blocks(b, h, w, co)
+    cap = max(1, min(MAX_SPLITS, slab_k_steps(ci) // MIN_SLICE_K_STEPS))
+    splits = 1
+    while blocks * splits < SMS and splits < cap:
+        splits += 1
+    return splits
+
+
+def conv3x3_launches(key: str, x_shape, co: int, *, prologue: bool = False,
+                     upsample: bool = False) -> dict:
+    """The launch counters one call of a float conv wrapper adds one to on
+    the card: its own (``key``: ``conv3x3_slab``, ``conv3x3_slab_upsample``
+    or ``conv3x3_gemm``), the pre-pass with a prologue, and the split-K
+    reduction where ``plan_conv3x3_split`` gives S > 1."""
+    b, hx, wx, ci = x_shape
+    h, w = (2 * hx, 2 * wx) if upsample else (hx, wx)
+    keys = {key: 1}
+    if prologue:
+        keys["conv3x3_slab_prologue"] = 1
+    if plan_conv3x3_split(b, h, w, ci, co) > 1:
+        keys["conv3x3_slab_splitk"] = 1
+    return keys
 
 
 def _expect(t: torch.Tensor, name: str, shape, dtype, device, what="conv3x3_slab") -> None:
@@ -208,31 +312,140 @@ def conv3x3_slab(
         pc = f32(prologue_bias, "prologue_bias", (b, ci))
     if residual is not None:
         _expect(residual, "residual", (b, h, w, co), torch.bfloat16, dev)
-    name = "conv3x3_slab_int8" if quant else "conv3x3_slab"
-    lib = _lib(name)
+    if not quant:
+        stream = _stream(x)
+        if pa is not None:
+            x = _prologue_launch(x, pa, pc, stream)
+        return _slab_gemm(x, kernel, bias, residual, upsample=upsample, emit_stats=emit_stats,
+                          key="conv3x3_slab_upsample" if upsample else "conv3x3_slab",
+                          stream=stream)
+    lib = _lib("conv3x3_slab_int8")
     out = torch.empty((b, h, w, co), device=dev, dtype=torch.bfloat16)
     part = None
     if emit_stats:
-        part = torch.empty((b, getattr(lib, name + "_m_tiles")(h, w), 2, co),
+        part = torch.empty((b, lib.conv3x3_slab_int8_m_tiles(h, w), 2, co),
                            device=dev, dtype=torch.float32)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if quant:
-        qs = f32(act_inv_scale, "act_inv_scale", (ci,))
-        qz = f32(torch.zeros(ci, device=dev) if act_zp is None else act_zp, "act_zp", (ci,))
-        ws = f32(w_scale, "w_scale", (co,))
-        err = lib.conv3x3_slab_int8_launch(
-            ptr(x), ptr(kernel), ptr(bias), ptr(pa), ptr(pc), ptr(qs), ptr(qz), ptr(ws),
-            ptr(residual), ptr(out), ptr(part), b, h, w, ci, co, stream)
-    else:
-        err = lib.conv3x3_slab_launch(
-            ptr(x), ptr(kernel), ptr(bias), ptr(pa), ptr(pc), ptr(residual),
-            ptr(out), ptr(part), b, h, w, ci, co, int(upsample), stream)
-    _build.check(err, name)
-    launch_counts[name + ("_upsample" if upsample else "")] += 1
-    if not emit_stats:
-        return out
-    return out, part.sum(dim=1) / float(h * w)
+    qs = f32(act_inv_scale, "act_inv_scale", (ci,))
+    qz = f32(torch.zeros(ci, device=dev) if act_zp is None else act_zp, "act_zp", (ci,))
+    ws = f32(w_scale, "w_scale", (co,))
+    err = lib.conv3x3_slab_int8_launch(
+        _ptr(x), _ptr(kernel), _ptr(bias), _ptr(pa), _ptr(pc), _ptr(qs), _ptr(qz), _ptr(ws),
+        _ptr(residual), _ptr(out), _ptr(part), b, h, w, ci, co, _stream(x))
+    _build.check(err, "conv3x3_slab_int8")
+    launch_counts["conv3x3_slab_int8"] += 1
+    return (out, _tile_moments(part, h, w)) if emit_stats else out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _tile_moments(part: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, 2, Co) moments from a kernel's (B, M tiles, 2, Co) tile sums."""
+    return part.sum(dim=1) / float(h * w)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _slab_gemm(x, kernel, bias, residual, *, upsample, emit_stats, key, stream):
+    """The GEMM on the card (x already through the prologue), with the
+    split-K reduction where the plan splits, on ``stream``; the caller has
+    checked every tensor.  Returns out, or (out, moments)."""
+    b, hx, wx, ci = x.shape
+    h, w = (2 * hx, 2 * wx) if upsample else (hx, wx)
+    co = kernel.shape[-1]
+    lib = _lib("conv3x3_slab")
+    splits = plan_conv3x3_split(b, h, w, ci, co)
+    if splits > 1:
+        ws = torch.empty((splits, b, h, w, co), device=x.device, dtype=torch.float32)
+        err = lib.conv3x3_slab_launch(_ptr(x), _ptr(kernel), None, None, None, None, _ptr(ws),
+                                      b, h, w, ci, co, int(upsample), splits, stream)
+        _build.check(err, key)
+        launch_counts[key] += 1
+        return _splitk_launch(ws, bias, residual, emit_stats, stream)
+    out = torch.empty((b, h, w, co), device=x.device, dtype=torch.bfloat16)
+    part = None
+    if emit_stats:
+        part = torch.empty((b, lib.conv3x3_slab_m_tiles(h, w), 2, co), device=x.device,
+                           dtype=torch.float32)
+    err = lib.conv3x3_slab_launch(_ptr(x), _ptr(kernel), _ptr(bias), _ptr(residual), _ptr(out),
+                                  _ptr(part), None, b, h, w, ci, co, int(upsample), 1, stream)
+    _build.check(err, key)
+    launch_counts[key] += 1
+    return (out, _tile_moments(part, h, w)) if emit_stats else out
+
+
+def conv3x3_prologue(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The pre-pass: ``bf16(silu(x * scale[b, ci] + bias[b, ci]))`` over an
+    NHWC map, once per element.  x (B, H, W, Ci); scale and bias (B, Ci).
+    On the card x must be contiguous bf16 with Ci a multiple of 8, scale
+    and bias float32."""
+    if x.device.type == "cpu":
+        return conv3x3_prologue_plain(x, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_prologue: unsupported device {x.device}")
+    b, h, w, ci = x.shape
+    if ci % 8:
+        raise ValueError(f"conv3x3_prologue: Ci={ci} must be a multiple of 8")
+    _expect(x, "x", (b, h, w, ci), torch.bfloat16, x.device, "conv3x3_prologue")
+    for t, name in ((scale, "scale"), (bias, "bias")):
+        _expect(t, name, (b, ci), torch.float32, x.device, "conv3x3_prologue")
+    return _prologue_launch(x, scale, bias, _stream(x))
+
+
+def _prologue_launch(x, scale, bias, stream):
+    """The pre-pass on the card; the caller has checked every tensor."""
+    b, h, w, ci = x.shape
+    y = torch.empty_like(x)
+    err = _lib("conv3x3_slab").conv3x3_prologue_launch(
+        _ptr(x), _ptr(scale), _ptr(bias), _ptr(y), b, h, w, ci, stream)
+    _build.check(err, "conv3x3_prologue")
+    launch_counts["conv3x3_slab_prologue"] += 1
+    return y
+
+
+def conv3x3_splitk_reduce(ws: torch.Tensor, bias=None, residual=None, *,
+                          emit_stats: bool = False):
+    """The split-K reduction: ``bf16(sum_s ws[s] + bias + residual)`` with
+    the slices summed in order and one rounding (see
+    :func:`splitk_reduce_plain`); ``emit_stats=True`` adds the (B, 2, Co)
+    moments of the output.  ws (S, B, H, W, Co) float32, bias (Co,)
+    float32, residual (B, H, W, Co) bf16; on the card Co a multiple of 8
+    and every tensor contiguous."""
+    if ws.device.type == "cpu":
+        return splitk_reduce_plain(ws, bias, residual, emit_stats=emit_stats)
+    if ws.device.type != "cuda":
+        raise ValueError(f"conv3x3_splitk_reduce: unsupported device {ws.device}")
+    splits, b, h, w, co = ws.shape
+    if co % 8:
+        raise ValueError(f"conv3x3_splitk_reduce: Co={co} must be a multiple of 8")
+    what, dev = "conv3x3_splitk_reduce", ws.device
+    _expect(ws, "ws", (splits, b, h, w, co), torch.float32, dev, what)
+    if bias is not None:
+        _expect(bias, "bias", (co,), torch.float32, dev, what)
+    if residual is not None:
+        _expect(residual, "residual", (b, h, w, co), torch.bfloat16, dev, what)
+    return _splitk_launch(ws, bias, residual, emit_stats, _stream(ws))
+
+
+def _splitk_launch(ws, bias, residual, emit_stats, stream):
+    """The split-K reduction on the card; the caller has checked every
+    tensor.  Returns out, or (out, moments)."""
+    splits, b, h, w, co = ws.shape
+    dev = ws.device
+    lib = _lib("conv3x3_slab")
+    out = torch.empty((b, h, w, co), device=dev, dtype=torch.bfloat16)
+    part = None
+    if emit_stats:
+        part = torch.empty((b, lib.conv3x3_slab_m_tiles(h, w), 2, co), device=dev,
+                           dtype=torch.float32)
+    err = lib.conv3x3_splitk_reduce_launch(_ptr(ws), _ptr(bias), _ptr(residual), _ptr(out),
+                                           _ptr(part), b, h, w, co, splits, stream)
+    _build.check(err, "conv3x3_splitk_reduce")
+    launch_counts["conv3x3_slab_splitk"] += 1
+    return (out, _tile_moments(part, h, w)) if emit_stats else out
 
 
 def gn_silu_conv3x3_slab(
@@ -381,12 +594,8 @@ def conv3x3_gemm(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
         raise ValueError(f"conv3x3_gemm: Ci={ci} and Co={co} must be multiples of 8")
     _expect(x, "x", (b, h, w, ci), torch.bfloat16, x.device, "conv3x3_gemm")
     _expect(kernel, "kernel", (3, 3, ci, co), torch.bfloat16, x.device, "conv3x3_gemm")
-    out = torch.empty((b, h, w, co), device=x.device, dtype=torch.bfloat16)
-    err = _lib("conv3x3_slab").conv3x3_gemm_launch(
-        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, ci, co,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "conv3x3_gemm")
-    launch_counts["conv3x3_gemm"] += 1
+    out = _slab_gemm(x, kernel, None, None, upsample=False, emit_stats=False,
+                     key="conv3x3_gemm", stream=_stream(x))
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -5,11 +5,13 @@ runs: time MLP, resnets, Transformer2D attention blocks, stride-2
 downsamples, fused nearest-2x upsamples, an optional mid block, and the
 encoder/decoder wiring with channel-concat skips popped LIFO.
 
-Every resnet takes the slab-kernel path of the JAX package's TPU program
-(``unet.py:255-285``), with an int8 kernel where it is quantized: conv1 is
-GN+SiLU+conv with its output moments, conv2 is GN(+temb)+SiLU+conv with the
-shortcut as its residual and GN statistics from conv1's moments.  A resnet followed by an attention block hands that
-block its output moments for the block's GroupNorm.  The SDXL
+A resnet that passes the JAX package's routing rule takes the slab-kernel
+path of its TPU program (``unet.py:255-285``), with an int8 kernel where it
+is quantized: conv1 is GN+SiLU+conv with its output moments, conv2 is
+GN(+temb)+SiLU+conv with the shortcut as its residual and GN statistics
+from conv1's moments; any other resnet takes GroupNorm -> SiLU -> conv2d.
+A slab resnet followed by an attention block hands that block its output
+moments for the block's GroupNorm.  The SDXL
 add-embedding and the LCM guidance embedding belong to the model-family
 slice and raise here.
 """
@@ -37,7 +39,7 @@ from sdtpu_torch.ops import (
     timestep_embedding,
     transformer_block,
 )
-from sdtpu_torch.utils.quant import resnet_conv_args
+from sdtpu_torch.utils.quant import resnet_conv_args, resnet_takes_slab
 
 
 def _check_family(config: UNetConfig) -> None:
@@ -148,12 +150,22 @@ def resnet_block(
     """Resnet: GN -> SiLU -> conv1; + time projection; GN -> SiLU -> conv2;
     + shortcut.  ``temb`` is already SiLU'd; ``t_pre`` the precomputed
     (B, C_out) time projection.  ``emit_stats=True`` returns ``(out,
-    moments)``, the per-channel output moments for the next GroupNorm.
-    Quantized convs run the int8 slab kernel where the resnet passes the
-    JAX package's routing rule, else dequantized (``utils/quant.py:
-    resnet_conv_args``)."""
+    moments)``, the per-channel output moments for the next GroupNorm
+    (None off the slab path, as in the JAX package).  Routed as the JAX
+    package's ``conv_impl="gemm"`` program (``utils/quant.py:
+    resnet_takes_slab``): the slab kernels, int8 where quantized, or else
+    the op path of ``sdtpu/models/unet.py:287-295`` with the float or
+    dequantized kernels."""
     t = linear(temb, params["time_emb_proj"]) if t_pre is None else t_pre
     (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
+    if not resnet_takes_slab(x.shape, params, num_groups):
+        h = silu(group_norm(x, params["norm1"], num_groups=num_groups))
+        h = conv2d(h, k1, b1, padding=1, impl="gemm")
+        h = h + t.to(h.dtype)[:, None, None, :]
+        h = silu(group_norm(h, params["norm2"], num_groups=num_groups))
+        h = conv2d(h, k2, b2, padding=1, impl="gemm")
+        out = _shortcut(x, params) + h
+        return (out, None) if emit_stats else out
     h, hstats = gn_silu_conv3x3_slab(
         x, params["norm1"], k1, b1, num_groups=num_groups, emit_stats=True, **q1,
     )
@@ -195,7 +207,8 @@ def downsample(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 
 def upsample(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Nearest 2x + 3x3 conv, fused in the slab kernel's upsample mode."""
+    """Nearest 2x + 3x3 conv, fused in the slab kernel's upsample mode where
+    the slab shape rule accepts it."""
     return nearest_up_conv2d(x, params["kernel"].to(x.dtype), params["bias"])
 
 

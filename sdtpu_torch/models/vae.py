@@ -3,9 +3,10 @@
 Counterpart of the decoder half of ``sdtpu/models/vae.py``: /scaling ->
 1x1 post-quant conv -> conv_in -> mid (resnet, single-head attention,
 resnet) -> up blocks (resnets + fused nearest-2x upsample conv) ->
-GN/SiLU/conv_out.  Resnets take the slab-kernel path, and the GroupNorm
-statistics chain through the up blocks from each producing kernel's
-moments, as in the JAX package's TPU program (``vae.py:245-264``).  The
+GN/SiLU/conv_out.  Resnets and upsamples that pass the JAX package's
+routing rule take the slab-kernel path, and the GroupNorm statistics chain
+through the up blocks from each producing kernel's moments, as in the JAX
+package's TPU program (``vae.py:245-264``); the others take the op path.  The
 encoder belongs to the img2img slice.
 """
 
@@ -26,7 +27,7 @@ from sdtpu_torch.ops import (
     nearest_up_conv2d,
     silu,
 )
-from sdtpu_torch.utils.quant import resnet_conv_args
+from sdtpu_torch.utils.quant import resnet_conv_args, resnet_takes_slab
 
 
 def _shortcut(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -42,10 +43,18 @@ def vae_resnet(
     """Resnet without the time branch (eps 1e-6).  ``stats``: producer
     moments of ``x`` for norm1 (ignored if the channel count differs);
     ``emit_stats=True`` returns ``(out, moments)`` of the post-residual
-    output.  Quantized convs are routed as in the UNet resnet."""
+    output (None off the slab path).  Routed as the UNet resnet; the op
+    path is ``sdtpu/models/vae.py:125-135``."""
     if stats is not None and stats.shape[-1] != x.shape[-1]:
         stats = None
     (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
+    if not resnet_takes_slab(x.shape, params, num_groups):
+        h = silu(group_norm(x, params["norm1"], num_groups=num_groups, eps=1e-6, stats=stats))
+        h = conv2d(h, k1, b1, padding=1, impl="gemm")
+        h = silu(group_norm(h, params["norm2"], num_groups=num_groups, eps=1e-6))
+        h = conv2d(h, k2, b2, padding=1, impl="gemm")
+        out = _shortcut(x, params) + h
+        return (out, None) if emit_stats else out
     h, hstats = gn_silu_conv3x3_slab(
         x, params["norm1"], k1, b1, num_groups=num_groups, eps=1e-6, stats=stats,
         emit_stats=True, **q1,

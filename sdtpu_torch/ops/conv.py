@@ -6,7 +6,7 @@ the VAE's 1x1 convs), and with ``impl="gemm"`` the JAX package's kernel
 route for 3x3 same-pad convs (kernel E, else the slab kernel without
 prologue); ``nearest_up_conv2d`` is the up-block's nearest-2x + 3x3 conv,
 which goes through the slab kernel's fused upsample mode
-(``kernels/conv2d.py``).
+(``kernels/conv2d.py``) where the slab shape rule accepts it.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from sdtpu_torch.kernels.conv2d import conv3x3_gemm, conv3x3_slab, plan_co_tile
 from sdtpu_torch.ops.linear import uniform
+from sdtpu_torch.ops.resize import nearest_upsample
 from sdtpu_torch.utils.quant import slab_plan_ok
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
@@ -71,10 +72,18 @@ def conv2d(
 def nearest_up_conv2d(
     x: torch.Tensor, kernel: torch.Tensor, bias=None, *, emit_stats: bool = False
 ):
-    """Nearest-2x upsample + 3x3 same-pad conv, fused: only the small map is
-    read.  ``emit_stats=True`` returns ``(out, moments)`` for the consumer
-    GroupNorm."""
-    return conv3x3_slab(x, kernel, bias, upsample=True, emit_stats=emit_stats)
+    """Nearest-2x upsample + 3x3 same-pad conv, fused where the slab shape
+    rule accepts the upsampled map: only the small map is read.
+    ``emit_stats=True`` returns ``(out, moments)`` for the consumer
+    GroupNorm.  Elsewhere upsample, then :func:`conv2d` (``impl="gemm"``),
+    with ``(out, None)`` under ``emit_stats``, as ``sdtpu/ops/conv.py:98-120``.
+    The JAX package also wants an even row tile there, a limit of the TPU
+    kernel's VMEM slabs that this kernel does not have."""
+    b, h, w, ci = x.shape
+    if slab_plan_ok((b, 2 * h, 2 * w, ci), kernel.shape):
+        return conv3x3_slab(x, kernel, bias, upsample=True, emit_stats=emit_stats)
+    out = conv2d(nearest_upsample(x, 2), kernel, bias, padding=1, impl="gemm")
+    return (out, None) if emit_stats else out
 
 
 def conv1x1_tokens(x: torch.Tensor, params: dict) -> torch.Tensor:

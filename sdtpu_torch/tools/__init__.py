@@ -89,14 +89,16 @@ def device_ms(fn, reps: int = 10):
 
 
 def run_variants(label: str, variants, ops: float, peak: float, chain: int, calls: Counter):
-    """Time each ``(name, launch key or None, fn)`` and print one line per
-    variant; ``calls[key]`` counts the calls made of each kernel wrapper.
-    Returns ``{name: (event ms, device ms, output)}``."""
+    """Time each ``(name, launch keys, fn)`` and print one line per variant;
+    the keys are None, one launch key, or a dict of the launch counters one
+    call adds to (``kernels/conv2d.py:conv3x3_launches``), and ``calls``
+    counts them over the calls made.  Returns ``{name: (event ms, device
+    ms, output)}``."""
     results, base = {}, None
     for name, key, call in variants:
         def fn(call=call, key=key):
             if key is not None:
-                calls[key] += 1
+                calls.update({key: 1} if isinstance(key, str) else key)
             return call()
 
         ev = event_ms(fn, chain)

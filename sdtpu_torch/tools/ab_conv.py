@@ -27,7 +27,12 @@ from collections import Counter
 import numpy as np
 import torch
 
-from sdtpu_torch.kernels.conv2d import conv3x3_slab, gn_silu_conv3x3_slab, plan_co_tile
+from sdtpu_torch.kernels.conv2d import (
+    conv3x3_launches,
+    conv3x3_slab,
+    gn_silu_conv3x3_slab,
+    plan_co_tile,
+)
 from sdtpu_torch.ops import conv2d, group_norm, silu
 from sdtpu_torch.tools import PEAK_BF16_FLOPS, card_line, chain_arg, require_cuda, run_variants
 from sdtpu_torch.utils.quant import slab_plan_ok
@@ -76,16 +81,18 @@ def main(argv=None) -> Counter:
             x_nchw, k_oihw, b16, padding=1).permute(0, 2, 3, 1))]
         whole = plan_co_tile((b, h, w, c), (3, 3, c, c))
         if whole is not None:
-            conv.append((f"whole-map E {whole}", "conv3x3_gemm",
+            conv.append((f"whole-map E {whole}", conv3x3_launches("conv3x3_gemm", x.shape, c),
                          lambda: conv2d(x, k, bias, padding=1, impl="gemm")))
         slab = slab_plan_ok((b, h, w, c), (3, 3, c, c))
         if slab:
-            conv.append(("slab", "conv3x3_slab", lambda: conv3x3_slab(x, k, bias)))
+            conv.append(("slab", conv3x3_launches("conv3x3_slab", x.shape, c),
+                         lambda: conv3x3_slab(x, k, bias)))
         gn_conv = [("cudnn gn+silu+conv", None, lambda: torch.nn.functional.conv2d(
             silu(group_norm(x, norm, num_groups=g)).permute(0, 3, 1, 2), k_oihw, b16,
             padding=1).permute(0, 2, 3, 1))]
         if slab:
-            gn_conv.append(("slab gn-prologue", "conv3x3_slab",
+            gn_conv.append(("slab gn-prologue",
+                            conv3x3_launches("conv3x3_slab", x.shape, c, prologue=True),
                             lambda: gn_silu_conv3x3_slab(x, norm, k, bias, num_groups=g)))
         print(f"== {b}x{h}x{w}x{c} (chain {chain}) ==", flush=True)
         for variants in (conv, gn_conv):

@@ -190,26 +190,32 @@ def slab_plan_ok(x_shape, kernel_shape) -> bool:
     return (kh, kw) == (3, 3) and h % 8 == 0 and w % 8 == 0 and ci >= 64 and co >= 64
 
 
+def resnet_takes_slab(x_shape, res: dict, num_groups: int) -> bool:
+    """The JAX package's routing rule for a resnet (``sdtpu/models/unet.py:
+    233-254``, ``sdtpu/models/vae.py:79-89``): both convs have a slab plan
+    (:func:`slab_plan_ok`) and both channel counts divide by ``num_groups``.
+    A resnet that passes takes the slab kernels; one that does not takes
+    GroupNorm -> SiLU -> conv2d, float or dequantized."""
+    k1, k2 = slab_conv_kernel(res["conv1"]), slab_conv_kernel(res["conv2"])
+    mid = tuple(x_shape[:-1]) + (k1.shape[-1],)
+    return (slab_plan_ok(x_shape, k1.shape) and slab_plan_ok(mid, k2.shape)
+            and x_shape[-1] % num_groups == 0 and mid[-1] % num_groups == 0)
+
+
 def resnet_conv_args(x_shape, res: dict, num_groups: int, dtype) -> list:
-    """``[(kernel, bias, kwargs)]`` for a resnet's conv1 and conv2 on the
-    slab kernels.  A quantized conv keeps its int8 kernel (kernel D) only
-    when the whole resnet passes the JAX package's routing rule: both convs
-    have a slab plan and both channel counts divide by ``num_groups``
-    (``sdtpu/models/unet.py:233-254``).  Otherwise it takes the dequantized
+    """``[(kernel, bias, kwargs)]`` for a resnet's conv1 and conv2.  A
+    quantized conv keeps its int8 kernel (kernel D) only when the resnet
+    passes :func:`resnet_takes_slab`; otherwise it takes the dequantized
     route: the float kernel from :func:`float_conv_kernel` with the original
     bias.  A float conv always takes its own kernel and bias."""
-    c1, c2 = res["conv1"], res["conv2"]
-    k1, k2 = slab_conv_kernel(c1), slab_conv_kernel(c2)
-    mid = tuple(x_shape[:-1]) + (k1.shape[-1],)
-    int8_route = (slab_plan_ok(x_shape, k1.shape) and slab_plan_ok(mid, k2.shape)
-                  and x_shape[-1] % num_groups == 0 and mid[-1] % num_groups == 0)
+    int8_route = resnet_takes_slab(x_shape, res, num_groups)
 
     def args(c):
         if int8_route and "kernel_q" in c:
             return c["kernel_q"], conv_bias_deq(c), slab_quant_kwargs(c)
         return float_conv_kernel(c, dtype), c["bias"], {}
 
-    return [args(c1), args(c2)]
+    return [args(res["conv1"]), args(res["conv2"])]
 
 
 # -- tree quantizers --------------------------------------------------------

@@ -178,6 +178,116 @@ def test_flash_attention_blhd_entry(rng):
     np.testing.assert_allclose(nn(got), nn(want), rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------------------------ pre-pass and split-K --
+
+# The float convs of the tiny-sd 512 main path (x shape, Co, upsample): the
+# UNet's at batch 2 (CFG), the VAE decoder's at batch 1.  chip_smoke.py
+# records them from the pipeline on the card.
+MAIN_PATH_CONVS = [
+    ((2, 64, 64, 320), 320, False), ((2, 32, 32, 320), 640, False),
+    ((2, 32, 32, 640), 640, False), ((2, 16, 16, 640), 1280, False),
+    ((2, 16, 16, 1280), 1280, False), ((2, 16, 16, 2560), 1280, False),
+    ((2, 16, 16, 1920), 1280, False), ((2, 32, 32, 1920), 640, False),
+    ((2, 32, 32, 960), 640, False), ((2, 64, 64, 960), 320, False),
+    ((2, 64, 64, 640), 320, False), ((2, 16, 16, 1280), 1280, True),
+    ((2, 32, 32, 640), 640, True),
+    ((1, 64, 64, 512), 512, False), ((1, 128, 128, 512), 512, False),
+    ((1, 256, 256, 512), 256, False), ((1, 256, 256, 256), 256, False),
+    ((1, 512, 512, 256), 128, False), ((1, 512, 512, 128), 128, False),
+    ((1, 64, 64, 512), 512, True), ((1, 128, 128, 512), 512, True),
+    ((1, 256, 256, 256), 256, True),
+]
+
+
+@pytest.mark.parametrize("x_shape,co,up", MAIN_PATH_CONVS)
+def test_split_plan_fills_one_wave_on_the_main_path(x_shape, co, up):
+    """Every main-path conv gets a grid of at least one block per SM, or S
+    at its cap; S = 1 where the unsplit grid is full; S never exceeds the K
+    steps, and each slice keeps at least MIN_SLICE_K_STEPS of them."""
+    b, hx, wx, ci = x_shape
+    h, w = (2 * hx, 2 * wx) if up else (hx, wx)
+    splits = tconv.plan_conv3x3_split(b, h, w, ci, co)
+    blocks = tconv.slab_blocks(b, h, w, co)
+    k_steps = tconv.slab_k_steps(ci)
+    cap = min(tconv.MAX_SPLITS, k_steps // tconv.MIN_SLICE_K_STEPS)
+    assert 1 <= splits <= k_steps
+    assert splits * blocks >= tconv.SMS or splits == cap
+    if blocks >= tconv.SMS:
+        assert splits == 1
+    else:
+        assert (splits - 1) * blocks < tconv.SMS  # the smallest such S
+    if splits > 1:
+        assert k_steps // splits >= tconv.MIN_SLICE_K_STEPS
+    keys = tconv.conv3x3_launches("conv3x3_slab_upsample" if up else "conv3x3_slab",
+                                  x_shape, co, prologue=not up, upsample=up)
+    assert keys.get("conv3x3_slab_splitk", 0) == int(splits > 1)
+
+
+def test_split_plan_examples():
+    """The UNet's 16x16 maps (40 blocks at Co = 1280) split in four, its
+    32x32 maps (80 blocks at Co = 640) in two; a 64x64 map at batch 2 (192
+    blocks at Co = 320, the third N tile ragged) is full; a small K caps S."""
+    assert tconv.plan_conv3x3_split(2, 16, 16, 2560, 1280) == 4
+    assert tconv.plan_conv3x3_split(2, 32, 32, 640, 640) == 2
+    assert tconv.plan_conv3x3_split(2, 64, 64, 320, 320) == 1
+    assert tconv.plan_conv3x3_split(1, 12, 20, 40, 72) == 2  # 18 K steps: cap 2
+    assert tconv.plan_conv3x3_split(1, 4, 4, 8, 8) == 1      # 9 K steps: no split
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_prepass_then_plain_conv_equals_the_prologue_conv_bitwise(rng, up):
+    """The rounding point did not move: the pre-pass rounds SiLU(x*a + c)
+    to bf16, and the no-prologue conv on that map equals the conv with the
+    prologue, bitwise in bf16, output and moments (the zero pad comes after
+    the pre-pass in both)."""
+    b, h, w, ci, co = 2, 6, 10, 24, 16
+    x = tt(rng.normal(size=(b, h, w, ci)) * 2.0, torch.bfloat16)
+    k = tt(rng.normal(size=(3, 3, ci, co)) * (9 * ci) ** -0.5, torch.bfloat16)
+    a, c = tt(rng.uniform(0.5, 1.5, (b, ci))), tt(rng.normal(size=(b, ci)))
+    bias = tt(rng.normal(size=(co,)) * 0.1)
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    res = tt(rng.normal(size=(b, ho, wo, co)), torch.bfloat16)
+    y = tconv.conv3x3_prologue(x, a, c)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y, tconv.conv3x3_prologue_plain(x, a, c), rtol=0, atol=0)
+    got, got_st = tconv.conv3x3_slab_plain(y, k, bias, residual=res, upsample=up,
+                                           emit_stats=True)
+    want, want_st = tconv.conv3x3_slab_plain(x, k, bias, prologue_scale=a, prologue_bias=c,
+                                             residual=res, upsample=up, emit_stats=True)
+    assert torch.equal(got, want) and torch.equal(got_st, want_st)
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(v), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+@pytest.mark.parametrize("up", [False, True])
+def test_split_sum_then_one_rounding_within_one_ulp(rng, splits, up):
+    """Slices of the flattened K loop summed in float32 in a fixed order,
+    then bias, residual and one rounding, stay within one bf16 ulp of the
+    unsplit conv; the slices' float32 sum is the unsplit accumulator up to
+    summation order; the reduction's moments are those of its output."""
+    b, h, w, ci, co = 1, 6, 8, 40, 24
+    x = tt(rng.normal(size=(b, h, w, ci)), torch.bfloat16)
+    k = tt(rng.normal(size=(3, 3, ci, co)) * (9 * ci) ** -0.5, torch.bfloat16)
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    bias = tt(rng.normal(size=(co,)) * 0.1)
+    res = tt(rng.normal(size=(b, ho, wo, co)), torch.bfloat16)
+    ws = tconv.conv3x3_split_plain(x, k, splits, upsample=up)
+    assert ws.shape == (splits, b, ho, wo, co) and ws.dtype == torch.float32
+    acc = tconv.conv3x3_split_plain(x, k, 1, upsample=up)[0]
+    np.testing.assert_allclose(nn(ws.sum(dim=0)), nn(acc), rtol=1e-5, atol=1e-5)
+    got, got_st = tconv.conv3x3_splitk_reduce(ws, bias, res, emit_stats=True)
+    want = tconv.conv3x3_slab_plain(x, k, bias, residual=res, upsample=up)
+    assert got.dtype == torch.bfloat16
+    g, wv = nn(got), nn(want)
+    assert (np.abs(g - wv) <= _bf16_ulp(wv)).all()
+    np.testing.assert_allclose(nn(got_st), nn(tconv._moments(got)), rtol=1e-6, atol=1e-6)
+
+
 # --------------------------------------------------------------- wrappers --
 
 def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
@@ -188,10 +298,17 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
                                   nn(tconv.conv3x3_slab_plain(x, k)))
     np.testing.assert_array_equal(nn(tconv.conv3x3_slab(x, k, upsample=True)),
                                   nn(tconv.conv3x3_slab_plain(x, k, upsample=True)))
+    a = tt(rng.normal(size=(1, 8)))
+    np.testing.assert_array_equal(nn(tconv.conv3x3_prologue(x, a, a)),
+                                  nn(tconv.conv3x3_prologue_plain(x, a, a)))
+    ws = tt(rng.normal(size=(2, 1, 4, 4, 8)))
+    np.testing.assert_array_equal(nn(tconv.conv3x3_splitk_reduce(ws)),
+                                  nn(tconv.splitk_reduce_plain(ws)))
     q = tt(rng.normal(size=(1, 1, 5, 8)))
     np.testing.assert_array_equal(nn(tflash.flash_attention_packed(q, q, q)),
                                   nn(tflash.flash_attention_plain(q, q, q)))
     assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
+                             "conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0,
                              "conv3x3_slab_int8": 0, "flash_attention": 0,
                              "flash_attention_stats": 0, "out_proj_packed": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
@@ -236,14 +353,7 @@ def _bf16_close(got, want):
     assert np.abs(g - w).max() <= BF16_REL * np.abs(w).max()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("x_shape,co,up", [
-    ((2, 16, 16, 64), 128, False),
-    ((1, 12, 20, 40), 72, False),   # ragged M and N tiles
-    ((1, 6, 10, 40), 72, True),
-])
-def test_cuda_conv3x3_slab_matches_plain(rng, x_shape, co, up):
-    dev = _cuda_or_skip()
+def _cuda_conv_case(rng, x_shape, co, up, dev):
     c = _conv_case(rng, x_shape, co, residual=True, up=up)
     b, ci = x_shape[0], x_shape[-1]
     kw = dict(residual=tt(c["residual"], torch.bfloat16).to(dev), upsample=up,
@@ -251,15 +361,84 @@ def test_cuda_conv3x3_slab_matches_plain(rng, x_shape, co, up):
               prologue_bias=tt(rng.normal(size=(b, ci))).to(dev))
     x = tt(c["x"], torch.bfloat16).to(dev)
     k = tt(c["k"], torch.bfloat16).to(dev)
-    bias = tt(c["bias"]).to(dev)
+    return x, k, tt(c["bias"]).to(dev), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,co,up", [
+    ((2, 16, 16, 64), 128, False),
+    ((1, 12, 20, 40), 72, False),     # ragged M, Ci and N tiles; split in two
+    ((1, 6, 10, 40), 72, True),
+    ((2, 16, 16, 2560), 1280, False),  # the UNet's split-K shape, S = 4
+    ((1, 136, 130, 40), 72, False),   # ragged, unsplit (139 blocks)
+    ((1, 68, 66, 40), 72, True),      # ragged upsample, unsplit (141 blocks)
+])
+def test_cuda_conv3x3_slab_matches_plain(rng, x_shape, co, up):
+    dev = _cuda_or_skip()
+    x, k, bias, kw = _cuda_conv_case(rng, x_shape, co, up, dev)
     reset_launch_counts()
     got, got_st = tconv.conv3x3_slab(x, k, bias, **kw)
     torch.cuda.synchronize()
-    assert launch_counts["conv3x3_slab_upsample" if up else "conv3x3_slab"] == 1
+    key = "conv3x3_slab_upsample" if up else "conv3x3_slab"
+    assert {n: c for n, c in launch_counts.items() if c} == tconv.conv3x3_launches(
+        key, x_shape, co, prologue=True, upsample=up)
     want, want_st = tconv.conv3x3_slab_plain(x, k, bias, **kw)
     _bf16_close(got, want)
     np.testing.assert_allclose(got_st.cpu().numpy(), want_st.cpu().numpy(),
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,co,up,splits", [
+    ((2, 16, 16, 2560), 1280, False, 4),
+    ((1, 12, 20, 40), 72, False, 2),
+    ((2, 64, 64, 320), 320, False, 1),
+    ((2, 16, 16, 1280), 1280, True, 1),
+])
+def test_cuda_conv3x3_slab_is_deterministic(rng, x_shape, co, up, splits):
+    """Repeated calls give bitwise-equal output and moments, split or not
+    (a fixed-order reduction, no atomics); the plan gives the S named, and
+    each kernel of the call adds one to its own counter."""
+    dev = _cuda_or_skip()
+    b, hx, wx, ci = x_shape
+    h, w = (2 * hx, 2 * wx) if up else (hx, wx)
+    assert tconv.plan_conv3x3_split(b, h, w, ci, co) == splits
+    x, k, bias, kw = _cuda_conv_case(rng, x_shape, co, up, dev)
+    reset_launch_counts()
+    runs = [tconv.conv3x3_slab(x, k, bias, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    key = "conv3x3_slab_upsample" if up else "conv3x3_slab"
+    want = {n: 3 * c for n, c in tconv.conv3x3_launches(
+        key, x_shape, co, prologue=True, upsample=up).items()}
+    assert {n: c for n, c in launch_counts.items() if c} == want
+    for out, st in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(st, runs[0][1])
+
+
+@pytest.mark.gpu
+def test_cuda_prologue_and_splitk_reduce_match_plain(rng):
+    """The two sub-kernels alone: the pre-pass within one bf16 rounding of
+    its plain version (the exponential differs in its last bits), the
+    reduction bitwise (the same float32 additions in the same order) with
+    its moments within 1e-5."""
+    dev = _cuda_or_skip()
+    x = tt(rng.normal(size=(2, 12, 20, 40)) * 2.0, torch.bfloat16).to(dev)
+    a = tt(rng.uniform(0.5, 1.5, (2, 40))).to(dev)
+    c = tt(rng.normal(size=(2, 40))).to(dev)
+    ws = tt(rng.normal(size=(3, 2, 12, 20, 72))).to(dev)
+    bias = tt(rng.normal(size=(72,))).to(dev)
+    res = tt(rng.normal(size=(2, 12, 20, 72)), torch.bfloat16).to(dev)
+    reset_launch_counts()
+    y = tconv.conv3x3_prologue(x, a, c)
+    out, st = tconv.conv3x3_splitk_reduce(ws, bias, res, emit_stats=True)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in launch_counts.items() if c} == {
+        "conv3x3_slab_prologue": 1, "conv3x3_slab_splitk": 1}
+    yp = tconv.conv3x3_prologue_plain(x, a, c)
+    assert (y.float() - yp.float()).abs().max() <= 2.0 ** -7 * yp.float().abs().max()
+    want, want_st = tconv.splitk_reduce_plain(ws, bias, res, emit_stats=True)
+    assert torch.equal(out, want)
+    np.testing.assert_allclose(st.cpu().numpy(), want_st.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

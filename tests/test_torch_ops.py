@@ -206,11 +206,28 @@ def test_conv1x1_tokens(rng):
 
 @pytest.mark.parametrize("emit_stats", [False, True])
 def test_nearest_up_conv2d(rng, emit_stats):
-    """The fused upsample + conv (the slab kernel's plain version on the
-    CPU) against the JAX package's XLA route, upsample then conv."""
+    """A shape the slab rule refuses (Ci < 64): upsample then conv2d, as the
+    JAX package routes it, with no moments under ``emit_stats``."""
     x = rng.normal(size=(2, 4, 6, 16)).astype(np.float32)
     w = (rng.normal(size=(3, 3, 16, 8)) * 0.2).astype(np.float32)
     b = rng.normal(size=(8,)).astype(np.float32)
+    got = tops.nearest_up_conv2d(tt(x), tt(w), tt(b), emit_stats=emit_stats)
+    want = jops.conv.nearest_up_conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                       impl="gemm", emit_stats=emit_stats)
+    if emit_stats:
+        (got, st), (want, want_st) = got, want
+        assert st is None and want_st is None
+    close(got, want)
+
+
+@pytest.mark.parametrize("emit_stats", [False, True])
+def test_nearest_up_conv2d_fused(rng, emit_stats):
+    """A shape the slab rule accepts: the fused upsample + conv (the slab
+    kernel's plain version on the CPU) against the JAX package's XLA route,
+    upsample then conv, and its moments against the output's."""
+    x = rng.normal(size=(1, 4, 4, 64)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 64, 64)) * 0.05).astype(np.float32)
+    b = rng.normal(size=(64,)).astype(np.float32)
     got = tops.nearest_up_conv2d(tt(x), tt(w), tt(b), emit_stats=emit_stats)
     want = jops.conv.nearest_up_conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     if emit_stats:

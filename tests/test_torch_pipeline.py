@@ -186,19 +186,21 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 @pytest.mark.gpu
 def test_cuda_txt2img_runs_through_the_kernels():
-    """A small config whose channel counts and head dims the kernels take
-    (multiples of 8), on the card: every kernel of the bf16 flash route
-    launches, and those of the int8, ring and packed routes and of the
-    probes (E, H, I, J) do not."""
+    """A small config on the card whose level-0 resnets and up-sample pass
+    the slab routing rule (64 channels, 8x8 latent maps; the others take
+    the op path, as in the JAX package): every kernel of the bf16 flash
+    route launches, the slab conv's pre-pass and split-K reduction among
+    them, and those of the int8, ring and packed routes and of the probes
+    (E, H, I, J) do not."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     unet = TTINY.unet.__class__(**{**TTINY.unet.__dict__,
-                                   "block_out_channels": (32, 64, 64)})
+                                   "block_out_channels": (64, 64, 64)})
     cfg = TTINY.replace(unet=unet, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     pipe = StableDiffusionPipeline.from_random(cfg, seed=0, device="cuda")
     reset_launch_counts()
-    img = pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=1)
-    assert img.shape == (1, 32, 32, 3) and img.dtype == np.uint8
+    img = pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=1, image_size=64)
+    assert img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
     others = ("conv3x3_slab_int8", "flash_attention_stats", "out_proj_packed", "conv3x3_gemm",
               "flash_attention_legacy", "flash_attention_nq", "dot_bf16", "dot_int8")
     assert all(launch_counts[k] == 0 for k in others), launch_counts

@@ -411,7 +411,8 @@ def test_cuda_conv2d_gemm_route_launches_kernel_e(rng):
     tconv2d(x, k, None, padding=1, impl="gemm")
     tconv2d(x, k, None, padding=1)
     torch.cuda.synchronize()
-    assert {n: c for n, c in launch_counts.items() if c} == {"conv3x3_gemm": 1}
+    assert {n: c for n, c in launch_counts.items() if c} == tconv.conv3x3_launches(
+        "conv3x3_gemm", x.shape, 64)
 
 
 @pytest.mark.gpu
