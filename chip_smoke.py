@@ -11,10 +11,15 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 3. kernels -- each hand-written kernel against its plain PyTorch version on
               the card at the main paths' shapes (tolerance stated per
               line; the slab conv also at its split-K shapes, and its
-              pre-pass and split-K reduction alone), then every kernel call
+              pre-pass and split-K reduction alone; flash attention C and F,
+              out, m and l, also at ragged shapes at D = 40, 80, 160, 512:
+              Lq and Lk no multiple of their tiles, Lq under one tile; the
+              key-split merge alone), then every kernel call
               configuration of the main paths timed with CUDA events, each
-              slab conv configuration with its split S: the kernel, its
-              plain version, and one
+              slab conv configuration with its split S, each attention one
+              with its plan (query tile, key splits) and, beside the events,
+              the profiler's device time of the kernels and the library
+              (per call and per image): the kernel, its plain version, and one
               library call for the same function as a yardstick (for the
               int8 slab conv, which no one call computes, two float
               counterparts instead: kernel A and cuDNN bf16).  Kernels F
@@ -105,8 +110,11 @@ STEPS = 25                # the main path's DDPM steps (bench.py's default workl
 # the bf16 image's launches of each wrapper; the slab conv's pre-pass and
 # split-K reduction (conv3x3_slab_prologue, conv3x3_slab_splitk) are added
 # per path from its recorded calls (conv_sub_counts)
+# and flash attention's key-split merge (flash_attention_merge) likewise from
+# its recorded calls (flash_sub_counts)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
-              "flash_attention": 226, "flash_attention_stats": 0, "out_proj_packed": 0,
+              "flash_attention": 226, "flash_attention_stats": 0, "flash_attention_merge": 0,
+              "out_proj_packed": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
               "dot_bf16": 0, "dot_int8": 0}
 EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
@@ -126,6 +134,8 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                           "sdtpu/kernels/conv2d.py:456"),
     "flash_attention_stats": ("sdtpu_torch/csrc/flash_attention.cu",
                               "sdtpu/kernels/flash_attention.py:379"),
+    "flash_attention_merge": ("sdtpu_torch/csrc/flash_attention.cu",
+                              "sdtpu/kernels/flash_attention.py:267"),
     "out_proj_packed": ("sdtpu_torch/csrc/out_proj_packed.cu",
                         "sdtpu/kernels/flash_attention.py:464"),
     "conv3x3_gemm": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:606"),
@@ -136,7 +146,8 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
 }
 MAIN_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "conv3x3_slab_prologue",
-                "conv3x3_slab_splitk", "flash_attention")  # launched by the bf16 image
+                "conv3x3_slab_splitk", "flash_attention",
+                "flash_attention_merge")  # launched by the bf16 image
 PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
                  "dot_int8")
 
@@ -289,21 +300,73 @@ def check_conv(torch, gen, case):
     return name, err
 
 
-def check_flash(torch, gen, q_shape):
-    from sdtpu_torch.kernels.flash_attention import flash_attention_packed, flash_attention_plain
+def flash_qkv(torch, gen, q_shape, lk):
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(q_shape[:2] + (lk, q_shape[3]), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    return q, k, v
 
-    q, k, v = (torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    got = flash_attention_packed(q, k, v)
-    want = flash_attention_plain(q, k, v)
+
+def check_flash(torch, gen, q_shape, lk=None, stats=False):
+    """Kernel C (or F with ``stats``: out, m and l) against its plain
+    version, each within TOL_REL of its max |plain|."""
+    from sdtpu_torch.kernels.flash_attention import (
+        flash_attention_packed,
+        flash_attention_plain,
+        flash_attention_stats_packed,
+        flash_attention_stats_plain,
+        plan_flash,
+    )
+
+    lk = q_shape[2] if lk is None else lk
+    q, k, v = flash_qkv(torch, gen, q_shape, lk)
+    if stats:
+        got, want = flash_attention_stats_packed(q, k, v), flash_attention_stats_plain(q, k, v)
+    else:
+        got, want = (flash_attention_packed(q, k, v),), (flash_attention_plain(q, k, v),)
     torch.cuda.synchronize()
-    err, ref = max_err(got, want)
-    ok = err <= TOL_REL * ref
-    log(f"check flash_attention q=k=v={tuple(q_shape)}: max_abs_err={err:.4g} "
-        f"(max|plain|={ref:.4g}, rel {err / ref:.3g}, tol {TOL_REL:g})" + (" ok" if ok else " FAIL"))
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    ok = all(e <= TOL_REL * r for e, r in errs)
+    name = "flash_attention_stats" if stats else "flash_attention"
+    b, h, lq, d = q_shape
+    log(f"check {name} q={tuple(q_shape)} lk={lk} plan (bq, splits)="
+        f"{plan_flash(b * h, lq, lk, d)}: "
+        + ", ".join(f"{n} max_abs_err={e:.4g} (max|plain|={r:.4g})"
+                    for n, (e, r) in zip(("out", "m", "l"), errs))
+        + f", tol {TOL_REL:g} rel" + (" ok" if ok else " FAIL"))
     if not ok:
-        raise AssertionError("flash_attention disagrees with its plain version")
-    return "flash_attention", err
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return name, errs[0][0]
+
+
+def merge_ws(torch, gen, splits, bh, lq):
+    """A random workspace of the wide plan's merge (l > 0)."""
+    from sdtpu_torch.kernels.flash_attention import FLASH_WIDE_DP
+
+    n = splits * bh * lq
+    return torch.cat([torch.randn(n * FLASH_WIDE_DP, generator=gen, device="cuda"),
+                      4.0 * torch.randn(n, generator=gen, device="cuda"),
+                      1.0 + 49.0 * torch.rand(n, generator=gen, device="cuda")])
+
+
+def check_merge(torch, gen, splits, bh, lq, d):
+    """The merge kernel alone against its plain version (out, m, l, each
+    within TOL_REL of its max |plain|)."""
+    from sdtpu_torch.kernels.flash_attention import flash_attention_merge, flash_merge_plain
+
+    ws = merge_ws(torch, gen, splits, bh, lq)
+    got = flash_attention_merge(ws, bh, lq, d, splits, stats=True)
+    want = flash_merge_plain(ws, bh, lq, d, splits)
+    torch.cuda.synchronize()
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    ok = all(e <= TOL_REL * r for e, r in errs)
+    log(f"check flash_attention_merge splits={splits} rows={bh}x{lq} d={d}: "
+        + ", ".join(f"{n} max_abs_err={e:.4g} (max|plain|={r:.4g})"
+                    for n, (e, r) in zip(("out", "m", "l"), errs))
+        + f", tol {TOL_REL:g} rel" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("flash_attention_merge disagrees with its plain version")
+    return errs[0][0]
 
 
 def time_conv(torch, gen, cfg):
@@ -387,17 +450,22 @@ def int8_case(torch, gen, x_shape, co, res, stats):
 
 
 def time_flash(torch, gen, q_shape, lk):
-    import torch.nn.functional as F
-
+    """Kernel C (with its merge where the plan splits), its plain version
+    and the library by CUDA events, then the kernels' and the library's
+    device ms by the profiler.  Library: SDPA, the memory-efficient one
+    where flash refuses the head dim (D > 256)."""
     from sdtpu_torch.kernels.flash_attention import flash_attention_packed, flash_attention_plain
 
-    q = torch.randn(q_shape, generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(q_shape[:2] + (lk, q_shape[3]), generator=gen,
-                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    q, k, v = flash_qkv(torch, gen, q_shape, lk)
+    aten = torch.ops.aten
+    if q_shape[3] > 256:
+        lib = lambda: aten._scaled_dot_product_efficient_attention(q, k, v, None, False)  # noqa: E731
+    else:
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
     t_k = event_ms(lambda: flash_attention_packed(q, k, v), 10)
     t_p = event_ms(lambda: flash_attention_plain(q, k, v), 3)
-    t_l = event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
-    return t_k, t_p, t_l
+    t_l = event_ms(lib, 10)
+    return t_k, t_p, t_l, device_ms(lambda: flash_attention_packed(q, k, v), 10), device_ms(lib, 10)
 
 
 def flash_stats_case(torch, gen, q_shape, lk):
@@ -536,6 +604,19 @@ def conv_sub_counts(conv_calls):
     return subs
 
 
+def flash_sub_counts(calls):
+    """Flash attention's key-split merge launches per image of a path, from
+    its recorded C and F calls and the tile plan."""
+    from sdtpu_torch.kernels.flash_attention import flash_launches
+
+    n_merge = 0
+    for key, wrapper in (("flash_attention", "flash_attention_packed"),
+                         ("flash_attention_stats", "flash_attention_stats_packed")):
+        for (q_shape, lk), n in calls[wrapper].items():
+            n_merge += n * flash_launches(key, q_shape, lk).get("flash_attention_merge", 0)
+    return {"flash_attention_merge": n_merge}
+
+
 def check_prologue(torch, gen, x_shape):
     """The pre-pass alone against its plain version (tolerance TOL_REL)."""
     from sdtpu_torch.kernels.conv2d import conv3x3_prologue, conv3x3_prologue_plain
@@ -639,6 +720,11 @@ def main() -> int:
         plan_conv3x3_split,
         splitk_reduce_plain,
     )
+    from sdtpu_torch.kernels.flash_attention import (
+        flash_attention_merge,
+        flash_merge_plain,
+        plan_flash,
+    )
     from sdtpu_torch.parallel import LocalRing, ring_context
 
     details = {"device": smi, "sm_clock_max_mhz": sm_mhz, "exp_per_s": exp_rate}
@@ -680,6 +766,15 @@ def main() -> int:
     for q_shape in [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160), (1, 1, 4096, 512)]:
         name, err = check_flash(torch, gen, q_shape)
         errs[name] = max(errs.get(name, 0.0), err)
+    # ragged shapes, C and F: Lq and Lk no multiple of their tiles (4000 rows
+    # take 128-row tiles at D = 40), and Lq under one tile
+    for d in (40, 80, 160, 512):
+        for lq, lk in ((4000, 3999), (1000, 1001), (10, 77)):
+            for stats in (False, True):
+                name, err = check_flash(torch, gen, (2, 8, lq, d), lk, stats)
+                errs[name] = max(errs.get(name, 0.0), err)
+    errs["flash_attention_merge"] = max(check_merge(torch, gen, *c) for c in (
+        (4, 1, 4096, 512), (16, 1, 1024, 512), (2, 3, 100, 168)))
 
     ids = np.random.default_rng(40).integers(1, 49408, (2, 77))
     pipe = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
@@ -760,9 +855,35 @@ def main() -> int:
                                 + (b * 2 * co * 4 if stats else 0), 0.0), PEAK_BF16_FLOPS))
             del ws
     for (q_shape, lk), n in sorted(calls["flash_attention_packed"].items()):
-        t_k, t_p, t_l = time_flash(torch, gen, q_shape, lk)
-        rows.append(("flash_attention", f"q={q_shape} lk={lk}", n, t_k, t_p, t_l,
-                     flash_cost(q_shape, lk), PEAK_BF16_FLOPS))
+        t_k, t_p, t_l, d_k, d_l = time_flash(torch, gen, q_shape, lk)
+        b, h, lq, d = q_shape
+        bq, splits = plan_flash(b * h, lq, lk, d)
+        desc = f"q={q_shape} lk={lk} bq={bq} splits={splits}"
+        rows.append(("flash_attention", desc, n, t_k, t_p, t_l, flash_cost(q_shape, lk),
+                     PEAK_BF16_FLOPS))
+        add_device("flash_attention", n, d_k, d_l)
+        details.setdefault("flash_configs", []).append(
+            {"q": list(q_shape), "lk": lk, "per_image": n, "bq": bq, "splits": splits,
+             "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "device_ms": d_k,
+             "library_device_ms": d_l})
+        log(f"device time flash_attention {desc}: kernels {fmt_ms(d_k)}, library "
+            f"{fmt_ms(d_l)} (torch.profiler, per call)")
+        if splits > 1:  # the merge alone, on a workspace of this call's shape
+            ws = merge_ws(torch, gen, splits, b * h, lq)
+            run = functools.partial(flash_attention_merge, ws, b * h, lq, d, splits)
+            d_sub = device_ms(run, 10)
+            add_device("flash_attention_merge", n, d_sub)
+            share = "" if None in (d_sub, d_k) else f", {100 * d_sub / d_k:.1f}% of the call's"
+            log(f"device time flash_attention_merge splits={splits} rows={b * h}x{lq}: "
+                f"{fmt_ms(d_sub)}{share}")
+            rows.append(("flash_attention_merge", f"splits={splits} rows={b * h}x{lq} d={d}", n,
+                         event_ms(run, 20),
+                         event_ms(lambda: flash_merge_plain(ws, b * h, lq, d, splits), 5), None,
+                         (ws.numel() * 4 + b * h * lq * d * 2, 0.0), PEAK_BF16_FLOPS))
+            del ws
+    log("device time flash_attention per image (torch.profiler): kernels "
+        f"{fmt_ms(device['flash_attention']['kernel_ms'])}, library "
+        f"{fmt_ms(device['flash_attention']['library_ms'])}")
     # F and G: besides the CUDA-event time of back-to-back calls, the
     # profiler's device time, since at these shapes a call's kernel can be
     # shorter than its host-side enqueue
@@ -792,7 +913,8 @@ def main() -> int:
 
     # phase 4: end to end, bf16
     counts, e2e = run_image(torch, np, pipe, ids, "e2e", launch_counts, reset_launch_counts)
-    e2e_expected = dict(E2E_COUNTS, **conv_sub_counts(calls["conv3x3_slab"]))
+    e2e_expected = dict(E2E_COUNTS, **conv_sub_counts(calls["conv3x3_slab"]),
+                        **flash_sub_counts(calls))
     log(f"e2e expected launches: {e2e_expected}")
     if counts != e2e_expected:
         raise AssertionError(f"launch counts {counts} != expected {e2e_expected}")
@@ -871,7 +993,8 @@ def main() -> int:
 
     # phase 5: the sequence-parallel ring on the one card, kernel F
     ring_expected = dict(E2E_COUNTS, flash_attention=0, flash_attention_stats=RING * RING * n_self,
-                         **conv_sub_counts(ring_calls["conv3x3_slab"]))
+                         **conv_sub_counts(ring_calls["conv3x3_slab"]),
+                         **flash_sub_counts(ring_calls))
     with ring_context(LocalRing(RING)):
         ring_counts, ring_e2e = run_image(torch, np, pipe_ring, ids, "ring", launch_counts,
                                           reset_launch_counts)
@@ -892,7 +1015,8 @@ def main() -> int:
 
     # phase 7: the packed out-projection, kernel G
     packed_expected = dict(E2E_COUNTS, out_proj_packed=n_self,
-                           **conv_sub_counts(packed_calls["conv3x3_slab"]))
+                           **conv_sub_counts(packed_calls["conv3x3_slab"]),
+                           **flash_sub_counts(packed_calls))
     attn_mod._PACKED_OUT_PROJ = True
     try:
         packed_counts, packed_e2e = run_image(torch, np, pipe, ids, "packed", launch_counts,
@@ -932,7 +1056,8 @@ def main() -> int:
     quant_s = time.perf_counter() - t0
     log(f"int8: quantize_int8(transformer=True, vae=True) took {quant_s:.3f} s on the host")
     details["quantize_s"] = quant_s
-    q_calls = record_main_path_calls(torch, pipe_q, ids)["conv3x3_slab"]
+    q_all_calls = record_main_path_calls(torch, pipe_q, ids)
+    q_calls = q_all_calls["conv3x3_slab"]
     # kernel D at every int8 call shape of the int8 path
     counterparts = {"kernel_A_ms": 0.0, "cudnn_bf16_ms": 0.0}
     d_configs = []
@@ -998,7 +1123,7 @@ def main() -> int:
     log(f"int8: {n_unet} UNet resnets x 2 convs x {STEPS} steps + {n_vae} VAE resnets x 2 "
         f"convs = {d_expected} int8 slab convs per image")
     q_expected = dict(E2E_COUNTS, conv3x3_slab=0, conv3x3_slab_int8=d_expected,
-                      **conv_sub_counts(q_calls))
+                      **conv_sub_counts(q_calls), **flash_sub_counts(q_all_calls))
     if d_expected != 478:
         raise AssertionError(f"tiny-sd should have 478 resnet convs per image, got {d_expected}")
     q_counts, q_e2e = run_image(torch, np, pipe_q, ids, "int8", launch_counts,

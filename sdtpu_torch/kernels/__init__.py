@@ -7,7 +7,9 @@ plain versions count nothing.  A float 3x3 conv counts its GEMM under its
 wrapper's name (``conv3x3_slab``, ``conv3x3_slab_upsample``,
 ``conv3x3_gemm``), and its prologue pre-pass and split-K reduction, where it
 runs them, under ``conv3x3_slab_prologue`` and ``conv3x3_slab_splitk``
-(``kernels/conv2d.py:conv3x3_launches``).
+(``kernels/conv2d.py:conv3x3_launches``).  Flash attention at D > 160
+counts its key-split merge, where ``plan_flash`` splits, under
+``flash_attention_merge`` (``kernels/flash_attention.py:flash_launches``).
 """
 
 launch_counts = {
@@ -18,6 +20,7 @@ launch_counts = {
     "conv3x3_slab_int8": 0,
     "flash_attention": 0,
     "flash_attention_stats": 0,
+    "flash_attention_merge": 0,
     "out_proj_packed": 0,
     "conv3x3_gemm": 0,
     "flash_attention_legacy": 0,

@@ -16,9 +16,13 @@ form with softmax statistics, and the packed out-projection.
 The JAX kernels pad the head dim to 128 lanes; here every tensor keeps the
 real head dim, and the CUDA kernels (``csrc/flash_attention.cu``,
 ``csrc/out_proj_packed.cu``) pad the MMA depth inside shared memory only.
-The probe kernels H and I (``sdtpu_torch/tools/probe_flash_vpu.py`` and
-``probe_flash_2stream.py``) are modes of the same kernel template
-(``csrc/flash_attention.cuh``) and use this module's helpers.
+C and F take their query tile, and at D > 160 the split of the keys over
+blocks, from ``plan_flash``; a split call adds a merge kernel
+(``flash_attention_merge``, counted on its own; ``flash_launches`` derives
+a call's launches).  The probe kernels H and I
+(``sdtpu_torch/tools/probe_flash_vpu.py`` and ``probe_flash_2stream.py``)
+keep the first design's template (``csrc/flash_attention.cuh``) and use
+this module's helpers.
 On the CPU each wrapper runs its plain version: the same function in
 float32, with the probabilities rounded to v's dtype before the P.V
 product as the TPU kernel rounds them.
@@ -73,16 +77,95 @@ def out_proj_packed_plain(o: torch.Tensor, w: torch.Tensor, bias: Optional[torch
     return (out + residual.float()).to(residual.dtype)
 
 
+# The tiles csrc/flash_attention.cu is built with (``flash_attention_tile``).
+FLASH_MT2_MAX_DP = 48     # the largest padded depth with 128-row tiles
+FLASH_WIDE_BQ = 64        # D > 160: query rows per block (8 warps)
+FLASH_WIDE_BKV = 32       # D > 160: keys per tile
+FLASH_WIDE_DP = 512       # D > 160: the padded depth (and the workspace's row)
+FLASH_DEPTHS = (32, 48, 64, 80, 96, 128, 160)  # padded depths of the D <= 160 plans
+SMS = 132                 # H100 SXM
+MIN_SPLIT_TILES = 2       # key tiles per split, at least
+MAX_SPLITS = 16
+
+
+def flash_depth(d: int) -> int:
+    """The MMA depth a head dim is zero-padded to inside the kernel."""
+    return next((p for p in FLASH_DEPTHS if d <= p), FLASH_WIDE_DP)
+
+
+def plan_flash(bh: int, lq: int, lk: int, d: int) -> tuple:
+    """``(bq, splits)`` for one call of C or F over (bh, lq, d) queries and
+    lk keys.
+
+    D <= 160: 4 warps on 128 query rows (two 16-row tiles per warp, padded
+    depth <= 48) where that grid of ``ceil(lq / 128) * bh`` blocks is at
+    least one block per SM, else on 64; never a split.  D > 160: 64-row tiles of one 8-warp block per
+    SM, and the keys split over ``splits`` blocks: among the splits that
+    keep at least ``MIN_SPLIT_TILES`` key tiles each (and at most
+    ``MAX_SPLITS``), those giving at least one block per SM where any does,
+    the one with the fewest waves per split (the smallest on a tie).
+    Raises on a shape the kernels do not take."""
+    if min(bh, lq, lk, d) <= 0 or d % 8 or d > FLASH_WIDE_DP:
+        raise ValueError(f"plan_flash: no plan for bh={bh} lq={lq} lk={lk} d={d} (head dim a "
+                         f"multiple of 8, at most {FLASH_WIDE_DP}; sizes positive)")
+    dp = flash_depth(d)
+    if dp <= FLASH_DEPTHS[-1]:
+        return (128 if dp <= FLASH_MT2_MAX_DP and -(-lq // 128) * bh >= SMS else 64), 1
+    rows = -(-lq // FLASH_WIDE_BQ) * bh
+    cap = max(1, min(MAX_SPLITS, -(-lk // FLASH_WIDE_BKV) // MIN_SPLIT_TILES))
+    cands = [s for s in range(1, cap + 1) if rows * s >= SMS] or list(range(1, cap + 1))
+    return FLASH_WIDE_BQ, min(cands, key=lambda s: (-(-rows * s // SMS) / s, s))
+
+
+def flash_launches(key: str, q_shape, lk: int) -> dict:
+    """The launch counters one call of C (``key="flash_attention"``) or F
+    (``"flash_attention_stats"``) adds one to on the card: its own, and the
+    merge where ``plan_flash`` splits the keys."""
+    b, h, lq, d = q_shape
+    keys = {key: 1}
+    if plan_flash(b * h, lq, lk, d)[1] > 1:
+        keys["flash_attention_merge"] = 1
+    return keys
+
+
+def flash_merge_plain(ws: torch.Tensor, bh: int, lq: int, d: int, splits: int):
+    """The merge kernel's function over the wide plan's workspace ``ws``
+    (``splits * bh * lq * (FLASH_WIDE_DP + 2)`` floats: the unnormalised
+    acc rows, then m in log2 units, then l): ``(out, m, l)`` with out
+    (bh, lq, d) bf16 = ``sum_s w_s acc_s * (1/L)`` in split order, ``w_s =
+    2^(m_s - M)``, ``L = sum_s w_s l_s``, ``1/L -> 1`` where L == 0; m the
+    natural-log max ``M ln 2`` and l = L, each (bh, lq) float32."""
+    n = splits * bh * lq
+    acc = ws[:n * FLASH_WIDE_DP].view(splits, bh, lq, FLASH_WIDE_DP)[..., :d]
+    m2 = ws[n * FLASH_WIDE_DP:n * (FLASH_WIDE_DP + 1)].view(splits, bh, lq)
+    l = ws[n * (FLASH_WIDE_DP + 1):].view(splits, bh, lq)
+    big = m2.amax(dim=0)
+    w = torch.exp2(m2 - big)
+    big_l = (w * l).sum(dim=0)
+    out = (w[..., None] * acc).sum(dim=0)
+    inv = torch.where(big_l == 0, torch.ones_like(big_l), 1.0 / big_l)
+    return (out * inv[..., None]).to(torch.bfloat16), big * math.log(2.0), big_l
+
+
 def _flash_lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_stats_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.flash_attention_stats_launch.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.flash_attention_stats_launch.restype = i
+        lib.flash_attention_merge_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.flash_attention_merge_launch.restype = i
         lib.flash_attention_legacy_launch.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.flash_attention_legacy_launch.restype = i
+        lib.flash_attention_tile.argtypes = [i]
+        lib.flash_attention_tile.restype = i
+        tiles = tuple(lib.flash_attention_tile(j) for j in range(4))
+        want = (FLASH_MT2_MAX_DP, FLASH_WIDE_BQ, FLASH_WIDE_BKV, FLASH_WIDE_DP)
+        if tiles != want:
+            raise RuntimeError(f"flash_attention.cu runs tiles (MT2_MAX_DP, WIDE_BQ, WIDE_BKV, "
+                               f"WIDE_DP) {tiles}, plan_flash assumes {want}")
         lib._typed = True
     return lib
 
@@ -127,21 +210,49 @@ def _check_qkv(what: str, q, k, v) -> tuple:
     return b, h, lq, lk, d
 
 
+def _flash_call(key: str, q, k, v, stats: bool):
+    """Launch C (or F with ``stats``) as ``plan_flash`` says, then the
+    merge where it splits the keys; ``(out, m, l)``, m and l None for C."""
+    b, h, lq, lk, d = _check_qkv(key, q, k, v)
+    bh = b * h
+    bq, splits = plan_flash(bh, lq, lk, d)
+    lib = _flash_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    m = l = ws = None
+    if stats:
+        m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if splits > 1:
+        ws = torch.empty(splits * bh * lq * (FLASH_WIDE_DP + 2), dtype=torch.float32,
+                         device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    dims = [bh, lq, lk, d, bq, splits]
+    wsp = None if ws is None else ws.data_ptr()
+    if stats:
+        err = lib.flash_attention_stats_launch(*ptrs, m.data_ptr(), l.data_ptr(), wsp, *dims,
+                                               stream)
+    else:
+        err = lib.flash_attention_launch(*ptrs, wsp, *dims, stream)
+    _build.check(err, key)
+    launch_counts[key] += 1
+    if splits > 1:
+        err = lib.flash_attention_merge_launch(wsp, out.data_ptr(),
+                                               None if m is None else m.data_ptr(),
+                                               None if l is None else l.data_ptr(),
+                                               bh, lq, d, splits, stream)
+        _build.check(err, "flash_attention_merge")
+        launch_counts["flash_attention_merge"] += 1
+    return out, m, l
+
+
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel C.  q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D).
 
     On the card: bf16, contiguous, D a multiple of 8 and at most 512."""
     if _on_cpu("flash_attention", q):
         return flash_attention_plain(q, k, v)
-    b, h, lq, lk, d = _check_qkv("flash_attention", q, k, v)
-    out = torch.empty_like(q)
-    err = _flash_lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b * h, lq, lk, d, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "flash_attention")
-    launch_counts["flash_attention"] += 1
-    return out
+    return _flash_call("flash_attention", q, k, v, False)[0]
 
 
 def flash_attention_stats_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -150,16 +261,34 @@ def flash_attention_stats_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     (B, H, Lq) float32.  On the card: as kernel C."""
     if _on_cpu("flash_attention_stats", q):
         return flash_attention_stats_plain(q, k, v)
-    b, h, lq, lk, d = _check_qkv("flash_attention_stats", q, k, v)
-    out = torch.empty_like(q)
-    m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    err = _flash_lib().flash_attention_stats_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b * h, lq, lk, d, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "flash_attention_stats")
-    launch_counts["flash_attention_stats"] += 1
+    return _flash_call("flash_attention_stats", q, k, v, True)
+
+
+def flash_attention_merge(ws: torch.Tensor, bh: int, lq: int, d: int, splits: int,
+                          stats: bool = False):
+    """The merge kernel alone over a wide call's workspace (layout at
+    ``flash_merge_plain``): ``(out, m, l)``, m and l None unless
+    ``stats``.  On the card: ws contiguous float32 of
+    ``splits * bh * lq * (FLASH_WIDE_DP + 2)``, 160 < d <= 512, d a multiple
+    of 8, splits >= 2."""
+    if _on_cpu("flash_attention_merge", ws):
+        out, m, l = flash_merge_plain(ws, bh, lq, d, splits)
+        return (out, m, l) if stats else (out, None, None)
+    if (ws.dtype != torch.float32 or not ws.is_contiguous()
+            or ws.numel() != splits * bh * lq * (FLASH_WIDE_DP + 2)):
+        raise ValueError("flash_attention_merge: ws must be contiguous float32 of "
+                         f"{splits * bh * lq * (FLASH_WIDE_DP + 2)} elements")
+    out = torch.empty((bh, lq, d), dtype=torch.bfloat16, device=ws.device)
+    m = l = None
+    if stats:
+        m = torch.empty((bh, lq), dtype=torch.float32, device=ws.device)
+        l = torch.empty_like(m)
+    err = _flash_lib().flash_attention_merge_launch(
+        ws.data_ptr(), out.data_ptr(), None if m is None else m.data_ptr(),
+        None if l is None else l.data_ptr(), bh, lq, d, splits,
+        torch.cuda.current_stream(ws.device).cuda_stream)
+    _build.check(err, "flash_attention_merge")
+    launch_counts["flash_attention_merge"] += 1
     return out, m, l
 
 

@@ -4,10 +4,13 @@ Counterpart of ``tools/probe_flash_vpu.py``.  The legacy body computes the
 scores' scale after the product, compares every key column with Lk on every
 tile (a masked column becomes the finite -0.7 * FLT_MAX) and uses the
 natural exp; the shipped body folds log2(e) into the scale, uses exp2 and
-masks only the tile that holds keys past Lk.  On the card both run with the
-same tiles (``csrc/flash_attention.cu``), so the A/B isolates the
-exponential and the mask.  Every tensor keeps its real head dim; the scale
-is 1/sqrt(D).
+masks only the tile that holds keys past Lk.  As the TPU probe timed the
+legacy body against its shipped kernel, this one times H (the first
+design's template, ``csrc/flash_attention.cuh``: 64-row tiles, synchronous
+loads) against the shipped C (``csrc/flash_attention.cu``: a cp.async K/V
+ring, ldmatrix fragments, the tile plan of ``plan_flash``), so the A/B
+measures the exponential and the mask together with the two designs.
+Every tensor keeps its real head dim; the scale is 1/sqrt(D).
 
     python -m sdtpu_torch.tools.probe_flash_vpu [chain]    (default 100)
 """

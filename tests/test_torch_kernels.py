@@ -16,6 +16,7 @@ Tests marked ``gpu`` hold the CUDA kernels against the plain versions on the
 card; they skip on a machine without one.
 """
 
+import math
 import os
 
 import jax.numpy as jnp
@@ -178,6 +179,91 @@ def test_flash_attention_blhd_entry(rng):
     np.testing.assert_allclose(nn(got), nn(want), rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------------------------------ flash tile plan --
+
+# The self-attention calls of the tiny-sd 512 main path (B, H, Lq, D) with
+# Lk = Lq: the UNet's levels at batch 2 (CFG) and the VAE mid-block's one
+# head; then the ring's shards (n = 4: a quarter of the rows against a
+# quarter of the keys per F call).  chip_smoke.py records them on the card.
+FLASH_MAIN_PATH = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160), (1, 1, 4096, 512)]
+FLASH_RING = [(2, 8, 1024, 40), (2, 8, 256, 80), (2, 8, 64, 160), (1, 1, 1024, 512)]
+
+
+@pytest.mark.parametrize("shape", FLASH_MAIN_PATH + FLASH_RING)
+def test_flash_plan_on_the_main_path_and_the_ring(shape):
+    """128-row tiles exactly where the padded depth is <= 48 and they give
+    at least one block per SM, else 64; at D > 160 at least one block per
+    SM through a key split that keeps at least MIN_SPLIT_TILES key tiles a
+    split (and none below); the launches it derives."""
+    b, h, lq, d = shape
+    bq, splits = tflash.plan_flash(b * h, lq, lq, d)
+    blocks = -(-lq // bq) * b * h * splits
+    if d > 160:
+        assert bq == tflash.FLASH_WIDE_BQ and blocks >= tflash.SMS
+        assert -(-lq // tflash.FLASH_WIDE_BKV) // splits >= tflash.MIN_SPLIT_TILES
+    else:
+        assert splits == 1
+        assert bq == (128 if tflash.flash_depth(d) <= tflash.FLASH_MT2_MAX_DP
+                      and -(-lq // 128) * b * h >= tflash.SMS else 64)
+    want = {"flash_attention": 1, **({"flash_attention_merge": 1} if splits > 1 else {})}
+    assert tflash.flash_launches("flash_attention", shape, lq) == want
+
+
+def test_flash_plan_examples():
+    """The level-0 self-attention takes 128-row tiles (512 blocks); the
+    1024-token level 64 (its depth 80 takes no 128), as do the 256-token
+    level and every ring shard (the 1024-row one: 128-row tiles would give
+    128 blocks); the VAE's d = 512 four key splits (256 blocks, two waves of
+    one 8-warp block per SM), the ring's 1024-row shard sixteen; a short key
+    run is not split below two tiles a split."""
+    assert tflash.plan_flash(16, 4096, 4096, 40) == (128, 1)
+    assert tflash.plan_flash(16, 1024, 1024, 80) == (64, 1)
+    assert tflash.plan_flash(16, 4096, 4096, 80) == (64, 1)
+    assert tflash.plan_flash(16, 4096, 4096, 64) == (64, 1)
+    assert tflash.plan_flash(16, 4096, 4096, 48) == (128, 1)
+    assert tflash.plan_flash(16, 256, 256, 160) == (64, 1)
+    assert tflash.plan_flash(1, 4096, 4096, 512) == (64, 4)
+    assert tflash.plan_flash(16, 1024, 1024, 40) == (64, 1)
+    assert tflash.plan_flash(16, 64, 64, 160) == (64, 1)
+    assert tflash.plan_flash(1, 1024, 1024, 512) == (64, 16)
+    assert tflash.plan_flash(1, 100, 130, 512) == (64, 2)   # 5 key tiles: cap 2
+    assert tflash.plan_flash(1, 77, 77, 256) == (64, 1)     # 3 key tiles: no split
+    assert tflash.plan_flash(4096, 64, 64, 96) == (64, 1)   # 128 rows only at depth <= 80
+    assert [tflash.flash_depth(d) for d in (8, 40, 72, 88, 104, 136, 168, 512)] == [
+        32, 48, 80, 96, 128, 160, 512, 512]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(1, 64, 64, 12), (1, 64, 64, 520), (1, 64, 64, 0),
+                                        (0, 64, 64, 40), (1, 0, 64, 40), (1, 64, 0, 40)])
+def test_flash_plan_refuses_what_the_kernels_do_not_take(bh, lq, lk, d):
+    with pytest.raises(ValueError, match="no plan"):
+        tflash.plan_flash(bh, lq, lk, d)
+
+
+@pytest.mark.parametrize("d,lk,splits", [(512, 130, 2), (168, 200, 4)])
+def test_flash_merge_of_key_splits_equals_the_unsplit_attention(rng, d, lk, splits):
+    """The wide plan's merge, on a workspace written as the kernel writes
+    it (each split's unnormalised f32 acc, m in log2 units, l), gives the
+    unsplit kernel F's function: out within one bf16 rounding, m and l to
+    float32 precision."""
+    b, h, lq = 1, 2, 24
+    q, k, v = (tt(rng.normal(size=(b, h, n, d))) for n in (lq, lk, lk))
+    bounds = [sp * lk // splits for sp in range(splits + 1)]
+    parts = [tflash._attention_parts(q, k[:, :, lo:hi], v[:, :, lo:hi])
+             for lo, hi in zip(bounds, bounds[1:])]
+    acc = torch.zeros((splits, b * h, lq, tflash.FLASH_WIDE_DP))
+    acc[..., :d] = torch.stack([p[0].reshape(b * h, lq, d) for p in parts])
+    m2 = torch.stack([p[1].reshape(b * h, lq) for p in parts]) / math.log(2.0)
+    l = torch.stack([p[2].reshape(b * h, lq) for p in parts])
+    ws = torch.cat([acc.flatten(), m2.flatten(), l.flatten()])
+    got = tflash.flash_attention_merge(ws, b * h, lq, d, splits, stats=True)
+    want = tflash.flash_attention_stats_plain(q, k, v)
+    np.testing.assert_allclose(nn(got[0].float()), nn(want[0].reshape(b * h, lq, d)),
+                               rtol=2 ** -7, atol=2 ** -7)
+    np.testing.assert_allclose(nn(got[1]), nn(want[1].reshape(b * h, lq)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(nn(got[2]), nn(want[2].reshape(b * h, lq)), rtol=1e-5)
+
+
 # ------------------------------------------------ pre-pass and split-K --
 
 # The float convs of the tiny-sd 512 main path (x shape, Co, upsample): the
@@ -307,10 +393,15 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
     q = tt(rng.normal(size=(1, 1, 5, 8)))
     np.testing.assert_array_equal(nn(tflash.flash_attention_packed(q, q, q)),
                                   nn(tflash.flash_attention_plain(q, q, q)))
+    ws = tt(rng.normal(size=(2 * 3 * (tflash.FLASH_WIDE_DP + 2),)))
+    for g, w in zip(tflash.flash_attention_merge(ws, 1, 3, 168, 2, stats=True),
+                    tflash.flash_merge_plain(ws, 1, 3, 168, 2)):
+        np.testing.assert_array_equal(nn(g.float()), nn(w.float()))
     assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
                              "conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0,
                              "conv3x3_slab_int8": 0, "flash_attention": 0,
-                             "flash_attention_stats": 0, "out_proj_packed": 0,
+                             "flash_attention_stats": 0, "flash_attention_merge": 0,
+                             "out_proj_packed": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
                              "flash_attention_nq": 0, "dot_bf16": 0, "dot_int8": 0}
 
@@ -452,6 +543,67 @@ def test_cuda_flash_attention_matches_plain(rng, shape, lk):
     got = tflash.flash_attention_packed(q, k, v)
     torch.cuda.synchronize()
     _bf16_close(got, tflash.flash_attention_plain(q, k, v))
+
+
+def _flash_plan_cases():
+    """(q shape, Lk) for every padded depth of the D <= 160 plans at each
+    query tile it takes (128 rows where the depth is <= 48, and 64; 128-key
+    tiles to depth 80, 64-key tiles above), and for the wide plan (split and unsplit): Lq and Lk no
+    multiple of their tiles, and Lq under one tile."""
+    cases = []
+    for d in (8, 32, 40, 48, 64, 72, 80, 88, 96, 104, 128, 136, 160):
+        if tflash.flash_depth(d) <= tflash.FLASH_MT2_MAX_DP:
+            cases.append(((1, 33, 520, d), 200))   # 128-row tiles, 165 blocks
+        cases.append(((1, 33, 200, d), 130))       # 64-row tiles, 132 blocks
+        cases.append(((1, 2, 40, d), 70))          # Lq < 64, one key tile to depth 80
+    for d in (168, 256, 512):
+        cases += [(((1, 1, 100, d)), 130),         # 2 key splits
+                  (((1, 2, 40, d)), 70),           # unsplit, Lq < 64
+                  (((1, 1, 600, d)), 1000)]        # 14 key splits, ragged
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lk", _flash_plan_cases())
+def test_cuda_flash_plans_match_plain(rng, shape, lk):
+    """C and F (out, m and l) against their plain versions at every plan
+    the kernels hold, with the launches plan_flash derives."""
+    dev = _cuda_or_skip()
+    b, h, lq, d = shape
+    q = tt(rng.normal(size=shape), torch.bfloat16).to(dev)
+    k, v = (tt(rng.normal(size=(b, h, lk, d)), torch.bfloat16).to(dev) for _ in range(2))
+    reset_launch_counts()
+    got = tflash.flash_attention_packed(q, k, v)
+    out, m, l = tflash.flash_attention_stats_packed(q, k, v)
+    torch.cuda.synchronize()
+    want = dict(tflash.flash_launches("flash_attention", shape, lk))
+    for key, n in tflash.flash_launches("flash_attention_stats", shape, lk).items():
+        want[key] = want.get(key, 0) + n
+    assert {n: c for n, c in launch_counts.items() if c} == want
+    w_out, w_m, w_l = tflash.flash_attention_stats_plain(q, k, v)
+    _bf16_close(got, tflash.flash_attention_plain(q, k, v))
+    _bf16_close(out, w_out)
+    np.testing.assert_allclose(m.cpu().numpy(), w_m.cpu().numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(l.cpu().numpy(), w_l.cpu().numpy(), rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_merge_matches_plain(rng):
+    """The merge kernel alone on a random workspace (l > 0), against its
+    plain version: out within one bf16 rounding, m and l to float32."""
+    dev = _cuda_or_skip()
+    splits, bh, lq, d = 3, 2, 50, 512
+    n = splits * bh * lq
+    ws = torch.cat([tt(rng.normal(size=(n * tflash.FLASH_WIDE_DP,))),
+                    tt(rng.normal(size=(n,)) * 4.0), tt(rng.uniform(1.0, 50.0, (n,)))]).to(dev)
+    reset_launch_counts()
+    got = tflash.flash_attention_merge(ws, bh, lq, d, splits, stats=True)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention_merge"] == 1
+    want = tflash.flash_merge_plain(ws, bh, lq, d, splits)
+    _bf16_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

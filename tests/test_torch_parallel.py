@@ -338,7 +338,9 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,lk", [((2, 8, 256, 40), 256), ((1, 2, 77, 80), 100),
-                                      ((1, 1, 100, 512), 130)])
+                                      ((1, 1, 100, 512), 130),
+                                      # the ring's shards at tiny-sd 512, n = 4
+                                      ((2, 8, 64, 160), 64), ((1, 1, 1024, 512), 1024)])
 def test_cuda_flash_attention_stats_matches_plain(rng, shape, lk):
     dev = _cuda_or_skip()
     b, h, lq, d = shape

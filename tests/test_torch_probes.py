@@ -316,7 +316,7 @@ def test_dot_make_refuses_other_forms_and_shapes():
 # ------------------------------------------------------------------- tools --
 
 @pytest.mark.parametrize("tool", ["ab_conv", "probe_flash_vpu", "probe_flash_2stream",
-                                  "probe_int8_dot"])
+                                  "probe_int8_dot", "ab_flash"])
 def test_tool_exits_non_zero_without_a_card(tool):
     """``python -m sdtpu_torch.tools.<tool>`` has no CPU mode: without a
     card it exits non-zero and prints no measurement."""
