@@ -67,9 +67,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               that ``plan_co_tile`` accepts (two of them split-K) and at a
               ragged split-K shape, H and I (every chain count) at
               two latent self-attention shapes, J (int8 bitwise, bf16) at
-              the probe's two GEMM shapes, each against its plain version,
-              then timed beside its bound, its plain version and one
-              library call (CUDA events and profiler device time); then
+              the probe's two GEMM shapes and J's bf16 split-K reduction
+              alone (bitwise) where ``plan_dot`` splits, each against its
+              plain version, then timed beside its bound, its plain version
+              and one library call where there is one (CUDA events and
+              profiler device time); then
               every kernel variant the tools run, at the tools' own shapes
               and inputs, against its plain version (``ab_conv``'s E and A
               with and without prologue; C, H and every chain variant of I
@@ -116,7 +118,7 @@ E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_in
               "flash_attention": 226, "flash_attention_stats": 0, "flash_attention_merge": 0,
               "out_proj_packed": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
-              "dot_bf16": 0, "dot_int8": 0}
+              "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0}
 EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
 SMS = 132                 # H100 SXM
 RING = 4                  # shards of the sequence-parallel ring on the one card
@@ -143,13 +145,14 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                                "tools/probe_flash_vpu.py:105"),
     "flash_attention_nq": ("sdtpu_torch/csrc/flash_nq.cu", "tools/probe_flash_2stream.py:124"),
     "dot_bf16": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
+    "dot_bf16_splitk": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
 }
 MAIN_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "conv3x3_slab_prologue",
                 "conv3x3_slab_splitk", "flash_attention",
                 "flash_attention_merge")  # launched by the bf16 image
 PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
-                 "dot_int8")
+                 "dot_bf16_splitk", "dot_int8")
 
 
 def log(msg: str) -> None:
@@ -1308,16 +1311,19 @@ def probe_case(torch, name, desc, run, plain, library, cost, peak, exp_rate, *, 
     """One probe kernel at one shape: ``run()`` against ``plain()`` (bitwise
     when ``exact``, else within TOL_REL of max |plain|), then the kernel,
     plain and library times by CUDA events and the kernel's and library's
-    device times by the profiler, beside the bound."""
+    device times by the profiler, beside the bound.  ``library`` None: no
+    one PyTorch call computes the function (its times are None)."""
     err = judge_probe(torch, name, desc, run(), plain(), exact=exact)
-    t_k, t_p, t_l = event_ms(run, 10), event_ms(plain, 3), event_ms(library, 10)
-    d_k, d_l = device_ms(run, 10), device_ms(library, 10)
+    t_k, t_p = event_ms(run, 10), event_ms(plain, 3)
+    t_l = None if library is None else event_ms(library, 10)
+    d_k, d_l = device_ms(run, 10), None if library is None else device_ms(library, 10)
     b_ms, b_by = bound_ms(cost, peak, exp_rate)
     t_by, t_ops = bound_terms(cost, peak, exp_rate)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     old = f", without the exp term {bound_ms(cost[:2], peak)[0]:.4f} ms" if len(cost) > 2 else ""
+    lib = "none" if library is None else f"{t_l:.4f} ms (device {fmt(d_l)})"
     log(f"time {name} {desc}: kernel {t_k:.4f} ms (device {fmt(d_k)}), plain {t_p:.4f} ms, "
-        f"library {t_l:.4f} ms (device {fmt(d_l)}), bound {b_ms:.4f} ms ({b_by}{old}), "
+        f"library {lib}, bound {b_ms:.4f} ms ({b_by}{old}), "
         f"{cost[1] / t_k / 1e9:.1f} T(FL)OP/s")
     return {"config": desc, "max_abs_err": err, "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
             "library_ms": t_l, "library_device_ms": d_l, "bound_ms": b_ms, "bound_by": b_by,
@@ -1334,7 +1340,14 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
     from sdtpu_torch.tools import ab_conv, probe_flash_2stream, probe_flash_vpu, probe_int8_dot
     from sdtpu_torch.tools.probe_flash_2stream import CARD_VARIANTS, flash_2q, flash_2q_plain
     from sdtpu_torch.tools.probe_flash_vpu import legacy_flash, legacy_flash_plain
-    from sdtpu_torch.tools.probe_int8_dot import dot_inputs, dot_plain, make
+    from sdtpu_torch.tools.probe_int8_dot import (
+        dot_inputs,
+        dot_plain,
+        dot_splitk_reduce,
+        make,
+        plan_dot,
+        splitk_reduce_plain,
+    )
 
     t0 = time.perf_counter()
     cases = {n: [] for n in PROBE_KERNELS}
@@ -1382,6 +1395,13 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
             lambda: dot_plain(x8, w8, torch.int32, torch.int32),
             lambda: torch._int_mm(x8, w8), (m * kk + kk * n + 4 * m * n, 2.0 * m * kk * n),
             PEAK_INT8_OPS, exp_rate, exact=True))
+        splits = plan_dot(m, kk, n)[1]
+        if splits > 1:  # the bf16 call's split-K reduction alone, bitwise
+            ws = torch.randn((splits, m, n), generator=gen, device="cuda")
+            cases["dot_bf16_splitk"].append(probe_case(
+                torch, "dot_bf16_splitk", f"ws={(splits, m, n)}", lambda: dot_splitk_reduce(ws),
+                lambda: splitk_reduce_plain(ws), None, (ws.numel() * 4 + m * n * 2, 0.0),
+                PEAK_BF16_FLOPS, exp_rate, exact=True))
     tool_errs = {n: [] for n in PROBE_KERNELS}
     tool_checks(torch, tool_errs)
     # E at a ragged split-K shape (S = 2; ragged M, Ci and N tiles)
@@ -1418,6 +1438,7 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
     kernels = {}
     for name, rows in cases.items():
         dev = [r["device_ms"] for r in rows]
+        lib = [r["library_ms"] for r in rows]
         kernels[name] = {
             "launches": tool_launches[name],
             "max_abs_err": max([r["max_abs_err"] for r in rows] + tool_errs[name]),
@@ -1425,12 +1446,13 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": ("bytes" if sum(r["byte_ms"] for r in rows) > sum(r["op_ms"] for r in rows)
                          else "operations"),
-            "library_ms": sum(r["library_ms"] for r in rows),
+            "library_ms": None if None in lib else sum(lib),
         }
         log(f"probe kernel {name}: {len(rows)} check calls, sums: kernel {kernels[name]['ms']:.4f} "
             f"ms, device " + ("not measured" if None in dev else f"{sum(dev):.4f} ms")
             + f", plain {kernels[name]['plain_ms']:.4f} ms, library "
-            f"{kernels[name]['library_ms']:.4f} ms, bound {kernels[name]['bound_ms']:.4f} ms")
+            + ("none" if None in lib else f"{sum(lib):.4f} ms")
+            + f", bound {kernels[name]['bound_ms']:.4f} ms")
     log(f"probes: checks and times {checks_s:.1f} s, tools "
         f"{sum(r['s'] for r in tool_runs):.1f} s")
     return {"kernels": kernels, "cases": cases, "tools": tool_runs}

@@ -12,10 +12,10 @@
 //   the same output, normalised over this KV block only, plus each row's
 //   max m of the scaled scores and sum l = sum exp(s_j - m), both f32.
 // * H (flash_attention_legacy_launch) replaces tools/probe_flash_vpu.py:
-//   legacy_flash -> _legacy_kernel, the TPU round-2 body kept as a probe.
-//   It stays on the first design's template (flash_attention.cuh, MODE_LEGACY,
-//   64-row tiles of one 16-row tile per warp, synchronous loads), as kernel
-//   I (flash_nq.cu) does, so that both keep measuring the TPU's schedules.
+//   legacy_flash -> _legacy_kernel (pallas_call at :105), the TPU round-2
+//   body kept as a probe.  It runs on C's D <= 160 design below (same plan,
+//   tiles, ring and fragments) with only the softmax body swapped, so that
+//   H against C prices that body and nothing else.
 //
 // What C and F compute, per (batch*head, query row), exactly as before:
 //   s_j = q . k_j (f32 MMA); keys past Lk are -inf, compared only on the
@@ -27,6 +27,14 @@
 //     P.V, as the TPU kernel does); out = bf16(acc * (1/l)), 1/l -> 1 where
 //     l == 0;
 //   F also writes m * c * ln 2 (the natural-log max of s/sqrt(D)) and l.
+// What H computes (the TPU's _legacy_kernel, tools/probe_flash_vpu.py:49-98):
+//   s_j = f32(q . k_j) * (1/sqrt(D)), the scale its own multiply after the
+//     MMA; every key column is compared with the run-time Lk on EVERY tile,
+//     a masked one set to NEG_BIG = -0.7 * FLT_MAX (finite, so
+//     e(NEG_BIG - m) is 0 and never NaN);
+//   running max m of the scaled s, p_j = __expf(s_j - m) (natural units:
+//     ex2.approx of (s - m) * log2(e), one multiply more than C's FFMA);
+//   l, acc and out as C (P rounded to bf16, 1/l -> 1 where l == 0).
 // The head dim is taken as it is: zero-padded to the MMA depth DP inside
 // shared memory only (cp.async src-size 0); the output holds D columns.
 //
@@ -68,12 +76,13 @@
 // What is left: TMA and wgmma (the full tensor rate needs wgmma), and a
 // smem-staged, coalesced output store.
 
-#include "flash_attention.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-using flash::mma_bf16;
-using flash::pack_bf16;
 typedef __nv_bfloat16 bf16;
 
 constexpr int REG_NW = 4;       // warps per block, D <= 160
@@ -86,6 +95,23 @@ constexpr int WIDE_BQ = 64;
 constexpr int WIDE_BKV = 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// -0.7 * FLT_MAX rounded to f32, the JAX package's _NEG_BIG (H's mask)
+__device__ __forceinline__ float neg_big() { return __int_as_float(0xff333332); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b0,
+                                         const uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -187,6 +213,48 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&m)[2], f
   }
 }
 
+// H's online-softmax step, in place of softmax_step: s = raw * scale
+// (scale = 1/sqrt(D), a multiply of its own), every key >= Lk set to
+// NEG_BIG on every tile, the running max m of the scaled scores (natural
+// units), p = __expf(s - m).  Same outputs as softmax_step.
+template <int NS>
+__device__ __forceinline__ void softmax_step_legacy(float (&s)[NS][4], float (&m)[2],
+                                                    float (&l)[2], uint32_t (&pa)[NS / 2][4],
+                                                    float (&alpha)[2], int key0, int Lk,
+                                                    float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = key0 + nt * 8 + (e & 1) < Lk ? s[nt][e] * scale : neg_big();
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = __expf(m[h] - m_new);  // m = -inf on the first tile: 0
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
+      l[e >> 1] += s[nt][e];
+    }
+#pragma unroll
+  for (int j = 0; j < NS / 2; ++j) {
+    pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+    pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+    pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+    pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+  }
+}
+
 // Quad-reduce l, then write one 16-row tile's output (and F's m, l).
 template <int NO, bool STATS>
 __device__ __forceinline__ void store_rows(const float (&acc)[NO][4], const float (&m)[2],
@@ -237,7 +305,8 @@ struct RegPlan {
 };
 
 // grid = (ceil(Lq / BQ), BH); 4 warps, each MT 16-row tiles, BKV keys a tile.
-template <int DP, int MT, int BKV, bool STATS>
+// LEGACY: H's softmax body (softmax_step_legacy) in place of C's.
+template <int DP, int MT, int BKV, bool STATS, bool LEGACY>
 __global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out, int Lq, int Lk,
@@ -336,7 +405,10 @@ __global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float alpha[2];
-      softmax_step<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, mask, k0 + 2 * t, Lk, scale);
+      if constexpr (LEGACY)
+        softmax_step_legacy<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, k0 + 2 * t, Lk, scale);
+      else
+        softmax_step<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, mask, k0 + 2 * t, Lk, scale);
 #pragma unroll
       for (int nt = 0; nt < NO; ++nt) {
         acc[mt][nt][0] *= alpha[0];
@@ -368,11 +440,11 @@ __global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
                           scale, true, t);
 }
 
-template <int DP, int MT, int BKV, bool STATS>
+template <int DP, int MT, int BKV, bool STATS, bool LEGACY>
 cudaError_t launch_reg(const void* q, const void* k, const void* v, void* o, float* m, float* l,
                        int BH, int Lq, int Lk, int D, float scale, cudaStream_t s) {
   using P = RegPlan<DP, MT, BKV>;
-  auto kern = flash_reg_kernel<DP, MT, BKV, STATS>;
+  auto kern = flash_reg_kernel<DP, MT, BKV, STATS, LEGACY>;
   if (P::SMEM > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
@@ -387,15 +459,15 @@ cudaError_t launch_reg(const void* q, const void* k, const void* v, void* o, flo
 
 // The query tile bq the plan chose: 128 (two row tiles per warp, DP <= 48)
 // or 64 (one); anything else is refused.
-template <int DP, bool STATS>
+template <int DP, bool STATS, bool LEGACY = false>
 cudaError_t by_tile(const void* q, const void* k, const void* v, void* o, float* m, float* l,
                     int BH, int Lq, int Lk, int D, int bq, float sc, cudaStream_t s) {
   constexpr int BKV = DP <= KV128_MAX_DP ? 128 : 64;
   if (bq == 128) {
-    if constexpr (DP <= MT2_MAX_DP) return launch_reg<DP, 2, BKV, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
+    if constexpr (DP <= MT2_MAX_DP) return launch_reg<DP, 2, BKV, STATS, LEGACY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
     return cudaErrorInvalidValue;
   }
-  if (bq == 64) return launch_reg<DP, 1, BKV, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
+  if (bq == 64) return launch_reg<DP, 1, BKV, STATS, LEGACY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
   return cudaErrorInvalidValue;
 }
 
@@ -619,22 +691,21 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m, flo
   return (int)by_tile<160, STATS>(q, k, v, o, m, l, BH, Lq, Lk, D, bq, sc, s);
 }
 
-// Kernel H's dispatch, on the first design's template (unchanged).
+// Kernel H's dispatch: C's D <= 160 plans with H's body.
 int dispatch_legacy(const void* q, const void* k, const void* v, void* o, int BH, int Lq, int Lk,
-                    int D, void* stream) {
-  using namespace flash;
+                    int D, int bq, void* stream) {
   if (D % 8 || D <= 0 || D > 160 || Lq <= 0 || Lk <= 0 || BH <= 0)
     return (int)cudaErrorInvalidValue;
   const float sc = 1.f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int M = MODE_LEGACY;
-  if (D <= 32) return (int)launch<32, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  if (D <= 48) return (int)launch<48, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  if (D <= 64) return (int)launch<64, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  if (D <= 80) return (int)launch<80, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  if (D <= 96) return (int)launch<96, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  if (D <= 128) return (int)launch<128, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
-  return (int)launch<160, 4, 1, 64, false, M>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk, D, sc, s);
+  constexpr float* no = nullptr;
+  if (D <= 32) return (int)by_tile<32, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 48) return (int)by_tile<48, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 64) return (int)by_tile<64, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 80) return (int)by_tile<80, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 96) return (int)by_tile<96, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 128) return (int)by_tile<128, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  return (int)by_tile<160, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
 }
 
 }  // namespace
@@ -692,10 +763,10 @@ extern "C" int flash_attention_merge_launch(const void* ws, void* o, void* m, vo
   return (int)cudaGetLastError();
 }
 
-// Kernel H: as C's arguments without the plan; D a multiple of 8 and at
-// most 160.
+// Kernel H: as C's arguments without the workspace and the splits; D a
+// multiple of 8 and at most 160, bq the query tile from the plan.
 extern "C" int flash_attention_legacy_launch(const void* q, const void* k, const void* v,
-                                             void* o, int BH, int Lq, int Lk, int D,
+                                             void* o, int BH, int Lq, int Lk, int D, int bq,
                                              void* stream) {
-  return dispatch_legacy(q, k, v, o, BH, Lq, Lk, D, stream);
+  return dispatch_legacy(q, k, v, o, BH, Lq, Lk, D, bq, stream);
 }

@@ -1,27 +1,17 @@
-// The flash-attention kernel template shared by flash_attention.cu (kernels
-// C, F and H) and flash_nq.cu (kernel I): non-causal attention over
-// head-major (B*H, L, D) bf16 tensors with an f32 online softmax.
+// The first design's flash-attention kernel template, now used by
+// flash_nq.cu (kernel I) alone: non-causal attention over head-major
+// (B*H, L, D) bf16 tensors with an f32 online softmax.
 //
 // What it computes, per (batch*head, query row):
-//   s_j = q . k_j * scale                   (f32, after the MMA)
-//   running max m, running sum l = sum e(s_j - m) in f32
+//   s_j = q . k_j * scale, scale = 1/sqrt(D)  (f32, after the MMA)
+//   keys past Lk are set to NEG_BIG = -0.7 * FLT_MAX (finite, so
+//     e(NEG_BIG - m) is 0 and never NaN), compared only on the tile that
+//     holds them (k0 + BKV > Lk)
+//   running max m, running sum l = sum e(s_j - m) in f32, e = __expf
+//     (natural units)
 //   acc = sum bf16(e(s_j - m)) * v_j        (P rounded to bf16 before P.V,
 //                                            as the TPU kernels do)
 //   out = bf16(acc * (1/l)), with 1/l -> 1 where l == 0 (acc is 0 there)
-// MODE picks the exponential, the mask and what is written:
-//   MODE_C, MODE_STATS: e = exp2f, scale = log2(e)/sqrt(D) (log2 units);
-//     keys past Lk are -inf, compared only on the tile that holds them
-//     (k0 + BKV > Lk), as the TPU kernel masks only where there is padding.
-//     MODE_STATS also writes m (back in natural-log units) and l.
-//   MODE_LEGACY (kernel H): e = __expf, scale = 1/sqrt(D) (natural units);
-//     every key column is compared with the run-time Lk on EVERY tile and a
-//     masked one set to NEG_BIG = -0.7 * FLT_MAX, finite, so e(NEG_BIG - m)
-//     is 0 and never NaN.  __expf is ex2.approx of x * log2(e): exactly the
-//     exp2 of C plus the multiply that C's folded scale saves, which is the
-//     difference the TPU probe measured.  The accurate expf would add a
-//     range reduction that neither TPU body had.
-//   MODE_NQ (kernel I): e = __expf and scale = 1/sqrt(D) as H, the key mask
-//     only on the tile that holds keys past Lk, as C (NEG_BIG there).
 // The head dim is taken as it is: zero-padded to the MMA depth DP inside
 // shared memory only; the output holds exactly D columns.
 //
@@ -34,11 +24,6 @@
 // the next tile's MMAs are in flight.  Only the current K tile and a
 // transposed V tile sit in shared memory, shared by every warp.  Loads are
 // synchronous 16-byte loads (no cp.async/TMA ring, no wgmma).
-//
-// OSMEM (D = 512, kernel C only): a 64 x 512 f32 accumulator does not fit
-// in registers, so 32-row query tiles of 2 warps and 32-key tiles keep it
-// in dynamic shared memory (each thread owns a fixed float4 slice, so there
-// are no bank conflicts), 173 KB per block after cudaFuncSetAttribute.
 
 #pragma once
 
@@ -48,8 +33,6 @@
 #include <stdint.h>
 
 namespace flash {
-
-enum { MODE_C = 0, MODE_STATS = 1, MODE_LEGACY = 2, MODE_NQ = 3 };
 
 // -0.7 * FLT_MAX rounded to f32, the JAX package's _NEG_BIG
 __device__ __forceinline__ float neg_big() { return __int_as_float(0xff333332); }
@@ -72,15 +55,8 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int MODE>
-__device__ __forceinline__ float expo(float x) {
-  if (MODE == MODE_C || MODE == MODE_STATS) return exp2f(x);
-  return __expf(x);
-}
-
-template <int DP, int NW, int MT, int BKV, bool OSMEM>
+template <int DP, int NW, int MT, int BKV>
 struct Plan {
-  static_assert(!OSMEM || MT == 1, "the shared-memory accumulator plan has one row tile");
   static constexpr int NT = NW * 32;
   static constexpr int BQ = NW * 16 * MT;
   static constexpr int LDQ = DP + 8;   // Q and K row stride (bf16)
@@ -88,29 +64,24 @@ struct Plan {
   static constexpr size_t Q_BYTES = size_t(BQ) * LDQ * 2;
   static constexpr size_t K_BYTES = size_t(BKV) * LDQ * 2;
   static constexpr size_t V_BYTES = size_t(DP) * LDV * 2;
-  // each thread owns DP/8 float4 accumulator slices (16 rows x DP per warp)
-  static constexpr size_t O_BYTES = OSMEM ? size_t(NT) * (DP / 8) * 16 : 0;
-  static constexpr size_t SMEM = Q_BYTES + K_BYTES + V_BYTES + O_BYTES;
+  static constexpr size_t SMEM = Q_BYTES + K_BYTES + V_BYTES;
 };
 
-template <int DP, int NW, int MT, int BKV, bool OSMEM, int MODE>
+template <int DP, int NW, int MT, int BKV>
 __global__ void __launch_bounds__(NW * 32) flash_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out,
     int Lq, int Lk, int D, float scale) {
-  using P = Plan<DP, NW, MT, BKV, OSMEM>;
+  using P = Plan<DP, NW, MT, BKV>;
   constexpr int NT = P::NT, BQ = P::BQ, LDQ = P::LDQ, LDV = P::LDV;
   constexpr int VPR = DP / 8;   // 16-byte vectors per padded row
   constexpr int NS = BKV / 8;   // S n-tiles per key tile
   constexpr int NO = DP / 8;    // output n-tiles
-  constexpr int NOR = OSMEM ? 1 : NO;  // output n-tiles held in registers
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + P::Q_BYTES);
   __nv_bfloat16* Vt = reinterpret_cast<__nv_bfloat16*>(smem + P::Q_BYTES + P::K_BYTES);
-  float4* Ot = reinterpret_cast<float4*>(smem + P::Q_BYTES + P::K_BYTES + P::V_BYTES);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -129,17 +100,12 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
     *reinterpret_cast<uint4*>(&Qs[r * LDQ + c]) = val;
   }
 
-  float oreg[MT][NOR][4];
-  if (OSMEM) {
+  float oreg[MT][NO][4];
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt) Ot[nt * NT + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NOR; ++nt)
-        oreg[mt][nt][0] = oreg[mt][nt][1] = oreg[mt][nt][2] = oreg[mt][nt][3] = 0.f;
-  }
+    for (int nt = 0; nt < NO; ++nt)
+      oreg[mt][nt][0] = oreg[mt][nt][1] = oreg[mt][nt][2] = oreg[mt][nt][3] = 0.f;
   float m_r[MT][2], l_r[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -192,10 +158,9 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
       }
     }
 
-    // The key mask: on every tile in MODE_LEGACY, else only on the tile
-    // that holds keys past Lk (block-uniform, so no divergence).
-    const bool mask = MODE == MODE_LEGACY || k0 + BKV > Lk;
-    const float masked = (MODE == MODE_C || MODE == MODE_STATS) ? -INFINITY : neg_big();
+    // The key mask only on the tile that holds keys past Lk (block-uniform,
+    // so no divergence).
+    const bool mask = k0 + BKV > Lk;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float mx[2] = {-INFINITY, -INFINITY};
@@ -205,7 +170,7 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + nt * 8 + 2 * t + (e & 1);
-            s[mt][nt][e] = key < Lk ? s[mt][nt][e] * scale : masked;
+            s[mt][nt][e] = key < Lk ? s[mt][nt][e] * scale : neg_big();
             mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][nt][e]);
           }
       } else {
@@ -223,7 +188,7 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float m_new = fmaxf(m_r[mt][h], mx[h]);
-        alpha[h] = expo<MODE>(m_r[mt][h] - m_new);
+        alpha[h] = __expf(m_r[mt][h] - m_new);
         m_r[mt][h] = m_new;
         l_r[mt][h] *= alpha[h];
       }
@@ -231,7 +196,7 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
       for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[mt][nt][e] = expo<MODE>(s[mt][nt][e] - m_r[mt][e >> 1]);
+          s[mt][nt][e] = __expf(s[mt][nt][e] - m_r[mt][e >> 1]);
           l_r[mt][e >> 1] += s[mt][nt][e];
         }
       // P as the A operand of P.V (bf16), straight from the S registers.
@@ -245,26 +210,15 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
       }
 #pragma unroll
       for (int nt = 0; nt < NO; ++nt) {
-        float c[4];
-        if (OSMEM) {
-          const float4 f = Ot[nt * NT + tid];
-          c[0] = f.x; c[1] = f.y; c[2] = f.z; c[3] = f.w;
-        } else {
-          c[0] = oreg[mt][OSMEM ? 0 : nt][0]; c[1] = oreg[mt][OSMEM ? 0 : nt][1];
-          c[2] = oreg[mt][OSMEM ? 0 : nt][2]; c[3] = oreg[mt][OSMEM ? 0 : nt][3];
-        }
-        c[0] *= alpha[0]; c[1] *= alpha[0]; c[2] *= alpha[1]; c[3] *= alpha[1];
+        float c[4] = {oreg[mt][nt][0] * alpha[0], oreg[mt][nt][1] * alpha[0],
+                      oreg[mt][nt][2] * alpha[1], oreg[mt][nt][3] * alpha[1]};
 #pragma unroll
         for (int j = 0; j < NS / 2; ++j) {
           const __nv_bfloat16* pv = &Vt[(nt * 8 + g) * LDV + j * 16 + 2 * t];
           mma_bf16(c, pa[j], ld32(pv), ld32(pv + 8));
         }
-        if (OSMEM) {
-          Ot[nt * NT + tid] = make_float4(c[0], c[1], c[2], c[3]);
-        } else {
-          oreg[mt][OSMEM ? 0 : nt][0] = c[0]; oreg[mt][OSMEM ? 0 : nt][1] = c[1];
-          oreg[mt][OSMEM ? 0 : nt][2] = c[2]; oreg[mt][OSMEM ? 0 : nt][3] = c[3];
-        }
+        oreg[mt][nt][0] = c[0]; oreg[mt][nt][1] = c[1];
+        oreg[mt][nt][2] = c[2]; oreg[mt][nt][3] = c[3];
       }
     }
   }
@@ -279,46 +233,25 @@ __global__ void __launch_bounds__(NW * 32) flash_kernel(
       inv[h] = l_r[mt][h] == 0.f ? 1.f : 1.f / l_r[mt][h];
     }
     const int r0 = q0 + row0 + 16 * mt, r1 = r0 + 8;
-    if (MODE == MODE_STATS && t == 0) {
-      // m_r is in log2 units (scores scaled by log2(e)/sqrt(D)); ln 2 turns
-      // it back into the natural-log max of the scaled scores
-      constexpr float LN2 = 0.6931471805599453f;
-      if (r0 < Lq) {
-        m_out[bh * Lq + r0] = m_r[mt][0] * LN2;
-        l_out[bh * Lq + r0] = l_r[mt][0];
-      }
-      if (r1 < Lq) {
-        m_out[bh * Lq + r1] = m_r[mt][1] * LN2;
-        l_out[bh * Lq + r1] = l_r[mt][1];
-      }
-    }
 #pragma unroll
     for (int nt = 0; nt < NO; ++nt) {
       const int col = nt * 8 + 2 * t;
       if (col >= D) continue;  // D % 8 == 0, so col + 1 < D here
-      float c[4];
-      if (OSMEM) {
-        const float4 f = Ot[nt * NT + tid];
-        c[0] = f.x; c[1] = f.y; c[2] = f.z; c[3] = f.w;
-      } else {
-        c[0] = oreg[mt][OSMEM ? 0 : nt][0]; c[1] = oreg[mt][OSMEM ? 0 : nt][1];
-        c[2] = oreg[mt][OSMEM ? 0 : nt][2]; c[3] = oreg[mt][OSMEM ? 0 : nt][3];
-      }
       if (r0 < Lq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * D + col) =
-            __floats2bfloat162_rn(c[0] * inv[0], c[1] * inv[0]);
+            __floats2bfloat162_rn(oreg[mt][nt][0] * inv[0], oreg[mt][nt][1] * inv[0]);
       if (r1 < Lq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * D + col) =
-            __floats2bfloat162_rn(c[2] * inv[1], c[3] * inv[1]);
+            __floats2bfloat162_rn(oreg[mt][nt][2] * inv[1], oreg[mt][nt][3] * inv[1]);
     }
   }
 }
 
-template <int DP, int NW, int MT, int BKV, bool OSMEM, int MODE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* m,
-                   float* l, int BH, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  using P = Plan<DP, NW, MT, BKV, OSMEM>;
-  auto kern = flash_kernel<DP, NW, MT, BKV, OSMEM, MODE>;
+template <int DP, int NW, int MT, int BKV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Lq, int Lk,
+                   int D, float scale, cudaStream_t s) {
+  using P = Plan<DP, NW, MT, BKV>;
+  auto kern = flash_kernel<DP, NW, MT, BKV>;
   if (P::SMEM > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
@@ -327,8 +260,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const dim3 grid((Lq + P::BQ - 1) / P::BQ, BH);
   kern<<<grid, P::NT, P::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, l,
-      Lq, Lk, D, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk, D,
+      scale);
   return cudaGetLastError();
 }
 

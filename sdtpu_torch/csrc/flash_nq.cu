@@ -1,5 +1,5 @@
 // Kernel I: flash attention with NQ independent online-softmax chains per
-// block over the same K/V tiles (MODE_NQ of the kernel template in
+// block over the same K/V tiles (the kernel template in
 // flash_attention.cuh, where what it computes is written).
 //
 // Replaces tools/probe_flash_2stream.py:flash_2q -> _kernel_nq (pallas_call
@@ -36,8 +36,7 @@ using namespace flash;
 template <int DP, int NQ, int MT>
 cudaError_t variant(const void* q, const void* k, const void* v, void* o, int BH, int Lq,
                     int Lk, int D, float sc, cudaStream_t s) {
-  return launch<DP, 4 * NQ, MT, 64, false, MODE_NQ>(q, k, v, o, nullptr, nullptr, BH, Lq, Lk,
-                                                     D, sc, s);
+  return launch<DP, 4 * NQ, MT, 64>(q, k, v, o, BH, Lq, Lk, D, sc, s);
 }
 
 template <int DP>

@@ -9,7 +9,9 @@ wrapper's name (``conv3x3_slab``, ``conv3x3_slab_upsample``,
 runs them, under ``conv3x3_slab_prologue`` and ``conv3x3_slab_splitk``
 (``kernels/conv2d.py:conv3x3_launches``).  Flash attention at D > 160
 counts its key-split merge, where ``plan_flash`` splits, under
-``flash_attention_merge`` (``kernels/flash_attention.py:flash_launches``).
+``flash_attention_merge`` (``kernels/flash_attention.py:flash_launches``),
+and kernel J's bf16 split-K reduction under ``dot_bf16_splitk``
+(``tools/probe_int8_dot.py:dot_launches``).
 """
 
 launch_counts = {
@@ -26,6 +28,7 @@ launch_counts = {
     "flash_attention_legacy": 0,
     "flash_attention_nq": 0,
     "dot_bf16": 0,
+    "dot_bf16_splitk": 0,
     "dot_int8": 0,
 }
 

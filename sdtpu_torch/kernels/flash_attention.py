@@ -19,10 +19,11 @@ real head dim, and the CUDA kernels (``csrc/flash_attention.cu``,
 C and F take their query tile, and at D > 160 the split of the keys over
 blocks, from ``plan_flash``; a split call adds a merge kernel
 (``flash_attention_merge``, counted on its own; ``flash_launches`` derives
-a call's launches).  The probe kernels H and I
-(``sdtpu_torch/tools/probe_flash_vpu.py`` and ``probe_flash_2stream.py``)
-keep the first design's template (``csrc/flash_attention.cuh``) and use
-this module's helpers.
+a call's launches).  The probe kernel H
+(``sdtpu_torch/tools/probe_flash_vpu.py``) is C's kernel with the TPU's
+legacy softmax body and takes C's query tile; I
+(``probe_flash_2stream.py``) keeps the first design's template
+(``csrc/flash_attention.cuh``).  Both use this module's helpers.
 On the CPU each wrapper runs its plain version: the same function in
 float32, with the probabilities rounded to v's dtype before the P.V
 product as the TPU kernel rounds them.
@@ -157,7 +158,7 @@ def _flash_lib():
         lib.flash_attention_stats_launch.restype = i
         lib.flash_attention_merge_launch.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.flash_attention_merge_launch.restype = i
-        lib.flash_attention_legacy_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.flash_attention_legacy_launch.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.flash_attention_legacy_launch.restype = i
         lib.flash_attention_tile.argtypes = [i]
         lib.flash_attention_tile.restype = i

@@ -86,6 +86,25 @@ def worker(tree: str, reps: int) -> None:
                       "device_ms": dev}))
 
 
+def run_trees(script: str, trees, reps: int) -> list:
+    """Run ``script TREE --reps N --worker`` for each tree in the order
+    given, each in a process of its own (so that each imports its own
+    tree's ``sdtpu_torch``); each prints one JSON object as its last line.
+    Returns ``[{"tree": TREE, **that object}, ...]``; raises SystemExit if a
+    run fails."""
+    runs = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(script), tree, "--reps", str(reps),
+                               "--worker"], capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            raise SystemExit(f"{os.path.basename(script)}: the run of {tree} failed")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"run {len(runs)}: {tree} ({res['package']})", flush=True)
+        runs.append({"tree": tree, **res})
+    return runs
+
+
 def library_call(torch, kind, q, k, v):
     """(name, function of no arguments) of the library's call at this shape."""
     import torch.nn.functional as F
@@ -127,18 +146,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
     exp_rate = EXP_PER_CLOCK_SM * SMS * sm_mhz * 1e6
-    runs = []
-    for tree in args.trees:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), tree,
-                               "--reps", str(args.reps), "--worker"],
-                              capture_output=True, text=True, timeout=1200)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            raise SystemExit(f"ab_flash: the run of {tree} failed")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"run {len(runs)}: {tree} ({res['package']})", flush=True)
-        runs.append({"tree": tree, "package": res["package"], "ms": res["ms"],
-                     "device_ms": res["device_ms"]})
+    runs = run_trees(__file__, args.trees, args.reps)
     zero = {"C": 0.0, "F": 0.0, "C_device": 0.0, "F_device": 0.0}
     rows, sums, lib_sum = [], [dict(zero) for _ in runs], dict(zero)
     for i, (kind, q_shape, lk, n) in enumerate(SHAPES):

@@ -5,12 +5,11 @@ scores' scale after the product, compares every key column with Lk on every
 tile (a masked column becomes the finite -0.7 * FLT_MAX) and uses the
 natural exp; the shipped body folds log2(e) into the scale, uses exp2 and
 masks only the tile that holds keys past Lk.  As the TPU probe timed the
-legacy body against its shipped kernel, this one times H (the first
-design's template, ``csrc/flash_attention.cuh``: 64-row tiles, synchronous
-loads) against the shipped C (``csrc/flash_attention.cu``: a cp.async K/V
-ring, ldmatrix fragments, the tile plan of ``plan_flash``), so the A/B
-measures the exponential and the mask together with the two designs.
-Every tensor keeps its real head dim; the scale is 1/sqrt(D).
+legacy body against its shipped kernel on the same schedule, H here is C's
+own kernel (``csrc/flash_attention.cu``: the cp.async K/V ring, ldmatrix
+fragments, the query tile of ``plan_flash``) with the legacy body in place
+of C's, so legacy / shipped prices the body alone.  Every tensor keeps its
+real head dim; the scale is 1/sqrt(D).
 
     python -m sdtpu_torch.tools.probe_flash_vpu [chain]    (default 100)
 """
@@ -30,6 +29,7 @@ from sdtpu_torch.kernels.flash_attention import (
     _on_cpu,
     flash_attention_packed,
     flash_attention_stats_plain,
+    plan_flash,
 )
 from sdtpu_torch.tools import PEAK_BF16_FLOPS, card_line, chain_arg, require_cuda, run_variants
 
@@ -52,15 +52,17 @@ def legacy_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 def legacy_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel H.  q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D).
 
-    On the card: bf16, contiguous, D a multiple of 8 and at most 160."""
+    On the card: bf16, contiguous, D a multiple of 8 and at most 160; the
+    query tile is ``plan_flash``'s, as for kernel C."""
     if _on_cpu("flash_attention_legacy", q):
         return legacy_flash_plain(q, k, v)
     b, h, lq, lk, d = _check_qkv("flash_attention_legacy", q, k, v)
     if d > 160:
         raise ValueError(f"flash_attention_legacy: head dim {d} must be at most 160")
+    bq, _ = plan_flash(b * h, lq, lk, d)  # one split: D <= 160
     out = torch.empty_like(q)
     err = _flash_lib().flash_attention_legacy_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, lk, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, lk, d, bq,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_legacy")
     launch_counts["flash_attention_legacy"] += 1

@@ -403,7 +403,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
                              "flash_attention_stats": 0, "flash_attention_merge": 0,
                              "out_proj_packed": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
-                             "flash_attention_nq": 0, "dot_bf16": 0, "dot_int8": 0}
+                             "flash_attention_nq": 0, "dot_bf16": 0, "dot_bf16_splitk": 0,
+                             "dot_int8": 0}
 
 
 def test_wrappers_raise_on_other_devices():

@@ -19,7 +19,12 @@ Tolerances:
   roundings (the f32 accumulator to bf16, then accumulator + bias), i.e.
   ulp(conv) + ulp(out) -- both accumulate the exact products in float32,
   in another order, and round at the same points;
-* bfloat16 dot (J): within one bf16 ulp per element (one rounding);
+* bfloat16 dot (J): within one bf16 ulp per element (one rounding); the
+  card kernel's split-K order (float32 partial sums added in split order,
+  rounded once) within one bf16 ulp plus the float32 bound of a sum taken
+  in another order, ``2 * k * 2^-24 * (|x| @ |w|)`` (an output near zero
+  after cancellation has an ulp far below its sum's rounding error), and
+  bitwise with one split;
 * int8 dot: exactly equal.
 
 Tests marked ``gpu`` hold the CUDA kernels against their plain versions on
@@ -44,6 +49,7 @@ import sdtpu.ops as jops
 import sdtpu_torch.ops.conv as tops_conv
 from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
 from sdtpu_torch.kernels import conv2d as tconv
+from sdtpu_torch.kernels.flash_attention import plan_flash
 from sdtpu_torch.ops import conv2d as tconv2d
 from sdtpu_torch.tools import probe_flash_2stream as t2q
 from sdtpu_torch.tools import probe_flash_vpu as tvpu
@@ -305,6 +311,47 @@ def test_dot_matches_the_jax_probe(rng, form, m, k, n):
         assert (np.abs(nn(got) - want) <= bf16_ulp(want)).all()
 
 
+@pytest.mark.parametrize("shape,plan", [((1024, 2560, 512), (128, 4)),
+                                        ((4096, 640, 640), (160, 1))])
+def test_plan_dot_fills_the_card_at_the_probe_shapes(shape, plan):
+    """At the probe's shapes the bf16 plan is one wave over 128 of the 132
+    SMs (128 x 128 tiles x 4 K-splits; 128 x 160 tiles unsplit): a fifth
+    split or the other tile would need a second wave.  Each split keeps at
+    least DOT_MIN_SPLIT K steps."""
+    assert shape in tdot.SHAPES
+    m, k, n = shape
+    bn, splits = tdot.plan_dot(m, k, n)
+    assert (bn, splits) == plan
+    blocks = -(-m // tdot.DOT_BM) * -(-n // bn) * splits
+    assert 0.95 * tdot.SMS <= blocks <= tdot.SMS
+    assert k // tdot.DOT_BK // splits >= tdot.DOT_MIN_SPLIT
+    assert tdot.dot_launches(m, k, n, torch.bfloat16) == (
+        {"dot_bf16": 1, "dot_bf16_splitk": 1} if splits > 1 else {"dot_bf16": 1})
+    assert tdot.dot_launches(m, k, n, torch.int8) == {"dot_int8": 1}
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 48, 64), (64, 64, 60), (0, 64, 64), (64, 64, 0)])
+def test_plan_dot_raises_on_shapes_the_kernel_does_not_take(m, k, n):
+    with pytest.raises(ValueError, match="no plan"):
+        tdot.plan_dot(m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", tdot.SHAPES)
+def test_dot_splitk_order_matches_dot_plain(rng, m, k, n):
+    """The card kernel's order of sums, emulated on the CPU at the plan's
+    splits: within the stated tolerance of ``dot_plain`` (float32 sums in
+    another order, one rounding); with one split bitwise."""
+    x = tt(rng.standard_normal((m, k), dtype=np.float32), torch.bfloat16)
+    w = tt(rng.standard_normal((k, n), dtype=np.float32), torch.bfloat16)
+    want = tdot.dot_plain(x, w, torch.float32, torch.bfloat16)
+    got = tdot.dot_splitk_plain(x, w, tdot.plan_dot(m, k, n)[1])
+    reorder = 2 * k * 2.0 ** -24 * nn(x.float().abs() @ w.float().abs())
+    assert (np.abs(nn(got) - nn(want)) <= bf16_ulp(nn(want)) + reorder).all()
+    assert torch.equal(tdot.dot_splitk_plain(x, w, 1), want)
+    ws = tt(rng.standard_normal((3, 4, 8), dtype=np.float32))
+    assert torch.equal(tdot.splitk_reduce_plain(ws), ((ws[0] + ws[1]) + ws[2]).to(torch.bfloat16))
+
+
 def test_dot_make_refuses_other_forms_and_shapes():
     with pytest.raises(ValueError, match="is not one of"):
         tdot.make(8, 8, 8, torch.int8, torch.float32, torch.int32)
@@ -316,7 +363,7 @@ def test_dot_make_refuses_other_forms_and_shapes():
 # ------------------------------------------------------------------- tools --
 
 @pytest.mark.parametrize("tool", ["ab_conv", "probe_flash_vpu", "probe_flash_2stream",
-                                  "probe_int8_dot", "ab_flash"])
+                                  "probe_int8_dot", "ab_flash", "ab_probes"])
 def test_tool_exits_non_zero_without_a_card(tool):
     """``python -m sdtpu_torch.tools.<tool>`` has no CPU mode: without a
     card it exits non-zero and prints no measurement."""
@@ -342,6 +389,11 @@ def test_probe_wrappers_run_plain_versions_on_the_cpu_and_count_nothing(rng):
     xi = torch.ones((8, 64), dtype=torch.int8)
     got = tdot.make(8, 64, 8, torch.int8, torch.int32, torch.int32)(xi, xi.T)
     assert torch.equal(got, torch.full((8, 8), 64, dtype=torch.int32))
+    xb = xi.to(torch.bfloat16)
+    got = tdot.make(8, 64, 8, torch.bfloat16, torch.float32, torch.bfloat16)(xb, xb.T)
+    assert torch.equal(got, torch.full((8, 8), 64, dtype=torch.bfloat16))
+    ws = tt(rng.standard_normal((4, 8, 8)))
+    assert torch.equal(tdot.dot_splitk_reduce(ws), tdot.splitk_reduce_plain(ws))
     assert all(n == 0 for n in launch_counts.values()), launch_counts
 
 
@@ -357,6 +409,8 @@ def test_probe_wrappers_raise_on_other_devices():
     xi, wi = (torch.empty(s, dtype=torch.int8, device="meta") for s in ((8, 64), (64, 8)))
     with pytest.raises(ValueError, match="unsupported device"):
         tdot.make(8, 64, 8, torch.int8, torch.int32, torch.int32)(xi, wi)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdot.dot_splitk_reduce(torch.empty((2, 8, 8), device="meta"))
 
 
 def test_library_names_hash_the_headers_too(tmp_path, monkeypatch):
@@ -416,9 +470,16 @@ def test_cuda_conv2d_gemm_route_launches_kernel_e(rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,lk", [((2, 8, 256, 40), 256), ((2, 4, 512, 64), 512),
-                                      ((1, 2, 100, 64), 300), ((1, 2, 77, 80), 100),
-                                      ((1, 2, 192, 160), 1000)])
+@pytest.mark.parametrize("shape,lk", [
+    ((2, 8, 256, 40), 256), ((2, 4, 512, 64), 512), ((1, 2, 100, 64), 300),
+    ((1, 2, 77, 80), 100), ((1, 2, 192, 160), 1000),
+    # every padded depth 32..160 at a ragged Lk (the every-tile mask selects
+    # columns in the last key tile), and Lq under one query tile
+    ((1, 2, 10, 32), 77), ((1, 3, 200, 48), 129), ((1, 2, 70, 96), 257),
+    ((1, 2, 130, 128), 65), ((2, 2, 33, 24), 1),
+    # the 128-row plan (two row tiles per warp), ragged Lq and Lk
+    ((2, 8, 2100, 48), 2047), ((2, 8, 4096, 40), 4000),
+])
 def test_cuda_legacy_flash_matches_plain(rng, shape, lk):
     dev = _cuda_or_skip()
     b, h, lq, d = shape
@@ -428,7 +489,10 @@ def test_cuda_legacy_flash_matches_plain(rng, shape, lk):
     got = tvpu.legacy_flash(q, k, v)
     torch.cuda.synchronize()
     assert launch_counts["flash_attention_legacy"] == 1
+    assert sum(launch_counts.values()) == 1
     _bf16_close(got, tvpu.legacy_flash_plain(q, k, v))
+    if lq >= 2048:
+        assert plan_flash(b * h, lq, lk, d)[0] == 128
 
 
 @pytest.mark.gpu
@@ -447,15 +511,34 @@ def test_cuda_flash_2q_matches_plain(rng, nq, bq, d, lk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(1024, 2560, 512), (100, 128, 48), (130, 192, 80)])
+@pytest.mark.parametrize("m,k,n", [
+    (1024, 2560, 512), (4096, 640, 640),  # the probe's shapes: 4 K-splits; 160-wide tiles
+    (100, 128, 48), (130, 192, 80),       # ragged M and N, one split
+    (40, 96, 8),                          # a ragged last K step, one consumer's rows
+    (130, 2560, 200), (333, 1024, 72),    # ragged M and N with K-splits
+])
 def test_cuda_dot_matches_plain(m, k, n):
+    """J bf16 against its plain version, two calls bitwise equal (the
+    split-K reduction adds in a fixed order), launches as ``dot_launches``
+    says; J int8 bitwise."""
     _cuda_or_skip()
     x8, w8, x16, w16 = tdot.dot_inputs(m, k, n)
     f16 = tdot.make(m, k, n, torch.bfloat16, torch.float32, torch.bfloat16)
-    _bf16_close(f16(x16, w16), tdot.dot_plain(x16, w16, torch.float32, torch.bfloat16))
+    reset_launch_counts()
+    got = f16(x16, w16)
+    torch.cuda.synchronize()
+    assert {key: c for key, c in launch_counts.items() if c} == tdot.dot_launches(
+        m, k, n, torch.bfloat16)
+    _bf16_close(got, tdot.dot_plain(x16, w16, torch.float32, torch.bfloat16))
+    assert torch.equal(f16(x16, w16), got)
+    if tdot.plan_dot(m, k, n)[1] > 1:
+        ws = torch.randn((tdot.plan_dot(m, k, n)[1], m, n), device="cuda")
+        assert torch.equal(tdot.dot_splitk_reduce(ws), tdot.splitk_reduce_plain(ws))
     if k % 64 == 0 and n % 16 == 0:
         f8 = tdot.make(m, k, n, torch.int8, torch.int32, torch.int32)
+        reset_launch_counts()
         assert torch.equal(f8(x8, w8), tdot.dot_plain(x8, w8, torch.int32, torch.int32))
+        assert {key: c for key, c in launch_counts.items() if c} == {"dot_int8": 1}
 
 
 @pytest.mark.gpu
@@ -487,4 +570,4 @@ def test_cuda_tool_launches_its_kernels_once_per_call():
     calls = tdot.main(["2"])
     torch.cuda.synchronize()
     assert {n: c for n, c in launch_counts.items() if c} == dict(calls)
-    assert set(calls) == {"dot_bf16", "dot_int8"}
+    assert set(calls) == {"dot_bf16", "dot_bf16_splitk", "dot_int8"}
