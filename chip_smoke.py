@@ -7,7 +7,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 
 1. device  -- needs CUDA; prints ``nvidia-smi`` name and power limit.
 2. build   -- compiles every ``sdtpu_torch/csrc/*.cu`` with nvcc for sm_90a
-              into ``build/`` (one nvcc per source, all started together).
+              into ``build/`` (one nvcc per source, all started together);
+              prints each kernel's registers and spills as ptxas reports
+              them.
 3. kernels -- each hand-written kernel against its plain PyTorch version on
               the card at the main paths' shapes (tolerance stated per
               line; the slab conv also at its split-K shapes, and its
@@ -24,7 +26,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               int8 slab conv, which no one call computes, two float
               counterparts instead: kernel A and cuDNN bf16).  Kernels F
               and G are checked and timed at every call shape of the ring
-              and the packed routes, recorded from a one-step image of each,
+              and the packed routes, recorded from a one-step image of each
+              (G with its plan: column tile, K splits; two calls bitwise
+              equal; where it splits, its split-K reduction alone, bitwise),
               and their device time is also read from torch.profiler (at
               these shapes a call's kernel can be shorter than its
               host-side enqueue, which then sets the CUDA-event time).
@@ -49,7 +53,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               ``ProcessGroupRing`` on it against ``LocalRing(1)``.
 7. packed  -- the flash route with ``_PACKED_OUT_PROJ`` on: every
               self-attention's out-projection and residual add through
-              kernel G; an image with exact launch counts and the same
+              kernel G; an image with exact launch counts (G's split-K
+              reductions derived from the recorded calls and the plan) and the same
               kernels-vs-plain control; then seconds per image of the
               flash, packed and ring routes in turns (flash, packed, ring,
               ring, packed, flash).
@@ -116,7 +121,7 @@ STEPS = 25                # the main path's DDPM steps (bench.py's default workl
 # its recorded calls (flash_sub_counts)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
               "flash_attention": 226, "flash_attention_stats": 0, "flash_attention_merge": 0,
-              "out_proj_packed": 0,
+              "out_proj_packed": 0, "out_proj_packed_splitk": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
               "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0}
 EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
@@ -140,10 +145,13 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                               "sdtpu/kernels/flash_attention.py:267"),
     "out_proj_packed": ("sdtpu_torch/csrc/out_proj_packed.cu",
                         "sdtpu/kernels/flash_attention.py:464"),
+    "out_proj_packed_splitk": ("sdtpu_torch/csrc/out_proj_packed.cu",
+                               "sdtpu/kernels/flash_attention.py:464"),
     "conv3x3_gemm": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:606"),
     "flash_attention_legacy": ("sdtpu_torch/csrc/flash_attention.cu",
                                "tools/probe_flash_vpu.py:105"),
-    "flash_attention_nq": ("sdtpu_torch/csrc/flash_nq.cu", "tools/probe_flash_2stream.py:124"),
+    "flash_attention_nq": ("sdtpu_torch/csrc/flash_attention.cu",
+                           "tools/probe_flash_2stream.py:124"),
     "dot_bf16": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_bf16_splitk": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
@@ -157,6 +165,17 @@ PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's C++ name by c++filt where the toolkit's host has it, else
+    the symbol as it is."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True, text=True,
+                             timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    return out.replace("(anonymous namespace)::", "").split("(", 1)[0] or symbol
 
 
 # ---------------------------------------------------------------- routing --
@@ -519,10 +538,15 @@ def flash_stats_case(torch, gen, q_shape, lk):
 
 
 def out_proj_case(torch, gen, o_shape, c):
-    """Kernel G at one call shape against its plain version, then the
-    times.  Library: the default route's einsum + bias + residual in bf16
-    (three roundings where G rounds once)."""
-    from sdtpu_torch.kernels.flash_attention import out_proj_packed, out_proj_packed_plain
+    """Kernel G at one call shape against its plain version (and a second
+    call bitwise equal to the first), then the times.  Library: the default
+    route's einsum + bias + residual in bf16 (three roundings where G rounds
+    once)."""
+    from sdtpu_torch.kernels.flash_attention import (
+        out_proj_packed,
+        out_proj_packed_plain,
+        plan_out_proj,
+    )
 
     b, h, l, d = o_shape
     o = torch.randn(o_shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -533,11 +557,14 @@ def out_proj_case(torch, gen, o_shape, c):
     want = out_proj_packed_plain(o, w, bias, res)
     torch.cuda.synchronize()
     err, ref = max_err(got, want)
-    ok = err <= TOL_REL * ref
-    log(f"check out_proj_packed o={tuple(o_shape)} c={c}: max_abs_err={err:.4g} "
-        f"(max|plain|={ref:.4g}, rel {err / ref:.3g}, tol {TOL_REL:g})" + (" ok" if ok else " FAIL"))
+    same = bool(torch.equal(out_proj_packed(o, w, bias, res), got))
+    ok = err <= TOL_REL * ref and same
+    log(f"check out_proj_packed o={tuple(o_shape)} c={c} (bn, splits)="
+        f"{plan_out_proj(*o_shape, c)}: max_abs_err={err:.4g} (max|plain|={ref:.4g}, rel "
+        f"{err / ref:.3g}, tol {TOL_REL:g}); two calls bitwise equal {same}"
+        + (" ok" if ok else " FAIL"))
     if not ok:
-        raise AssertionError("out_proj_packed disagrees with its plain version")
+        raise AssertionError("out_proj_packed disagrees with its plain version or itself")
     b16 = bias.to(torch.bfloat16)
     t_k = event_ms(lambda: out_proj_packed(o, w, bias, res), 20)
     t_p = event_ms(lambda: out_proj_packed_plain(o, w, bias, res), 5)
@@ -605,6 +632,38 @@ def conv_sub_counts(conv_calls):
             if key in subs:
                 subs[key] += n * v
     return subs
+
+
+def out_proj_sub_counts(calls):
+    """Kernel G's split-K reduction launches per image of a path, from its
+    recorded G calls and the plan."""
+    from sdtpu_torch.kernels.flash_attention import out_proj_launches
+
+    return {"out_proj_packed_splitk": sum(
+        n * out_proj_launches(o_shape, c).get("out_proj_packed_splitk", 0)
+        for (o_shape, c), n in calls["out_proj_packed"].items())}
+
+
+def splitk_reduce_case(torch, gen, o_shape, c, splits):
+    """G's split-K reduction alone at one call's workspace, bitwise against
+    its plain version (the same f32 adds in the same order, one rounding);
+    returns (err, event ms, plain ms, device ms, (bytes, ops))."""
+    from sdtpu_torch.kernels.flash_attention import (
+        out_proj_splitk_reduce,
+        out_proj_splitk_reduce_plain,
+    )
+
+    b, _, l, _ = o_shape
+    ws = torch.randn((splits, b, l, c), generator=gen, device="cuda")
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    res = torch.randn((b, l, c), generator=gen, device="cuda").to(torch.bfloat16)
+    run = functools.partial(out_proj_splitk_reduce, ws, bias, res)
+    err = judge_probe(torch, "out_proj_packed_splitk", f"ws={tuple(ws.shape)}", run(),
+                      out_proj_splitk_reduce_plain(ws, bias, res), exact=True)
+    cost = (ws.numel() * 4 + c * 4 + 2 * b * l * c * 2, 0.0)
+    return (err, event_ms(run, 20),
+            event_ms(lambda: out_proj_splitk_reduce_plain(ws, bias, res), 5),
+            device_ms(run, 20), cost)
 
 
 def flash_sub_counts(calls):
@@ -727,6 +786,7 @@ def main() -> int:
         flash_attention_merge,
         flash_merge_plain,
         plan_flash,
+        plan_out_proj,
     )
     from sdtpu_torch.parallel import LocalRing, ring_context
 
@@ -737,12 +797,16 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build(ptxas_verbose=True)
     build_s = time.perf_counter() - t0
+    details["ptxas"] = []
     for name, (secs, out) in report.items():
-        lines = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln]
         log(f"build {name}.cu: {secs:.1f} s")
-        for ln in lines:
-            log(f"  ptxas {name}: {ln}")
+        kernel = "?"
+        for ln in out.splitlines():
+            if "Function properties for " in ln:
+                kernel = demangle(ln.split("Function properties for ", 1)[1].strip())
+            elif "registers" in ln or "spill" in ln:
+                log(f"  ptxas {name} {kernel}: {ln.strip()}")
+                details["ptxas"].append({"source": name, "kernel": kernel, "line": ln.strip()})
     log(f"build: {build_s:.1f} s for {len(report)} sources (nvcc sm_90a)")
     details["build_s"] = build_s
 
@@ -911,6 +975,19 @@ def main() -> int:
         for k in ("kernel", "library"):
             tot[f"{k}_ms"] = None if dev[k] is None or tot[f"{k}_ms"] is None \
                 else tot[f"{k}_ms"] + n * dev[k]
+    # G's split-K reduction alone where the plan splits (its time is inside G's)
+    for (o_shape, c), n in sorted(packed_calls["out_proj_packed"].items()):
+        splits = plan_out_proj(*o_shape, c)[1]
+        if splits == 1:
+            continue
+        err, t_s, t_sp, d_sub, s_cost = splitk_reduce_case(torch, gen, o_shape, c, splits)
+        errs["out_proj_packed_splitk"] = max(errs.get("out_proj_packed_splitk", 0.0), err)
+        desc = f"o={o_shape} c={c} splits={splits}"
+        rows.append(("out_proj_packed_splitk", desc, n, t_s, t_sp, None, s_cost,
+                     PEAK_BF16_FLOPS))
+        add_device("out_proj_packed_splitk", n, d_sub)
+        log(f"device time out_proj_packed_splitk {desc}: {fmt_ms(d_sub)} (torch.profiler, "
+            "per call)")
     details["device_ms_per_image"] = device
     log(f"device time per image (torch.profiler): {device}")
 
@@ -1019,7 +1096,7 @@ def main() -> int:
     # phase 7: the packed out-projection, kernel G
     packed_expected = dict(E2E_COUNTS, out_proj_packed=n_self,
                            **conv_sub_counts(packed_calls["conv3x3_slab"]),
-                           **flash_sub_counts(packed_calls))
+                           **flash_sub_counts(packed_calls), **out_proj_sub_counts(packed_calls))
     attn_mod._PACKED_OUT_PROJ = True
     try:
         packed_counts, packed_e2e = run_image(torch, np, pipe, ids, "packed", launch_counts,
@@ -1195,7 +1272,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": {"conv3x3_slab_int8": q_counts, "flash_attention_stats": ring_counts,
-                         "out_proj_packed": packed_counts}.get(name, counts)[name],
+                         "out_proj_packed": packed_counts,
+                         "out_proj_packed_splitk": packed_counts}.get(name, counts)[name],
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["byte_ms"] > tot["op_ms"] else "operations",
@@ -1208,7 +1286,7 @@ def main() -> int:
     log("kernel times are per image: the sum over the main path's calls "
         "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 are "
         "the int8 image's, of flash_attention_stats the ring image's, of out_proj_packed "
-        "the packed image's, the others the bf16 image's; for the probe kernels "
+        "and out_proj_packed_splitk the packed image's, the others the bf16 image's; for the probe kernels "
         f"{', '.join(PROBE_KERNELS)} the times are sums over phase 9's check calls (one per "
         "shape and variant) and the launches those of their tool's run")
     log(json.dumps({"kernels": kernels}))

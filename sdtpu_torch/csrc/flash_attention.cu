@@ -16,6 +16,15 @@
 //   body kept as a probe.  It runs on C's D <= 160 design below (same plan,
 //   tiles, ring and fragments) with only the softmax body swapped, so that
 //   H against C prices that body and nothing else.
+// * I (flash_attention_nq_launch) replaces tools/probe_flash_2stream.py:
+//   flash_2q -> _kernel_nq (pallas_call at :124), the TPU probe that splits
+//   one query tile into nq online-softmax chains sharing every K/V tile.  It
+//   runs on the same D <= 160 design with H's body, except that the key mask
+//   falls only on the tile that holds keys past Lk (C's rule, the JAX
+//   probe's `pad`).  A chain is 4 warps with bq / 64 16-row tiles each (bq 64
+//   or 128); a block holds nq chains, 4 nq warps that stage each K/V tile
+//   once for all of them.  nq = 1 is C's schedule (bq 64 or 128 rows): 1q
+//   against C prices the body where C takes the same tile, 2q-* the chains.
 //
 // What C and F compute, per (batch*head, query row), exactly as before:
 //   s_j = q . k_j (f32 MMA); keys past Lk are -inf, compared only on the
@@ -35,6 +44,7 @@
 //   running max m of the scaled s, p_j = __expf(s_j - m) (natural units:
 //     ex2.approx of (s - m) * log2(e), one multiply more than C's FFMA);
 //   l, acc and out as C (P rounded to bf16, 1/l -> 1 where l == 0).
+// What I computes: H's function with the mask on the last key tile only.
 // The head dim is taken as it is: zero-padded to the MMA depth DP inside
 // shared memory only (cp.async src-size 0); the output holds D columns.
 //
@@ -85,7 +95,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int REG_NW = 4;       // warps per block, D <= 160
+constexpr int REG_NW = 4;       // warps per block of C, F and H, D <= 160 (I: 4 nq)
 constexpr int MT2_MAX_DP = 48;  // the largest depth with two row tiles per warp
 constexpr int QREG_MAX_DP = 80; // the largest depth with Q held in registers
 constexpr int KV128_MAX_DP = 80;  // the largest depth with 128-key tiles (else 64)
@@ -95,6 +105,8 @@ constexpr int WIDE_BQ = 64;
 constexpr int WIDE_BKV = 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// the softmax body of flash_reg_kernel: C's (and F's), H's, I's
+constexpr int BODY_C = 0, BODY_H = 1, BODY_I = 2;
 
 // -0.7 * FLT_MAX rounded to f32, the JAX package's _NEG_BIG (H's mask)
 __device__ __forceinline__ float neg_big() { return __int_as_float(0xff333332); }
@@ -213,23 +225,34 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&m)[2], f
   }
 }
 
-// H's online-softmax step, in place of softmax_step: s = raw * scale
-// (scale = 1/sqrt(D), a multiply of its own), every key >= Lk set to
-// NEG_BIG on every tile, the running max m of the scaled scores (natural
-// units), p = __expf(s - m).  Same outputs as softmax_step.
+// H's and I's online-softmax step, in place of softmax_step: s = raw *
+// scale (scale = 1/sqrt(D), a multiply of its own), where `mask` every key
+// >= Lk set to NEG_BIG (H: on every tile; I: as C, on the tile that holds
+// such keys), the running max m of the scaled scores (natural units), p =
+// __expf(s - m).  Same outputs as softmax_step.
 template <int NS>
 __device__ __forceinline__ void softmax_step_legacy(float (&s)[NS][4], float (&m)[2],
                                                     float (&l)[2], uint32_t (&pa)[NS / 2][4],
-                                                    float (&alpha)[2], int key0, int Lk,
-                                                    float scale) {
+                                                    float (&alpha)[2], bool mask, int key0,
+                                                    int Lk, float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
+  if (mask) {
 #pragma unroll
-  for (int nt = 0; nt < NS; ++nt)
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[nt][e] = key0 + nt * 8 + (e & 1) < Lk ? s[nt][e] * scale : neg_big();
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = key0 + nt * 8 + (e & 1) < Lk ? s[nt][e] * scale : neg_big();
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] *= scale;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -294,24 +317,25 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NO][4], const floa
 
 // ---------------------------------------------------------------- D <= 160 --
 
-template <int DP, int MT, int BKV>
+template <int DP, int MT, int BKV, int NW>
 struct RegPlan {
-  static constexpr int NT = REG_NW * 32;
-  static constexpr int BQ = REG_NW * 16 * MT;
+  static constexpr int NT = NW * 32;
+  static constexpr int BQ = NW * 16 * MT;
   static constexpr int LD = DP + 8;  // row stride (bf16): 16 bytes of padding
   static constexpr bool QREG = DP <= QREG_MAX_DP;
   static constexpr int KV_ELEMS = BKV * LD;  // one K or V tile
   static constexpr size_t SMEM = (size_t(BQ) * LD + 4 * KV_ELEMS) * 2;  // Q + 2 x (K, V)
 };
 
-// grid = (ceil(Lq / BQ), BH); 4 warps, each MT 16-row tiles, BKV keys a tile.
-// LEGACY: H's softmax body (softmax_step_legacy) in place of C's.
-template <int DP, int MT, int BKV, bool STATS, bool LEGACY>
-__global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
+// grid = (ceil(Lq / BQ), BH); NW warps (C, F, H: 4; I: 4 nq), each MT
+// 16-row tiles, BKV keys a tile.  BODY: C's softmax body (softmax_step), or
+// H's or I's (softmax_step_legacy, H masking every tile).
+template <int DP, int MT, int BKV, bool STATS, int BODY, int NW>
+__global__ void __launch_bounds__(NW * 32) flash_reg_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out, int Lq, int Lk,
     int D, float scale) {
-  using P = RegPlan<DP, MT, BKV>;
+  using P = RegPlan<DP, MT, BKV, NW>;
   constexpr int NT = P::NT, BQ = P::BQ, LD = P::LD;
   constexpr int KS = DP / 16;   // k-steps of S = Q K^T
   constexpr int NS = BKV / 8;   // S n-tiles per key tile
@@ -405,10 +429,11 @@ __global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float alpha[2];
-      if constexpr (LEGACY)
-        softmax_step_legacy<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, k0 + 2 * t, Lk, scale);
-      else
+      if constexpr (BODY == BODY_C)
         softmax_step<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, mask, k0 + 2 * t, Lk, scale);
+      else
+        softmax_step_legacy<NS>(s[mt], m[mt], l[mt], pa[mt], alpha, BODY == BODY_H || mask,
+                                k0 + 2 * t, Lk, scale);
 #pragma unroll
       for (int nt = 0; nt < NO; ++nt) {
         acc[mt][nt][0] *= alpha[0];
@@ -440,11 +465,11 @@ __global__ void __launch_bounds__(REG_NW * 32) flash_reg_kernel(
                           scale, true, t);
 }
 
-template <int DP, int MT, int BKV, bool STATS, bool LEGACY>
+template <int DP, int MT, int BKV, bool STATS, int BODY, int NW = REG_NW>
 cudaError_t launch_reg(const void* q, const void* k, const void* v, void* o, float* m, float* l,
                        int BH, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  using P = RegPlan<DP, MT, BKV>;
-  auto kern = flash_reg_kernel<DP, MT, BKV, STATS, LEGACY>;
+  using P = RegPlan<DP, MT, BKV, NW>;
+  auto kern = flash_reg_kernel<DP, MT, BKV, STATS, BODY, NW>;
   if (P::SMEM > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
@@ -459,15 +484,47 @@ cudaError_t launch_reg(const void* q, const void* k, const void* v, void* o, flo
 
 // The query tile bq the plan chose: 128 (two row tiles per warp, DP <= 48)
 // or 64 (one); anything else is refused.
-template <int DP, bool STATS, bool LEGACY = false>
+template <int DP, bool STATS, int BODY = BODY_C>
 cudaError_t by_tile(const void* q, const void* k, const void* v, void* o, float* m, float* l,
                     int BH, int Lq, int Lk, int D, int bq, float sc, cudaStream_t s) {
   constexpr int BKV = DP <= KV128_MAX_DP ? 128 : 64;
   if (bq == 128) {
-    if constexpr (DP <= MT2_MAX_DP) return launch_reg<DP, 2, BKV, STATS, LEGACY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
+    if constexpr (DP <= MT2_MAX_DP) return launch_reg<DP, 2, BKV, STATS, BODY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
     return cudaErrorInvalidValue;
   }
-  if (bq == 64) return launch_reg<DP, 1, BKV, STATS, LEGACY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
+  if (bq == 64) return launch_reg<DP, 1, BKV, STATS, BODY>(q, k, v, o, m, l, BH, Lq, Lk, D, sc, s);
+  return cudaErrorInvalidValue;
+}
+
+// Kernel I's variant (nq chains of bq rows, bq 64 or 128, nq * bq <= 256):
+// 4 nq warps of MT = bq / 64 row tiles each.  The key tile is C's (128 keys
+// to depth 80), except past depth 48 at MT = 2 or 16 warps: there 64 keys
+// halve the scores' registers, where 128 spilled and ran slower on the card.
+template <int DP, int MT, int NW>
+cudaError_t variant(const void* q, const void* k, const void* v, void* o, int BH, int Lq, int Lk,
+                    int D, float sc, cudaStream_t s) {
+  constexpr int BKV =
+      DP <= MT2_MAX_DP || (DP <= KV128_MAX_DP && MT == 1 && NW <= 12) ? 128 : 64;
+  constexpr float* no = nullptr;
+  return launch_reg<DP, MT, BKV, false, BODY_I, NW>(q, k, v, o, no, no, BH, Lq, Lk, D, sc, s);
+}
+
+template <int DP>
+cudaError_t by_variant(const void* q, const void* k, const void* v, void* o, int BH, int Lq,
+                       int Lk, int D, int nq, int bq, float sc, cudaStream_t s) {
+  if (bq == 64) {
+    switch (nq) {
+      case 1: return variant<DP, 1, 4>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+      case 2: return variant<DP, 1, 8>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+      case 3: return variant<DP, 1, 12>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+      case 4: return variant<DP, 1, 16>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+    }
+  } else if (bq == 128) {
+    switch (nq) {
+      case 1: return variant<DP, 2, 4>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+      case 2: return variant<DP, 2, 8>(q, k, v, o, BH, Lq, Lk, D, sc, s);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -699,13 +756,28 @@ int dispatch_legacy(const void* q, const void* k, const void* v, void* o, int BH
   const float sc = 1.f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr float* no = nullptr;
-  if (D <= 32) return (int)by_tile<32, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  if (D <= 48) return (int)by_tile<48, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  if (D <= 64) return (int)by_tile<64, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  if (D <= 80) return (int)by_tile<80, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  if (D <= 96) return (int)by_tile<96, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  if (D <= 128) return (int)by_tile<128, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
-  return (int)by_tile<160, false, true>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 32) return (int)by_tile<32, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 48) return (int)by_tile<48, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 64) return (int)by_tile<64, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 80) return (int)by_tile<80, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 96) return (int)by_tile<96, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  if (D <= 128) return (int)by_tile<128, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+  return (int)by_tile<160, false, BODY_H>(q, k, v, o, no, no, BH, Lq, Lk, D, bq, sc, s);
+}
+
+// Kernel I's dispatch: the variant's chains at the padded depth 48, 64, 80,
+// 128 or 160.
+int dispatch_nq(const void* q, const void* k, const void* v, void* o, int BH, int Lq, int Lk,
+                int D, int nq, int bq, void* stream) {
+  if (D % 8 || D <= 0 || D > 160 || Lq <= 0 || Lk <= 0 || BH <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float sc = 1.f / sqrtf((float)D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 48) return (int)by_variant<48>(q, k, v, o, BH, Lq, Lk, D, nq, bq, sc, s);
+  if (D <= 64) return (int)by_variant<64>(q, k, v, o, BH, Lq, Lk, D, nq, bq, sc, s);
+  if (D <= 80) return (int)by_variant<80>(q, k, v, o, BH, Lq, Lk, D, nq, bq, sc, s);
+  if (D <= 128) return (int)by_variant<128>(q, k, v, o, BH, Lq, Lk, D, nq, bq, sc, s);
+  return (int)by_variant<160>(q, k, v, o, BH, Lq, Lk, D, nq, bq, sc, s);
 }
 
 }  // namespace
@@ -769,4 +841,12 @@ extern "C" int flash_attention_legacy_launch(const void* q, const void* k, const
                                              void* o, int BH, int Lq, int Lk, int D, int bq,
                                              void* stream) {
   return dispatch_legacy(q, k, v, o, BH, Lq, Lk, D, bq, stream);
+}
+
+// Kernel I: as H's arguments, with the variant's chains nq and rows per chain
+// bq ((nq, bq) one of (1..4, 64), (1..2, 128)) in place of the plan's tile.
+extern "C" int flash_attention_nq_launch(const void* q, const void* k, const void* v, void* o,
+                                         int BH, int Lq, int Lk, int D, int nq, int bq,
+                                         void* stream) {
+  return dispatch_nq(q, k, v, o, BH, Lq, Lk, D, nq, bq, stream);
 }

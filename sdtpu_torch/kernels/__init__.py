@@ -10,7 +10,9 @@ runs them, under ``conv3x3_slab_prologue`` and ``conv3x3_slab_splitk``
 (``kernels/conv2d.py:conv3x3_launches``).  Flash attention at D > 160
 counts its key-split merge, where ``plan_flash`` splits, under
 ``flash_attention_merge`` (``kernels/flash_attention.py:flash_launches``),
-and kernel J's bf16 split-K reduction under ``dot_bf16_splitk``
+kernel G's split-K reduction under ``out_proj_packed_splitk``
+(``kernels/flash_attention.py:out_proj_launches``), and kernel J's bf16
+split-K reduction under ``dot_bf16_splitk``
 (``tools/probe_int8_dot.py:dot_launches``).
 """
 
@@ -24,6 +26,7 @@ launch_counts = {
     "flash_attention_stats": 0,
     "flash_attention_merge": 0,
     "out_proj_packed": 0,
+    "out_proj_packed_splitk": 0,
     "conv3x3_gemm": 0,
     "flash_attention_legacy": 0,
     "flash_attention_nq": 0,

@@ -11,7 +11,10 @@ form with softmax statistics, and the packed out-projection.
   ``(B, L, H, D)`` entry is ``flash_attention_stats``.
 * Kernel G, ``out_proj_packed``: counterpart of ``out_proj_packed``,
   ``residual + sum_h o_h W_h + bias`` accumulated in float32 and rounded
-  once, read straight from the head-major attention output.
+  once, read straight from the head-major attention output.  It takes its
+  output tile and any split of its head/K loop from ``plan_out_proj``; a
+  split call adds the fixed-order reduction (``out_proj_packed_splitk``,
+  counted on its own; ``out_proj_launches`` derives a call's launches).
 
 The JAX kernels pad the head dim to 128 lanes; here every tensor keeps the
 real head dim, and the CUDA kernels (``csrc/flash_attention.cu``,
@@ -22,8 +25,8 @@ blocks, from ``plan_flash``; a split call adds a merge kernel
 a call's launches).  The probe kernel H
 (``sdtpu_torch/tools/probe_flash_vpu.py``) is C's kernel with the TPU's
 legacy softmax body and takes C's query tile; I
-(``probe_flash_2stream.py``) keeps the first design's template
-(``csrc/flash_attention.cuh``).  Both use this module's helpers.
+(``probe_flash_2stream.py``) is the same kernel with H's body, C's key
+mask and its own chains of warps per block.  Both use this module's helpers.
 On the CPU each wrapper runs its plain version: the same function in
 float32, with the probabilities rounded to v's dtype before the P.V
 product as the TPU kernel rounds them.
@@ -32,12 +35,22 @@ product as the TPU kernel rounds them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from sdtpu_torch.kernels import _build, launch_counts
+
+
+# The tiles csrc/out_proj_packed.cu is built with (``out_proj_packed_tile``).
+OUT_PROJ_BM = 128          # output rows per block (of one batch)
+OUT_PROJ_BK = 64           # K values per step: one head's depth [j, j + 64), zero past D
+OUT_PROJ_STAGES = 4        # TMA ring depth
+OUT_PROJ_BNS = (128, 192)  # output columns per block, the plan's two choices
+OUT_PROJ_MIN_SPLIT = 2 * OUT_PROJ_STAGES  # K steps a split keeps, at least
+OUT_PROJ_MAX_SPLITS = 16
 
 
 def _attention_parts(q, k, v):
@@ -76,6 +89,89 @@ def out_proj_packed_plain(o: torch.Tensor, w: torch.Tensor, bias: Optional[torch
     if bias is not None:
         out = out + bias.float()
     return (out + residual.float()).to(residual.dtype)
+
+
+@functools.lru_cache(maxsize=64)  # a call's host time sits at the enqueue floor
+def plan_out_proj(b: int, h: int, l: int, d: int, c: int) -> tuple:
+    """``(bn, splits)`` for one call of kernel G over o (b, h, l, d) and w
+    (h, d, c): the output tile is ``OUT_PROJ_BM`` rows of one batch x bn
+    columns, and the K loop of ``h * ceil(d / OUT_PROJ_BK)`` steps (each one
+    head's 64-deep slice) is split over ``splits`` blocks.  Among bn in
+    ``OUT_PROJ_BNS``, the one with the least ``waves * steps per block *
+    bn`` (waves of one block per SM), then the wider tile.  Where that
+    unsplit grid leaves more than half of the SMs idle, the K loop is split
+    too: among the splits that keep at least ``OUT_PROJ_MIN_SPLIT`` steps
+    each (at most ``OUT_PROJ_MAX_SPLITS``), the same least cost, then the
+    fewest splits.  A split writes f32 partials and adds a reduction launch,
+    which on the card cost more than they gave wherever the unsplit grid
+    already filled half the SMs.  Raises on a shape the kernel does not
+    take."""
+    if min(b, h, l, d, c) <= 0 or d % 8 or c % 8:
+        raise ValueError(f"plan_out_proj: no plan for b={b} h={h} l={l} d={d} c={c} (d and c "
+                         "multiples of 8; sizes positive)")
+    steps = h * -(-d // OUT_PROJ_BK)
+
+    def best(max_splits):
+        top = None
+        for bn in OUT_PROJ_BNS:
+            tiles = b * -(-l // OUT_PROJ_BM) * -(-c // bn)
+            for splits in range(1, max_splits + 1):
+                cost = -(-tiles * splits // SMS) * -(-steps // splits) * bn
+                key = (cost, splits, -bn, tiles * splits)
+                if top is None or key < top:
+                    top = key
+        return -top[2], top[1], top[3]
+
+    bn, splits, blocks = best(1)
+    if 2 * blocks < SMS:
+        bn, splits, _ = best(max(1, min(OUT_PROJ_MAX_SPLITS, steps // OUT_PROJ_MIN_SPLIT,
+                                        65535 // b)))
+    return bn, splits
+
+
+def out_proj_launches(o_shape, c: int) -> dict:
+    """The launch counters one call of kernel G over o ``o_shape`` and c
+    output channels adds one to on the card: its own, and the split-K
+    reduction where ``plan_out_proj`` splits."""
+    keys = {"out_proj_packed": 1}
+    if plan_out_proj(*o_shape, c)[1] > 1:
+        keys["out_proj_packed_splitk"] = 1
+    return keys
+
+
+def out_proj_splitk_reduce_plain(ws: torch.Tensor, bias: Optional[torch.Tensor],
+                                 residual: torch.Tensor) -> torch.Tensor:
+    """The split-K reduction's function over ws (S, B, L, C) float32:
+    ``bf16(((ws[0] + ... + ws[S-1]) + bias) + residual)``, added in that
+    order in float32 and rounded once to residual's dtype."""
+    acc = ws[0].clone()
+    for part in ws[1:]:
+        acc += part
+    if bias is not None:
+        acc = acc + bias.float()
+    return (acc + residual.float()).to(residual.dtype)
+
+
+def out_proj_splitk_plain(o: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                          residual: torch.Tensor, splits: int) -> torch.Tensor:
+    """Kernel G's order of sums: step t of the ``T = h * ceil(d / 64)``
+    covers head ``t // per`` at depths ``[(t % per) * 64, ...)`` (per =
+    ceil(d / 64)), so split s's steps ``[s * T // splits, (s + 1) * T //
+    splits)`` are one contiguous range of the flattened (h, d) contraction;
+    each split's float32 partial product is one slice of ws, and
+    ``out_proj_splitk_reduce_plain`` finishes the call."""
+    b, h, l, d = o.shape
+    per = -(-d // OUT_PROJ_BK)
+    steps = h * per
+
+    def k_at(t):  # the flattened K index where step t begins
+        return (t // per) * d + (t % per) * OUT_PROJ_BK
+
+    bounds = [k_at(s * steps // splits) for s in range(splits + 1)]
+    of = o.permute(0, 2, 1, 3).reshape(b, l, h * d).float()
+    wf = w.reshape(h * d, -1).float()
+    ws = torch.stack([of[..., a:z] @ wf[a:z] for a, z in zip(bounds, bounds[1:])])
+    return out_proj_splitk_reduce_plain(ws, bias, residual)
 
 
 # The tiles csrc/flash_attention.cu is built with (``flash_attention_tile``).
@@ -160,6 +256,8 @@ def _flash_lib():
         lib.flash_attention_merge_launch.restype = i
         lib.flash_attention_legacy_launch.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.flash_attention_legacy_launch.restype = i
+        lib.flash_attention_nq_launch.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.flash_attention_nq_launch.restype = i
         lib.flash_attention_tile.argtypes = [i]
         lib.flash_attention_tile.restype = i
         tiles = tuple(lib.flash_attention_tile(j) for j in range(4))
@@ -175,8 +273,17 @@ def _out_proj_lib():
     lib = _build.load("out_proj_packed")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.out_proj_packed_launch.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.out_proj_packed_launch.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.out_proj_packed_launch.restype = i
+        lib.out_proj_packed_splitk_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+        lib.out_proj_packed_splitk_launch.restype = i
+        lib.out_proj_packed_tile.argtypes = [i]
+        lib.out_proj_packed_tile.restype = i
+        tiles = tuple(lib.out_proj_packed_tile(j) for j in range(5))
+        want = (OUT_PROJ_BM, OUT_PROJ_BK, OUT_PROJ_STAGES, *OUT_PROJ_BNS)
+        if tiles != want:
+            raise RuntimeError(f"out_proj_packed.cu runs tiles (BM, BK, STAGES, BN_A, BN_B) "
+                               f"{tiles}, plan_out_proj assumes {want}")
         lib._typed = True
     return lib
 
@@ -310,13 +417,37 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return out.permute(0, 2, 1, 3), m, l
 
 
+def _check_bias(what: str, bias: Optional[torch.Tensor], c: int, device):
+    """The bias as contiguous float32 on ``device`` (or None); raises on
+    another shape or device."""
+    if bias is None:
+        return None
+    if bias.device != device or tuple(bias.shape) != (c,):
+        raise ValueError(f"{what}: bias must be ({c},) on {device}, got "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    return bias.float().contiguous()
+
+
+def _splitk_call(ws, bias, residual, splits: int) -> torch.Tensor:
+    out = torch.empty_like(residual)
+    b, l, c = residual.shape
+    err = _out_proj_lib().out_proj_packed_splitk_launch(
+        ws.data_ptr(), None if bias is None else bias.data_ptr(), residual.data_ptr(),
+        out.data_ptr(), b * l, c, splits, torch.cuda.current_stream(ws.device).cuda_stream)
+    _build.check(err, "out_proj_packed_splitk")
+    launch_counts["out_proj_packed_splitk"] += 1
+    return out
+
+
 def out_proj_packed(o: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                     residual: torch.Tensor) -> torch.Tensor:
     """Kernel G.  o (B, H, L, D), w (H, D, C), bias (C,) or None, residual
     (B, L, C) -> (B, L, C) in residual's dtype.
 
     On the card: o, w and residual bf16 and contiguous, D and C multiples
-    of 8; the bias is taken as float32."""
+    of 8; the bias is taken as float32.  The tile and the split of the K
+    loop come from ``plan_out_proj``; a split call ends with the split-K
+    reduction."""
     if _on_cpu("out_proj_packed", o):
         return out_proj_packed_plain(o, w, bias, residual)
     b, h, l, d = o.shape
@@ -326,17 +457,37 @@ def out_proj_packed(o: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tenso
     if d % 8 or c % 8:
         raise ValueError(f"out_proj_packed: head dim {d} and channels {c} must be "
                          "multiples of 8")
-    if bias is not None:
-        if bias.device != o.device or tuple(bias.shape) != (c,):
-            raise ValueError(f"out_proj_packed: bias must be ({c},) on {o.device}, got "
-                             f"{tuple(bias.shape)} on {bias.device}")
-        bias = bias.float().contiguous()
-    out = torch.empty_like(residual)
+    bias = _check_bias("out_proj_packed", bias, c, o.device)
+    bn, splits = plan_out_proj(b, h, l, d, c)
+    out = ws = None
+    if splits > 1:
+        ws = torch.empty((splits, b, l, c), dtype=torch.float32, device=o.device)
+    else:
+        out = torch.empty_like(residual)
     err = _out_proj_lib().out_proj_packed_launch(
         o.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        residual.data_ptr(), out.data_ptr(), b, h, l, d, c,
-        torch.cuda.current_stream(o.device).cuda_stream,
+        None if ws is not None else residual.data_ptr(),
+        None if out is None else out.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, h, l, d, c, bn, splits, torch.cuda.current_stream(o.device).cuda_stream,
     )
     _build.check(err, "out_proj_packed")
     launch_counts["out_proj_packed"] += 1
-    return out
+    return out if ws is None else _splitk_call(ws, bias, residual, splits)
+
+
+def out_proj_splitk_reduce(ws: torch.Tensor, bias: Optional[torch.Tensor],
+                           residual: torch.Tensor) -> torch.Tensor:
+    """Kernel G's split-K reduction alone: ws (S, B, L, C) float32, bias
+    (C,) or None, residual (B, L, C) -> (B, L, C) in residual's dtype, as
+    ``out_proj_splitk_reduce_plain``.  On the card: ws contiguous float32,
+    residual contiguous bf16, C a multiple of 8."""
+    if _on_cpu("out_proj_packed_splitk", ws):
+        return out_proj_splitk_reduce_plain(ws, bias, residual)
+    b, l, c = residual.shape
+    _check_bf16("out_proj_packed_splitk", ws.device, (("residual", residual, (b, l, c)),))
+    if (ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() != 4
+            or tuple(ws.shape[1:]) != (b, l, c) or ws.shape[0] < 1 or c % 8):
+        raise ValueError(f"out_proj_packed_splitk: ws must be contiguous float32 (S, {b}, {l}, "
+                         f"{c}) with {c} a multiple of 8, got {ws.dtype} {tuple(ws.shape)}")
+    bias = _check_bias("out_proj_packed_splitk", bias, c, ws.device)
+    return _splitk_call(ws, bias, residual, ws.shape[0])

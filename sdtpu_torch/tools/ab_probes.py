@@ -1,5 +1,5 @@
-"""Same-call A/B of the probe kernels H (legacy flash body) and J (bf16 and
-int8 GEMM) between source trees, on one card.
+"""Same-call A/B of the probe kernels H (legacy flash body), I (n-chain
+flash) and J (bf16 and int8 GEMM) between source trees, on one card.
 
     python sdtpu_torch/tools/ab_probes.py TREE [TREE ...] [--reps N] [--out F]
 
@@ -9,17 +9,21 @@ process of its own (``ab_flash.run_trees``) that imports that tree's
 ``sdtpu_torch`` and times, on the same seeded inputs: H
 (``probe_flash_vpu.legacy_flash``) at ``chip_smoke.py`` phase 9's two
 shapes and at ``probe_flash_vpu.SHAPES``, C (``flash_attention_packed``)
-at ``probe_flash_vpu.SHAPES`` (the probe's legacy / shipped ratio), and J
+at ``probe_flash_vpu.SHAPES`` (the probe's legacy / shipped ratio), I
+(``probe_flash_2stream.flash_2q``) at phase 9's two shapes in every
+``CARD_VARIANTS`` entry (each on the largest Lq the variant takes, as phase
+9 runs it) and its ``1q`` at ``probe_flash_vpu.SHAPES`` (1q / shipped), and J
 (``probe_int8_dot.make``) bf16 -> f32 -> bf16 and int8 -> int32 at
 ``probe_int8_dot.SHAPES``; each with CUDA events (``reps`` back-to-back
 calls after a warm-up; below about 0.15 ms a call they time the host's
 enqueue) and by the profiler's device time (``tools.device_ms``).  Give a
 tree twice, in turns (old, new, new, old), to see the spread.  This
-process times the library beside them the same two ways: SDPA for H and C,
-``torch.matmul`` for J bf16, ``torch._int_mm`` for J int8.  It prints, per
+process times the library beside them the same two ways: SDPA for H, C and
+I, ``torch.matmul`` for J bf16, ``torch._int_mm`` for J int8.  It prints, per
 row, every run's ms (events; device), the library's, the bound and
 T(FL)OP/s by device time, then per run: H summed over phase 9's shapes, H/C
-by device time at the probe's shapes, J bf16 and J int8 summed; and the
+by device time at the probe's shapes, I summed over phase 9's 12 checks, I's
+1q/C at the probe's shapes, J bf16 and J int8 summed; and the
 host's cost per call of building J bf16's two TMA tensor maps in this tree
 (``dot_bf16_tensor_maps``, host clock over ``100 * reps`` builds).  Without
 a card it exits non-zero.
@@ -34,15 +38,29 @@ import subprocess
 import sys
 import time
 
-PHASE9_H = ((2, 8, 4096, 40), (2, 8, 1024, 80))  # chip_smoke.py phase 9's H shapes
+PHASE9_H = ((2, 8, 4096, 40), (2, 8, 1024, 80))  # chip_smoke.py phase 9's H and I shapes
+# probe_flash_2stream.CARD_VARIANTS, the (nq, bq) of I's card kernel, fixed
+# here so that every tree's worker times the same rows
+I_VARIANTS = ((1, 64), (2, 64), (3, 64), (4, 64), (1, 128), (2, 128))
+
+
+def i_shape(b, h, l, d, nq, bq):
+    """I's row as phase 9 runs it: (B, H, Lq, D, Lk, nq, bq) with Lq the
+    largest multiple of nq * bq up to L, and Lk = L."""
+    return (b, h, l // (nq * bq) * (nq * bq), d, l, nq, bq)
+
+
+PHASE9_I = [i_shape(*s, nq, bq) for s in PHASE9_H for nq, bq in I_VARIANTS]
 
 
 def rows(probe_flash_vpu, probe_int8_dot):
     """(kernel, shape) of every timed row: H and C as (B, H, L, D) with Lk =
-    Lq, J as (m, k, n)."""
+    Lq, I as (B, H, Lq, D, Lk, nq, bq), J as (m, k, n)."""
     probe = [(b, h, l, d) for _, b, h, l, d in probe_flash_vpu.SHAPES]
     out = [("H", s) for s in PHASE9_H + tuple(s for s in probe if s not in PHASE9_H)]
     out += [("C", s) for s in probe]
+    out += [("I", s) for s in PHASE9_I + [i_shape(*p, 1, 64) for p in probe
+                                          if i_shape(*p, 1, 64) not in PHASE9_I]]
     out += [(kind, s) for kind in ("J bf16", "J int8") for s in probe_int8_dot.SHAPES]
     return out
 
@@ -50,11 +68,19 @@ def rows(probe_flash_vpu, probe_int8_dot):
 def calls(torch, kind, shape, mods, lib):
     """A function of no arguments running ``kind`` at ``shape`` (this tree's
     wrapper, or with ``lib`` the library's call) on seeded inputs."""
-    vpu, dot, flash = mods
+    vpu, dot, flash, two = mods
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kind == "I":
+        b, h, lq, d, lk, nq, bq = shape
+        q, k, v = vpu.qkv_inputs(b, h, lk, d)
+        qi = q[:, :, :lq].contiguous()
+        if lib:
+            return lambda: sdpa(qi, k, v)
+        return lambda: two.flash_2q(qi, k, v, bq=bq, nq=nq)
     if kind in ("H", "C"):
         q, k, v = vpu.qkv_inputs(*shape)
         if lib:
-            return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return lambda: sdpa(q, k, v)
         fn = vpu.legacy_flash if kind == "H" else flash.flash_attention_packed
         return lambda: fn(q, k, v)
     m, kk, n = shape
@@ -72,9 +98,9 @@ def calls(torch, kind, shape, mods, lib):
 
 def modules():
     from sdtpu_torch.kernels import flash_attention
-    from sdtpu_torch.tools import probe_flash_vpu, probe_int8_dot
+    from sdtpu_torch.tools import probe_flash_2stream, probe_flash_vpu, probe_int8_dot
 
-    return probe_flash_vpu, probe_int8_dot, flash_attention
+    return probe_flash_vpu, probe_int8_dot, flash_attention, probe_flash_2stream
 
 
 def worker(tree: str, reps: int) -> None:
@@ -135,11 +161,12 @@ def main(argv=None) -> int:
         d_l = float("nan") if d_l is None else d_l  # nan: not measured
         del lib
         torch.cuda.empty_cache()
-        if kind in ("H", "C"):
-            b, h, l, d = shape
-            ops = 4.0 * b * h * l * l * d
-            nbytes = 4 * b * h * l * d * 2
-            bound = max(ops / PEAK_BF16_FLOPS, b * h * l * l / exp_rate, nbytes / 3.35e12)
+        if kind in ("H", "C", "I"):
+            b, h, l, d = shape[:4]
+            lk = shape[4] if kind == "I" else l
+            ops = 4.0 * b * h * l * lk * d
+            nbytes = 2 * b * h * (l + lk) * d * 2
+            bound = max(ops / PEAK_BF16_FLOPS, b * h * l * lk / exp_rate, nbytes / 3.35e12)
             lib_name = "SDPA"
         else:
             m, k, n = shape
@@ -172,9 +199,14 @@ def main(argv=None) -> int:
         s = {"run": "library" if run is None else f"run {r} ({run['tree']})",
              "H_phase9_device_ms": sum(dev(row) for row in h9),
              "H_phase9_ms": sum(evt(row) for row in h9)}
+        i9 = [row for row in table if row["kernel"] == "I" and tuple(row["shape"]) in PHASE9_I]
+        s["I_phase9_device_ms"] = sum(dev(row) for row in i9)
+        s["I_phase9_ms"] = sum(evt(row) for row in i9)
         if run is not None:
             by = {(row["kernel"], tuple(row["shape"])): row for row in table}
             s["H_over_C_device"] = [dev(by[("H", p)]) / dev(by[("C", p)]) for p in probe]
+            s["I_1q_over_C_device"] = [dev(by[("I", i_shape(*p, 1, 64))]) / dev(by[("C", p)])
+                                       for p in probe]
         for kind in ("J bf16", "J int8"):
             js = [row for row in table if row["kernel"] == kind]
             s[f"{kind} device_ms"] = sum(dev(row) for row in js)

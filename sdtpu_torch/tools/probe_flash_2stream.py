@@ -10,12 +10,17 @@ so it raises NameError on every backend; the evident intent is the head dim
 of the accumulator, and here every tensor keeps its real head dim (the
 scale is 1/sqrt(D)).
 
-On the card a chain is one warpgroup and ``bq``, its rows, is 64 or 128
-(``csrc/flash_nq.cu``); the JAX ``bq`` sized a VMEM tile.  The card
-variants and the JAX variants they stand for:
+On the card I runs on kernel C's own kernel (``csrc/flash_attention.cu``:
+the cp.async K/V ring, ldmatrix fragments, C's key tile but where 128-key
+tiles would spill) with H's body and
+C's key mask (only the tile that holds keys past Lk).  A chain is 4 warps
+and ``bq``, its rows, is 64 or 128 (one or two 16-row tiles a warp); a
+block holds ``nq`` chains that stage each K/V tile once for all of them.
+The JAX ``bq`` sized a VMEM tile.  The card variants and the JAX variants
+they stand for:
 
-    shipped  kernel C (exp2, 64 rows per block)   shipped (bq 512, one chain)
-    1q       nq 1, bq 64: C's schedule, natural exp  (the one-chain baseline)
+    shipped  kernel C (exp2, plan_flash's tile)    shipped (bq 512, one chain)
+    1q       nq 1, bq 64: C's 64-row schedule, natural exp  (the one-chain baseline)
     1q-128   nq 1, bq 128                          (rows per K/V tile without chains)
     2q-64    nq 2, bq 64                           2q-256
     2q-128   nq 2, bq 128                          2q-512
@@ -31,14 +36,18 @@ probe requires; the others are reported as not run.
 
 from __future__ import annotations
 
-import ctypes
 import sys
 from collections import Counter
 
 import torch
 
 from sdtpu_torch.kernels import _build, launch_counts
-from sdtpu_torch.kernels.flash_attention import _check_qkv, _on_cpu, flash_attention_packed
+from sdtpu_torch.kernels.flash_attention import (
+    _check_qkv,
+    _flash_lib,
+    _on_cpu,
+    flash_attention_packed,
+)
 from sdtpu_torch.tools import PEAK_BF16_FLOPS, card_line, chain_arg, require_cuda, run_variants
 from sdtpu_torch.tools.probe_flash_vpu import SHAPES, legacy_flash_plain, qkv_inputs
 
@@ -63,22 +72,12 @@ def flash_2q_plain(q, k, v, *, bq: int, nq: int = 2, block_k: int = 1024) -> tor
     return legacy_flash_plain(q, k, v)
 
 
-def _nq_lib():
-    lib = _build.load("flash_nq")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_nq_launch.argtypes = [p] * 4 + [i] * 6 + [p]
-        lib.flash_attention_nq_launch.restype = i
-        lib._typed = True
-    return lib
-
-
 def flash_2q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int, nq: int = 2,
              block_k: int = 1024) -> torch.Tensor:
     """Kernel I.  q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D).  Raises
     where Lq is not a multiple of nq * bq.  On the card: bf16, contiguous, D a
     multiple of 8 and at most 160, (nq, bq) one of ``CARD_VARIANTS``;
-    ``block_k`` is ignored (the card's key tile is 64)."""
+    ``block_k`` is ignored (the card's key tile is kernel C's)."""
     if _on_cpu("flash_attention_nq", q):
         return flash_2q_plain(q, k, v, bq=bq, nq=nq, block_k=block_k)
     b, h, lq, lk, d = _check_qkv("flash_attention_nq", q, k, v)
@@ -89,7 +88,7 @@ def flash_2q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int, nq: 
         raise ValueError(f"flash_attention_nq: (nq, bq) = ({nq}, {bq}) is not one of "
                          f"{CARD_VARIANTS}")
     out = torch.empty_like(q)
-    err = _nq_lib().flash_attention_nq_launch(
+    err = _flash_lib().flash_attention_nq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, lk, d, nq, bq,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_nq")

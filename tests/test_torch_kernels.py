@@ -401,7 +401,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
                              "conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0,
                              "conv3x3_slab_int8": 0, "flash_attention": 0,
                              "flash_attention_stats": 0, "flash_attention_merge": 0,
-                             "out_proj_packed": 0,
+                             "out_proj_packed": 0, "out_proj_packed_splitk": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
                              "flash_attention_nq": 0, "dot_bf16": 0, "dot_bf16_splitk": 0,
                              "dot_int8": 0}
@@ -424,9 +424,9 @@ def test_build_finds_no_nvcc_and_raises(monkeypatch):
 
 def test_build_sources_and_content_hashed_library_names():
     assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "dot", "flash_attention",
-                                "flash_nq", "out_proj_packed"]
+                                "out_proj_packed"]
     names = {_build._lib_path(n) for n in _build.sources()}
-    assert len(names) == 6
+    assert len(names) == 5
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in names)
 
 

@@ -26,6 +26,7 @@ import importlib
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +45,7 @@ from conftest import assert_images_match
 from sdtpu.config import UNetConfig
 from sdtpu.pipeline.pipeline import StableDiffusionPipeline as JaxPipeline
 from sdtpu_torch import StableDiffusionPipeline
-from sdtpu_torch.kernels import launch_counts, reset_launch_counts
+from sdtpu_torch.kernels import _build, launch_counts, reset_launch_counts
 from sdtpu_torch.parallel import (
     LocalRing,
     get_ring_context,
@@ -161,6 +162,119 @@ def test_out_proj_packed_plain_matches_pallas(rng, dtype, b, h, l, d, c, bias):
         close(got, want)
     else:
         _bf16_close(got, want)
+
+
+# the packed route's calls of G at tiny-sd 512 (CFG batch 2) and their plans
+PACKED_SHAPES = [((2, 8, 4096, 40), 320, (192, 1)), ((2, 8, 1024, 80), 640, (128, 1)),
+                 ((2, 8, 256, 160), 1280, (128, 3)), ((1, 1, 4096, 512), 512, (128, 1))]
+
+
+@pytest.mark.parametrize("o_shape,c,plan", PACKED_SHAPES)
+def test_plan_out_proj_fills_one_wave_at_the_packed_shapes(o_shape, c, plan):
+    """At each call of the packed route the plan is one wave of at most one
+    block per SM over at least half of the 132 SMs, and at least 90% of them
+    where it splits: level 2's 40 tiles of 128 x 128 take 3 K-splits (120
+    blocks); level 1's 80 tiles stay unsplit (a split ran slower there on
+    the card).  Its blocks cover every output element exactly once per
+    split, the splits partition the K steps and each keeps at least
+    OUT_PROJ_MIN_SPLIT of them.  Launches as out_proj_launches says."""
+    b, h, l, d = o_shape
+    bn, splits = tflash.plan_out_proj(b, h, l, d, c)
+    assert (bn, splits) == plan
+    m_tiles, c_tiles = -(-l // tflash.OUT_PROJ_BM), -(-c // bn)
+    blocks = b * m_tiles * c_tiles * splits
+    assert tflash.SMS <= 2 * blocks and blocks <= tflash.SMS
+    assert splits == 1 or (2 * blocks // splits < tflash.SMS and 0.9 * tflash.SMS <= blocks)
+    cover = np.zeros((b, l, c), dtype=np.int32)
+    for bi in range(b):
+        for mt in range(m_tiles):
+            for ct in range(c_tiles):
+                cover[bi, mt * tflash.OUT_PROJ_BM:(mt + 1) * tflash.OUT_PROJ_BM,
+                      ct * bn:(ct + 1) * bn] += 1
+    assert (cover == 1).all()
+    steps = h * -(-d // tflash.OUT_PROJ_BK)
+    bounds = [s * steps // splits for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == steps
+    assert all(z - a >= tflash.OUT_PROJ_MIN_SPLIT for a, z in zip(bounds, bounds[1:]))
+    assert tflash.out_proj_launches(o_shape, c) == (
+        {"out_proj_packed": 1, "out_proj_packed_splitk": 1} if splits > 1
+        else {"out_proj_packed": 1})
+
+
+@pytest.mark.parametrize("b,h,l,d,c", [(0, 8, 10, 40, 8), (1, 0, 10, 40, 8), (1, 8, 10, 36, 8),
+                                       (1, 8, 10, 40, 12)])
+def test_plan_out_proj_raises_on_shapes_the_kernel_does_not_take(b, h, l, d, c):
+    with pytest.raises(ValueError, match="no plan"):
+        tflash.plan_out_proj(b, h, l, d, c)
+
+
+@pytest.mark.parametrize("b,h,l,d,c", [(2, 8, 24, 40, 32), (2, 8, 16, 80, 64),
+                                       (2, 8, 8, 160, 48), (1, 1, 16, 512, 24),
+                                       (1, 3, 10, 24, 72)])
+def test_out_proj_splitk_order_matches_plain(rng, b, h, l, d, c):
+    """G's order of sums, emulated on the CPU at 1, 2 and 3 splits of the
+    head/K loop: each split a contiguous range of the flattened (h, d)
+    contraction, the f32 partials added in split order, then the bias, then
+    the residual, one rounding.  Within one bf16 ulp of the plain version
+    plus the float32 reordering bound (the same function, summed in another
+    order); the reduction's own order bitwise."""
+    o = tt(rng.standard_normal((b, h, l, d), dtype=np.float32), torch.bfloat16)
+    w = tt(rng.standard_normal((h, d, c), dtype=np.float32) * (h * d) ** -0.5, torch.bfloat16)
+    bias = tt(rng.standard_normal(c, dtype=np.float32))
+    res = tt(rng.standard_normal((b, l, c), dtype=np.float32), torch.bfloat16)
+    want = nn(tflash.out_proj_packed_plain(o, w, bias, res))
+    mag = torch.einsum("bhld,hdc->blc", o.float().abs(), w.float().abs())
+    reorder = 2 * h * d * 2.0 ** -24 * nn(mag)
+    for splits in (1, 2, 3):
+        got = nn(tflash.out_proj_splitk_plain(o, w, bias, res, splits))
+        assert (np.abs(got - want) <= _bf16_ulp(want) + reorder).all()
+    ws = tt(rng.standard_normal((3, b, l, c), dtype=np.float32))
+    assert torch.equal(tflash.out_proj_splitk_reduce_plain(ws, bias, res),
+                       ((((ws[0] + ws[1]) + ws[2]) + bias) + res.float()).to(torch.bfloat16))
+    assert torch.equal(tflash.out_proj_splitk_reduce_plain(ws[:1], None, res),
+                       (ws[0] + res.float()).to(torch.bfloat16))
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at |a| (8 significant bits)."""
+    a = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("tiles,refused", [((128, 64, 4, 128, 192), False),
+                                           ((128, 64, 4, 128, 160), True),
+                                           ((64, 64, 4, 128, 192), True)])
+def test_out_proj_loader_refuses_a_mismatched_tile(monkeypatch, tiles, refused):
+    """The library of G is refused when the tiles it was built with differ
+    from those plan_out_proj assumes, as the flash and J loaders do."""
+    def tile(j):
+        return tiles[j]
+
+    fake = types.SimpleNamespace(out_proj_packed_launch=types.SimpleNamespace(),
+                                 out_proj_packed_splitk_launch=types.SimpleNamespace(),
+                                 out_proj_packed_tile=tile)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    if refused:
+        with pytest.raises(RuntimeError, match="plan_out_proj assumes"):
+            tflash._out_proj_lib()
+        assert not getattr(fake, "_typed", False)
+    else:
+        assert tflash._out_proj_lib() is fake and fake._typed
+
+
+def test_out_proj_wrappers_run_plain_versions_on_the_cpu_and_count_nothing(rng):
+    reset_launch_counts()
+    o = tt(rng.standard_normal((1, 2, 5, 16), dtype=np.float32))
+    w = tt(rng.standard_normal((2, 16, 8), dtype=np.float32))
+    res = tt(rng.standard_normal((1, 5, 8), dtype=np.float32))
+    ws = tt(rng.standard_normal((2, 1, 5, 8), dtype=np.float32))
+    assert torch.equal(tflash.out_proj_packed(o, w, None, res),
+                       tflash.out_proj_packed_plain(o, w, None, res))
+    assert torch.equal(tflash.out_proj_splitk_reduce(ws, None, res),
+                       tflash.out_proj_splitk_reduce_plain(ws, None, res))
+    assert all(n == 0 for n in launch_counts.values()), launch_counts
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.out_proj_splitk_reduce(ws.to("meta"), None, res.to("meta"))
 
 
 def test_packed_route_transformer_block_matches_jax_flash_route(rng, monkeypatch):
@@ -357,10 +471,18 @@ def test_cuda_flash_attention_stats_matches_plain(rng, shape, lk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,l,d,c,bias", [(2, 8, 256, 40, 320, True),
-                                            (1, 3, 100, 24, 72, False),
-                                            (1, 1, 64, 512, 512, True)])
+@pytest.mark.parametrize("b,h,l,d,c,bias", [
+    *[(*o, c, True) for o, c, _ in PACKED_SHAPES],  # the packed route's calls (splits 1, 1, 3, 1)
+    (2, 8, 256, 40, 320, True),
+    (1, 3, 100, 24, 72, False),   # D = 24, L and C under one tile, no bias
+    (1, 1, 64, 512, 512, True),
+    (2, 4, 300, 80, 200, False),  # ragged L and C tiles
+    (1, 8, 100, 160, 136, True),  # ragged, split in 3, a half box per head
+])
 def test_cuda_out_proj_packed_matches_plain(rng, b, h, l, d, c, bias):
+    """G against its plain version, two calls bitwise equal (the split-K
+    reduction adds in a fixed order), launches as ``out_proj_launches``
+    says; the reduction alone bitwise against its plain version."""
     dev = _cuda_or_skip()
     o = tt(rng.normal(size=(b, h, l, d)), torch.bfloat16).to(dev)
     w = tt(rng.normal(size=(h, d, c)) * (h * d) ** -0.5, torch.bfloat16).to(dev)
@@ -369,8 +491,15 @@ def test_cuda_out_proj_packed_matches_plain(rng, b, h, l, d, c, bias):
     reset_launch_counts()
     got = tflash.out_proj_packed(o, w, bv, res)
     torch.cuda.synchronize()
-    assert launch_counts["out_proj_packed"] == 1
+    assert {k: n for k, n in launch_counts.items() if n} == tflash.out_proj_launches(
+        (b, h, l, d), c)
     _bf16_close(got.cpu(), tflash.out_proj_packed_plain(o, w, bv, res).cpu())
+    assert torch.equal(tflash.out_proj_packed(o, w, bv, res), got)
+    splits = tflash.plan_out_proj(b, h, l, d, c)[1]
+    if splits > 1:
+        ws = torch.randn((splits, b, l, c), device=dev)
+        assert torch.equal(tflash.out_proj_splitk_reduce(ws, bv, res),
+                           tflash.out_proj_splitk_reduce_plain(ws, bv, res))
 
 
 @pytest.mark.gpu
