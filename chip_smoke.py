@@ -115,15 +115,18 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
 # the bf16 image's launches of each wrapper; the slab conv's pre-pass and
-# split-K reduction (conv3x3_slab_prologue, conv3x3_slab_splitk) are added
-# per path from its recorded calls (conv_sub_counts)
+# split-K reduction (conv3x3_slab_prologue, conv3x3_slab_splitk, and the
+# int8 conv's conv3x3_slab_int8_prologue, conv3x3_slab_int8_splitk) are
+# added per path from its recorded calls (conv_sub_counts)
 # and flash attention's key-split merge (flash_attention_merge) likewise from
 # its recorded calls (flash_sub_counts)
 E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_int8": 0,
+              "conv3x3_slab_int8_prologue": 0, "conv3x3_slab_int8_splitk": 0,
               "flash_attention": 226, "flash_attention_stats": 0, "flash_attention_merge": 0,
               "out_proj_packed": 0, "out_proj_packed_splitk": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
-              "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0}
+              "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0, "dot_int8_transpose": 0,
+              "dot_int8_splitk": 0}
 EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
 SMS = 132                 # H100 SXM
 RING = 4                  # shards of the sequence-parallel ring on the one card
@@ -139,6 +142,10 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
                         "sdtpu/kernels/flash_attention.py:267"),
     "conv3x3_slab_int8": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
                           "sdtpu/kernels/conv2d.py:456"),
+    "conv3x3_slab_int8_prologue": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
+                                   "sdtpu/kernels/conv2d.py:456"),
+    "conv3x3_slab_int8_splitk": ("sdtpu_torch/csrc/conv3x3_slab_int8.cu",
+                                 "sdtpu/kernels/conv2d.py:456"),
     "flash_attention_stats": ("sdtpu_torch/csrc/flash_attention.cu",
                               "sdtpu/kernels/flash_attention.py:379"),
     "flash_attention_merge": ("sdtpu_torch/csrc/flash_attention.cu",
@@ -155,12 +162,16 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
     "dot_bf16": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_bf16_splitk": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
+    "dot_int8_transpose": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
+    "dot_int8_splitk": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
 }
 MAIN_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "conv3x3_slab_prologue",
                 "conv3x3_slab_splitk", "flash_attention",
                 "flash_attention_merge")  # launched by the bf16 image
+INT8_KERNELS = ("conv3x3_slab_int8", "conv3x3_slab_int8_prologue",
+                "conv3x3_slab_int8_splitk")  # launched by the int8 image
 PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
-                 "dot_bf16_splitk", "dot_int8")
+                 "dot_bf16_splitk", "dot_int8", "dot_int8_transpose", "dot_int8_splitk")
 
 
 def log(msg: str) -> None:
@@ -426,13 +437,32 @@ def cudnn_call(torch, x, k, bias, kw):
 
 
 def int8_case(torch, gen, x_shape, co, res, stats):
-    """One int8 slab call configuration: check kernel D against its plain
-    version, then time D, the plain version, and the two float
-    counterparts at the same shape (kernel A, cuDNN bf16), which compute a
-    different function.  The codes' scale and zero point come from a
-    GroupNorm affine equal to batch 0's prologue, so they cover the
-    activations as the model's own do."""
-    from sdtpu_torch.kernels.conv2d import conv3x3_slab, conv3x3_slab_plain
+    """One int8 slab call configuration: kernel D against its plain version
+    (within TOL_REL, the share of differing outputs printed), then its
+    pieces: the pre-pass's codes within one code of the plain version's (an
+    ulp of the card's expf may flip a rounding; the zero-point ring exact),
+    the whole call bitwise equal to the plain reduction of the plain GEMM on
+    the card's own codes, and at a split shape the GEMM's int32 partials and
+    the reduction alone bitwise.  Then D timed by CUDA events and by the
+    profiler per piece, its pre-pass and reduction alone, its plain version,
+    and the two float counterparts at the same shape (kernel A, cuDNN bf16),
+    which compute a different function.  The codes' scale and zero point
+    come from a GroupNorm affine equal to batch 0's prologue, so they cover
+    the activations as the model's own do."""
+    from sdtpu_torch.kernels.conv2d import (
+        conv3x3_int8_codes_plain,
+        conv3x3_int8_prologue,
+        conv3x3_int8_reduce_plain,
+        conv3x3_int8_split,
+        conv3x3_int8_split_plain,
+        conv3x3_int8_splitk_reduce,
+        conv3x3_kmajor_plain,
+        conv3x3_slab,
+        conv3x3_slab_plain,
+        plan_conv3x3_int8_split,
+    )
+    from sdtpu_torch.tools import device_ms_by_kernel
+    from sdtpu_torch.tools.ab_slab import int8_pieces
     from sdtpu_torch.utils.quant import act_qparams_from_norm, quantize_conv_w8a8
 
     x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=True, res=res, up=False)
@@ -443,9 +473,10 @@ def int8_case(torch, gen, x_shape, co, res, stats):
     def dev(a):
         return torch.from_numpy(a).to("cuda")
 
-    q, qbias = dev(q), bias - dev(zp)
-    qkw = dict(kw, act_inv_scale=1.0 / dev(s), act_zp=dev(z), w_scale=dev(ws))
-    got = conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw)
+    q, qbias, wsc = dev(q), bias - dev(zp), dev(ws)
+    qkw = dict(kw, act_inv_scale=1.0 / dev(s), act_zp=dev(z), w_scale=wsc)
+    run = functools.partial(conv3x3_slab, x, q, qbias, emit_stats=stats, **qkw)
+    got = run()
     want = conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw)
     torch.cuda.synchronize()
     serr = sref = 0.0
@@ -462,13 +493,61 @@ def int8_case(torch, gen, x_shape, co, res, stats):
         + (" ok" if ok else " FAIL"))
     if not ok:
         raise AssertionError("conv3x3_slab_int8 disagrees with its plain version")
+
+    b, h, w, ci = x_shape
+    pa, pc, qs, qz = kw["prologue_scale"], kw["prologue_bias"], qkw["act_inv_scale"], qkw["act_zp"]
+    r = kw.get("residual")
+    codes = conv3x3_int8_prologue(x, pa, pc, qs, qz)
+    want_codes = conv3x3_int8_codes_plain(x, pa, pc, qs, qz)
+    cdiff = (codes.int() - want_codes.int()).abs()
+    ring = torch.ones((h + 2, w + 2), dtype=torch.bool, device="cuda")
+    ring[1:-1, 1:-1] = False
+    code_err, code_share = int(cdiff.max()), float((cdiff > 0).float().mean())
+    ring_ok = bool(torch.equal(codes[:, ring], want_codes[:, ring]))
+    del cdiff, want_codes
+    wk = conv3x3_kmajor_plain(q)
+    gemm_ok = bool(torch.equal(got, conv3x3_int8_reduce_plain(
+        conv3x3_int8_split_plain(codes, wk, 1), wsc, qbias, r, dtype=torch.bfloat16)))
+    splits = plan_conv3x3_int8_split(b, h, w, ci, co)
+    part_ok = red_ok = True
+    red = None
+    if splits > 1:
+        wsp = conv3x3_int8_split(codes, q, splits)
+        part_ok = bool(torch.equal(wsp, conv3x3_int8_split_plain(codes, wk, splits)))
+        red_run = functools.partial(conv3x3_int8_splitk_reduce, wsp, wsc, qbias, r,
+                                    emit_stats=stats)
+        red_plain = functools.partial(conv3x3_int8_reduce_plain, wsp, wsc, qbias, r,
+                                      emit_stats=stats)
+        g_red, w_red = red_run(), red_plain()
+        red_ok = bool(torch.equal(g_red[0] if stats else g_red, w_red[0] if stats else w_red))
+        red = {"ms": event_ms(red_run, 20), "device_ms": device_ms(red_run, 10),
+               "plain_ms": event_ms(red_plain, 5),
+               "cost": (wsp.numel() * 4 + 2 * co * 4 + b * h * w * co * 2 * (2 if res else 1)
+                        + (b * 2 * co * 4 if stats else 0), 0.0)}
+    ok = code_err <= 1 and code_share <= 1e-3 and ring_ok and gemm_ok and part_ok and red_ok
+    log(f"check conv3x3_slab_int8 pieces x={tuple(x_shape)} co={co} S={splits}: pre-pass codes "
+        f"max |diff| {code_err} code (tol 1), share differing {code_share:.3g} (tol 1e-3), "
+        f"ring == z {ring_ok}; the call == plain reduction of the plain GEMM on the card's "
+        f"codes bitwise {gemm_ok}; split partials bitwise {part_ok}; reduction bitwise {red_ok}"
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("a piece of conv3x3_slab_int8 disagrees with its plain version")
+
     big = x.numel() * co > 2**31
     reps = 5 if big else 20
-    t_k = event_ms(lambda: conv3x3_slab(x, q, qbias, emit_stats=stats, **qkw), reps)
-    t_p = event_ms(lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats, **qkw), 2)
-    t_a = event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw), reps)
-    t_l = event_ms(cudnn_call(torch, x, k, bias, kw), reps)
-    return err, share, t_k, t_p, t_a, t_l
+    by = device_ms_by_kernel(run, 10)
+    pro_run = functools.partial(conv3x3_int8_prologue, x, pa, pc, qs, qz)
+    pro = {"ms": event_ms(pro_run, reps), "device_ms": device_ms(pro_run, 10),
+           "plain_ms": event_ms(lambda: conv3x3_int8_codes_plain(x, pa, pc, qs, qz), 2),
+           "cost": (x.numel() * 2 + codes.numel() + 2 * b * ci * 4 + 2 * ci * 4, 0.0)}
+    return {"err": err, "share": share, "ms": event_ms(run, reps),
+            "plain_ms": event_ms(lambda: conv3x3_slab_plain(x, q, qbias, emit_stats=stats,
+                                                            **qkw), 2),
+            "kernel_A_ms": event_ms(lambda: conv3x3_slab(x, k, bias, emit_stats=stats, **kw),
+                                    reps),
+            "cudnn_ms": event_ms(cudnn_call(torch, x, k, bias, kw), reps),
+            "device": None if by is None else int8_pieces(by), "splits": splits,
+            "code_err": code_err, "code_share": code_share, "prologue": pro, "reduction": red}
 
 
 def time_flash(torch, gen, q_shape, lk):
@@ -619,16 +698,17 @@ def record_main_path_calls(torch, pipe, ids):
 
 
 def conv_sub_counts(conv_calls):
-    """The slab conv's pre-pass and split-K reduction launches per image of
-    a path, from its recorded float slab calls and the split plan."""
-    from sdtpu_torch.kernels.conv2d import conv3x3_launches
+    """The slab convs' pre-pass and split-K reduction launches per image of
+    a path, from its recorded slab calls (float and int8) and the split
+    plans."""
+    from sdtpu_torch.kernels.conv2d import conv3x3_int8_launches, conv3x3_launches
 
-    subs = {"conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0}
+    subs = {"conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0,
+            "conv3x3_slab_int8_prologue": 0, "conv3x3_slab_int8_splitk": 0}
     for (x_shape, co, pro, _res, up, _stats, quant), n in conv_calls.items():
-        if quant:
-            continue
-        for key, v in conv3x3_launches("conv3x3_slab", x_shape, co, prologue=pro,
-                                       upsample=up).items():
+        keys = (conv3x3_int8_launches(x_shape, co) if quant else
+                conv3x3_launches("conv3x3_slab", x_shape, co, prologue=pro, upsample=up))
+        for key, v in keys.items():
             if key in subs:
                 subs[key] += n * v
     return subs
@@ -1138,28 +1218,63 @@ def main() -> int:
     details["quantize_s"] = quant_s
     q_all_calls = record_main_path_calls(torch, pipe_q, ids)
     q_calls = q_all_calls["conv3x3_slab"]
-    # kernel D at every int8 call shape of the int8 path
+    # kernel D at every int8 call shape of the int8 path, with its pieces
     counterparts = {"kernel_A_ms": 0.0, "cudnn_bf16_ms": 0.0}
     d_configs = []
+    d_device = dict.fromkeys(("prologue", "gemm", "reduction", "other"), 0.0)
     for (x_shape, co, pro, res, up, stats, quant), n in sorted(q_calls.items()):
         if not quant:
             continue
-        err, share, t_k, t_p, t_a, t_l = int8_case(torch, gen, x_shape, co, res, stats)
-        errs["conv3x3_slab_int8"] = max(errs.get("conv3x3_slab_int8", 0.0), err)
-        counterparts["kernel_A_ms"] += n * t_a
-        counterparts["cudnn_bf16_ms"] += n * t_l
-        desc = f"x={x_shape} co={co} res={int(res)} st={int(stats)}"
+        c = int8_case(torch, gen, x_shape, co, res, stats)
+        errs["conv3x3_slab_int8"] = max(errs.get("conv3x3_slab_int8", 0.0), c["err"])
+        errs["conv3x3_slab_int8_prologue"] = max(errs.get("conv3x3_slab_int8_prologue", 0.0),
+                                                 float(c["code_err"]))
+        counterparts["kernel_A_ms"] += n * c["kernel_A_ms"]
+        counterparts["cudnn_bf16_ms"] += n * c["cudnn_ms"]
+        desc = f"x={x_shape} co={co} res={int(res)} st={int(stats)} S={c['splits']}"
         cost = int8_conv_cost(x_shape, co, res=res, stats=stats)
-        rows.append(("conv3x3_slab_int8", desc, n, t_k, t_p, None, cost, PEAK_INT8_OPS))
-        d_configs.append({"config": desc, "per_image": n, "ms": t_k, "plain_ms": t_p,
-                          "float_counterpart_kernel_A_ms": t_a,
-                          "float_counterpart_cudnn_bf16_ms": t_l,
-                          "max_abs_err": err, "share_differing": share,
-                          "tops": cost[1] / t_k / 1e9})
+        rows.append(("conv3x3_slab_int8", desc, n, c["ms"], c["plain_ms"], None, cost,
+                     PEAK_INT8_OPS))
+        p = c["prologue"]
+        rows.append(("conv3x3_slab_int8_prologue", f"x={x_shape}", n, p["ms"], p["plain_ms"],
+                     None, p["cost"], PEAK_INT8_OPS))
+        red = c["reduction"]
+        if red is not None:
+            errs["conv3x3_slab_int8_splitk"] = 0.0  # held bitwise in int8_case
+            rows.append(("conv3x3_slab_int8_splitk",
+                         f"ws={(c['splits'],) + tuple(x_shape[:3]) + (co,)} res={int(res)} "
+                         f"st={int(stats)}", n, red["ms"], red["plain_ms"], None, red["cost"],
+                         PEAK_INT8_OPS))
+        if c["device"] is None:
+            d_device = None
+        elif d_device is not None:
+            for key, v in c["device"].items():
+                d_device[key] += n * v
+        d_configs.append({"x": list(x_shape), "co": co, "res": res, "stats": stats,
+                          "per_image": n, "split": c["splits"], "config": desc, "ms": c["ms"],
+                          "plain_ms": c["plain_ms"], "device_ms": c["device"],
+                          "prologue_alone": {k: p[k] for k in ("ms", "device_ms", "plain_ms")},
+                          "reduction_alone": None if red is None else
+                          {k: red[k] for k in ("ms", "device_ms", "plain_ms")},
+                          "float_counterpart_kernel_A_ms": c["kernel_A_ms"],
+                          "float_counterpart_cudnn_bf16_ms": c["cudnn_ms"],
+                          "max_abs_err": c["err"], "share_differing": c["share"],
+                          "code_max_diff": c["code_err"], "code_share_differing": c["code_share"],
+                          "tops": cost[1] / c["ms"] / 1e9})
+        dev_s = ("not measured" if c["device"] is None else
+                 ", ".join(f"{k} {v:.4f}" for k, v in c["device"].items()) + " ms")
+        log(f"device time conv3x3_slab_int8 {desc} (torch.profiler, per call): {dev_s}; "
+            f"pre-pass alone {fmt_ms(p['device_ms'])}"
+            + ("" if red is None else f", reduction alone {fmt_ms(red['device_ms'])}"))
         log(f"float counterparts of conv3x3_slab_int8 {desc} (not the same function): "
-            f"kernel A {t_a:.4f} ms, cuDNN bf16 {t_l:.4f} ms; "
-            f"D {cost[1] / t_k / 1e9:.1f} TOP/s, A {cost[1] / t_a / 1e9:.1f} TFLOP/s, "
-            f"cuDNN {cost[1] / t_l / 1e9:.1f} TFLOP/s")
+            f"kernel A {c['kernel_A_ms']:.4f} ms, cuDNN bf16 {c['cudnn_ms']:.4f} ms; "
+            f"D {cost[1] / c['ms'] / 1e9:.1f} TOP/s, A {cost[1] / c['kernel_A_ms'] / 1e9:.1f} "
+            f"TFLOP/s, cuDNN {cost[1] / c['cudnn_ms'] / 1e9:.1f} TFLOP/s")
+    log("device time conv3x3_slab_int8 per int8 image (torch.profiler): "
+        + ("not measured" if d_device is None else
+           ", ".join(f"{k} {v:.3f}" for k, v in d_device.items())
+           + f" ms; total {sum(d_device.values()):.3f} ms"))
+    details["int8_device_ms_per_image"] = d_device
     details["int8_configs"] = d_configs
     details["configs"] = []
     for name, desc, n, t_k, t_p, t_l, cost, peak in rows:
@@ -1211,6 +1326,9 @@ def main() -> int:
     log(f"int8 expected launches: {q_expected}")
     if q_counts != q_expected:
         raise AssertionError(f"int8 launch counts {q_counts} != expected {q_expected}")
+    idle = [name for name in INT8_KERNELS if q_counts[name] == 0]
+    if idle:
+        raise AssertionError(f"the int8 image launched no {idle}")
     details["int8"] = q_e2e
 
     q32 = {k: to_dtype(pipe_q.params[k], torch.float32) for k in ("unet", "vae_decoder")}
@@ -1271,7 +1389,9 @@ def main() -> int:
         tot = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": {"conv3x3_slab_int8": q_counts, "flash_attention_stats": ring_counts,
+            "launches": {"conv3x3_slab_int8": q_counts, "conv3x3_slab_int8_prologue": q_counts,
+                         "conv3x3_slab_int8_splitk": q_counts,
+                         "flash_attention_stats": ring_counts,
                          "out_proj_packed": packed_counts,
                          "out_proj_packed_splitk": packed_counts}.get(name, counts)[name],
             "max_abs_err": errs[name],
@@ -1284,8 +1404,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(details, f, indent=1)
     log("kernel times are per image: the sum over the main path's calls "
-        "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 are "
-        "the int8 image's, of flash_attention_stats the ring image's, of out_proj_packed "
+        "(count per image x CUDA-event time per call); launches of conv3x3_slab_int8 and its "
+        "pre-pass and reduction are the int8 image's, of flash_attention_stats the ring image's, of out_proj_packed "
         "and out_proj_packed_splitk the packed image's, the others the bf16 image's; for the probe kernels "
         f"{', '.join(PROBE_KERNELS)} the times are sums over phase 9's check calls (one per "
         "shape and variant) and the launches those of their tool's run")
@@ -1420,8 +1540,12 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
     from sdtpu_torch.tools.probe_flash_vpu import legacy_flash, legacy_flash_plain
     from sdtpu_torch.tools.probe_int8_dot import (
         dot_inputs,
+        dot_int8_reduce_plain,
+        dot_int8_split_plain,
+        dot_int8_transpose,
         dot_plain,
         dot_splitk_reduce,
+        dot_transpose_plain,
         make,
         plan_dot,
         splitk_reduce_plain,
@@ -1473,6 +1597,18 @@ def probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts):
             lambda: dot_plain(x8, w8, torch.int32, torch.int32),
             lambda: torch._int_mm(x8, w8), (m * kk + kk * n + 4 * m * n, 2.0 * m * kk * n),
             PEAK_INT8_OPS, exp_rate, exact=True))
+        # J int8's transpose of w and, where its plan splits, its reduction, alone
+        cases["dot_int8_transpose"].append(probe_case(
+            torch, "dot_int8_transpose", f"w=({kk},{n})", lambda: dot_int8_transpose(w8),
+            lambda: dot_transpose_plain(w8), lambda: w8.t().contiguous(), (2 * kk * n, 0.0),
+            PEAK_INT8_OPS, exp_rate, exact=True))
+        splits8 = plan_dot(m, kk, n, True)[1]
+        if splits8 > 1:
+            ws8 = dot_int8_split_plain(x8, w8, splits8)
+            cases["dot_int8_splitk"].append(probe_case(
+                torch, "dot_int8_splitk", f"ws={(splits8, m, n)}", lambda: dot_splitk_reduce(ws8),
+                lambda: dot_int8_reduce_plain(ws8), lambda: ws8.sum(dim=0, dtype=torch.int32),
+                (ws8.numel() * 4 + m * n * 4, 0.0), PEAK_INT8_OPS, exp_rate, exact=True))
         splits = plan_dot(m, kk, n)[1]
         if splits > 1:  # the bf16 call's split-K reduction alone, bitwise
             ws = torch.randn((splits, m, n), generator=gen, device="cuda")

@@ -10,10 +10,10 @@
 // tiled like every other GEMM on the card.
 //
 // What bounds it on the H100: at those shapes 2*m*k*n operations against
-// the bytes of x, w and out are 570 (bf16) to 680 (int8) per byte, above
-// both ridges (~295 op/byte bf16, ~590 int8), so the tensor cores: 989
-// TFLOP/s bf16, 1979 TOP/s int8, of which only wgmma reaches the full bf16
-// rate.  At these sizes (2.7 and 3.4 GFLOP) a call is a few microseconds at
+// the bytes of x, w and out are about 570 per byte in bf16, above its ridge
+// (~295 op/byte), so the tensor cores (989 TFLOP/s, only through wgmma);
+// in int8, whose output is int32, 250 to 445 per byte, under its ridge
+// (~590 at 1979 TOP/s), so the bytes.  At these sizes (2.7 and 3.4 GFLOP) a call is a few microseconds at
 // that rate, so filling the 132 SMs in one wave matters as much as the rate
 // of each SM.
 //
@@ -40,11 +40,20 @@
 // What is left: a persistent grid that overlaps one tile's epilogue with
 // the next one's loads, and a TMA store of the output.
 //
-// The int8 form (dot_int8_launch) keeps the first design: a 128 x 64
-// output tile per 256-thread block (8 warps, each 32 x 32), a 64-byte K
-// step staged through shared memory with synchronous 16-byte loads, w
-// transposed byte by byte into m16n8k32's k-major B layout (ldmatrix.trans
-// moves 16-bit elements only), mma.sync m16n8k32 s8 -> s32.
+// The int8 form (dot_int8_launch) is the same pipeline in int8:
+//   * integer wgmma takes both operands K-major only (transposition is for
+//     16-bit types), so w (K, N) is first transposed to w^T (N, K) by a
+//     launch of its own (dot_int8_transpose_launch: 64 x 64 tiles through
+//     shared memory, 16-byte loads and stores);
+//   * the same plan rule (plan_dot with int8=True): 128 x 128 or 128 x 160
+//     output tiles and a K-split that fills one wave;
+//   * the ring's K step is 128 int8 values, one 128-byte swizzle row: x as a
+//     128 x 128 box, w^T as one 128 x BN box; each consumer warpgroup runs
+//     wgmma.mma_async m64nNk32 s8 -> s32 four times a step, int32
+//     accumulators stored as int32;
+//   * with splits > 1 each block writes its int32 partial sums to ws[s] and
+//     dot_int8_splitk_launch sums them: integer sums are exact in any
+//     order, so every plan gives the same bits.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
@@ -301,6 +310,197 @@ __global__ void __launch_bounds__(256) splitk_reduce_kernel(const float* __restr
   reinterpret_cast<uint4*>(out)[i] = o;
 }
 
+// -------------------------------------------------------------- int8 form --
+
+namespace i8 {
+
+constexpr int BK = 128;              // K values per step: one 128-byte swizzle row of int8
+constexpr int A_BYTES = BM * BK;     // 16 KB: x's 128 x 128 box
+constexpr int N_HALF = 64 * BK;      // 8 KB: 64 rows of w^T, one m64n64 product's B
+
+template <int BN>
+struct Tile {
+  static constexpr int STAGE = A_BYTES + BN * BK;  // + w^T's BN x 128 box; a multiple of 1024
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;  // + alignment + barriers
+  static constexpr int NACC = BN / 2;  // int32 accumulators per consumer thread (64 rows x BN)
+};
+
+// d[O .. O + 32) = A (64 x 32, K-major) . B (32 x 64, K-major) + (acc ? d : 0),
+// both read through 128-byte-swizzled shared-memory descriptors (integer
+// wgmma takes both operands K-major only, and no transpose or scale flags).
+template <int O, int R>
+__device__ __forceinline__ void wgmma_n64(int (&d)[R], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[O + 0]), "+r"(d[O + 1]), "+r"(d[O + 2]), "+r"(d[O + 3]),
+        "+r"(d[O + 4]), "+r"(d[O + 5]), "+r"(d[O + 6]), "+r"(d[O + 7]),
+        "+r"(d[O + 8]), "+r"(d[O + 9]), "+r"(d[O + 10]), "+r"(d[O + 11]),
+        "+r"(d[O + 12]), "+r"(d[O + 13]), "+r"(d[O + 14]), "+r"(d[O + 15]),
+        "+r"(d[O + 16]), "+r"(d[O + 17]), "+r"(d[O + 18]), "+r"(d[O + 19]),
+        "+r"(d[O + 20]), "+r"(d[O + 21]), "+r"(d[O + 22]), "+r"(d[O + 23]),
+        "+r"(d[O + 24]), "+r"(d[O + 25]), "+r"(d[O + 26]), "+r"(d[O + 27]),
+        "+r"(d[O + 28]), "+r"(d[O + 29]), "+r"(d[O + 30]), "+r"(d[O + 31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[O .. O + 16) = A (64 x 32, K-major) . B (32 x 32, K-major) + (acc ? d : 0).
+template <int O, int R>
+__device__ __forceinline__ void wgmma_n32(int (&d)[R], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[O + 0]), "+r"(d[O + 1]), "+r"(d[O + 2]), "+r"(d[O + 3]),
+        "+r"(d[O + 4]), "+r"(d[O + 5]), "+r"(d[O + 6]), "+r"(d[O + 7]),
+        "+r"(d[O + 8]), "+r"(d[O + 9]), "+r"(d[O + 10]), "+r"(d[O + 11]),
+        "+r"(d[O + 12]), "+r"(d[O + 13]), "+r"(d[O + 14]), "+r"(d[O + 15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// grid = (ceil(M / BM), ceil(N / BN), splits); split s takes the K steps
+// [s * KT / splits, (s + 1) * KT / splits) of KT = ceil(K / BK).  SPLIT:
+// writes ws[s] (M, N) int32; else out (M, N) int32.  tx maps x (K inner, M
+// outer) in 128 x 128 boxes, tw maps w^T (K inner, N outer) in 128 x BN
+// boxes, both 128-byte swizzled.
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(NT, 1) gemm_s8_kernel(const __grid_constant__ CUtensorMap tx,
+                                                        const __grid_constant__ CUtensorMap tw,
+                                                        int* __restrict__ out,
+                                                        int* __restrict__ ws, int M, int K,
+                                                        int N) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // swizzle atoms on 1024 bytes
+  const uint32_t full = base + STAGES * T::STAGE;  // full[st] at full + 8 st, then empty[st]
+  const uint32_t empty = full + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int splits = gridDim.z, s = blockIdx.z;
+  const int KT = (K + BK - 1) / BK;
+  const int kb = (int)((long long)s * KT / splits);
+  const int nk = (int)((long long)(s + 1) * KT / splits) - kb;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread keeps up to STAGES steps in flight
+    if (tid == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * st, ((i / STAGES) & 1) ^ 1);
+        const uint32_t a = base + st * T::STAGE, bar = full + 8 * st;
+        const int k0 = (kb + i) * BK;
+        mbar_expect_tx(bar, T::STAGE);
+        tma_load(a, &tx, k0, m0, bar);
+        tma_load(a + A_BYTES, &tw, k0, n0, bar);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup c = wg - 1 owns rows 64 c .. 64 c + 63
+  const int c = wg - 1;
+  // no zeros written: the first product overwrites (scale-d 0)
+  int acc[T::NACC];
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(full + 8 * st, (i / STAGES) & 1);
+    const uint32_t a = base + st * T::STAGE + c * 64 * 128, b = base + st * T::STAGE + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      // 32 more K values are 32 bytes along the swizzled rows of both tiles
+      const uint64_t da = desc_sw128(a + kk * 32);
+      const int add = i > 0 || kk > 0;
+      wgmma_n64<0>(acc, da, desc_sw128(b + kk * 32), add);
+      wgmma_n64<32>(acc, da, desc_sw128(b + N_HALF + kk * 32), add);
+      if constexpr (BN == 160)
+        wgmma_n32<64>(acc, da, desc_sw128(b + 2 * N_HALF + kk * 32), add);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // step i - 1's products are done: release its stage
+    if (i > 0 && (tid & 31) == 0) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < T::NACC; ++j) asm volatile("" : "+r"(acc[j])::"memory");
+
+  // accumulator layout of m64nN: warp w of the group holds rows 16 w + g and
+  // + 8; n8 chunk j of the tile is acc[4 j .. 4 j + 3] at columns 8 j + 2 t, + 1
+  const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  int* dst = SPLIT ? ws + (size_t)s * M * N : out;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= N) continue;  // N % 8 == 0, so col + 1 < N here
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 64 * c + 16 * w + g + 8 * h;
+      if (row < M)
+        *reinterpret_cast<int2*>(dst + (size_t)row * N + col) =
+            make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// out = ws[0] + ... + ws[S-1] (int32, exact in any order), 4 values a thread.
+__global__ void __launch_bounds__(256) splitk_reduce_kernel(const int* __restrict__ ws,
+                                                            int* __restrict__ out, long long n4,
+                                                            int S) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const long long slice = n4 * 4;
+  int4 v = make_int4(0, 0, 0, 0);
+  for (int sl = 0; sl < S; ++sl) {
+    const int4 p = reinterpret_cast<const int4*>(ws + sl * slice)[i];
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  reinterpret_cast<int4*>(out)[i] = v;
+}
+
+// dst (C, R) = src (R, C)^T, int8, in 64 x 64 tiles staged through shared
+// memory: 16-byte loads along src's rows, 16-byte stores along dst's; R and
+// C multiples of 16.
+__global__ void __launch_bounds__(256) transpose_kernel(const int8_t* __restrict__ src,
+                                                        int8_t* __restrict__ dst, int R, int C) {
+  __shared__ __align__(16) int8_t tile[64][80];
+  const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64, tid = threadIdx.x;
+  const int lr = tid >> 2, lc = (tid & 3) * 16;
+  if (r0 + lr < R && c0 + lc < C)
+    *reinterpret_cast<uint4*>(&tile[lr][lc]) =
+        *reinterpret_cast<const uint4*>(src + (size_t)(r0 + lr) * C + c0 + lc);
+  __syncthreads();
+  if (c0 + lr < C && r0 + lc < R) {  // dst row c0 + lr, src rows r0 + lc .. + 15
+    alignas(16) int8_t v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = tile[lc + j][lr];
+    *reinterpret_cast<uint4*>(dst + (size_t)(c0 + lr) * R + r0 + lc) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+}  // namespace i8
+
+// ------------------------------------------------------------------ host --
+
 // cuTensorMapEncodeTiled from the driver, fetched once through the runtime,
 // so that the library needs no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -321,17 +521,20 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 2-D bf16 map of a row-major (rows, cols) tensor in (box_cols, box_rows)
-// boxes, 128-byte swizzled, zeros outside the tensor.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols,
-                   int box_rows) {
+// A 2-D map of a row-major (rows, cols) tensor of bf16 (elem_bytes 2) or
+// int8 (1) in (box_cols, box_rows) boxes, 128-byte swizzled, zeros outside
+// the tensor.
+cudaError_t encode(CUtensorMap* map, const void* ptr, int elem_bytes, int rows, int cols,
+                   int box_cols, int box_rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -344,8 +547,17 @@ cudaError_t encode_maps(CUtensorMap* tx, CUtensorMap* tw, const void* x, const v
                         int K, int N) {
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15)
     return cudaErrorInvalidValue;
-  const cudaError_t e = encode(tx, x, M, K, BK, BM);
-  return e != cudaSuccess ? e : encode(tw, w, K, N, BOX, BK);
+  const cudaError_t e = encode(tx, x, 2, M, K, BK, BM);
+  return e != cudaSuccess ? e : encode(tw, w, 2, K, N, BOX, BK);
+}
+
+// int8: x's map (128 x 128 boxes) and w^T's (128 x bn), both K inner.
+cudaError_t encode_maps_s8(CUtensorMap* tx, CUtensorMap* tw, const void* x, const void* wt, int M,
+                           int K, int N, int bn) {
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) & 15)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = encode(tx, x, 1, M, K, i8::BK, BM);
+  return e != cudaSuccess ? e : encode(tw, wt, 1, N, K, i8::BK, bn);
 }
 
 template <int BN, bool SPLIT>
@@ -375,140 +587,32 @@ cudaError_t by_split(const void* x, const void* w, void* out, void* ws, int M, i
   return launch_gemm<BN, false>(x, w, out, ws, M, K, N, 1, s);
 }
 
-// -------------------------------------------------------------- int8 form --
-
-namespace i8 {
-
-constexpr int BM = 128;  // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int NT = 256;  // 8 warps: 4 along M x 2 along N
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<int8_t> {
-  using Acc = int;
-  static constexpr int KSTEP = 32;  // m16n8k32
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void store2(int* p, int v0, int v1) {
-  *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
-}
-
-template <typename T, typename O>
-__global__ void __launch_bounds__(NT) dot_kernel(const T* __restrict__ x,
-                                                 const T* __restrict__ w,
-                                                 O* __restrict__ out, int M, int K, int N) {
-  using Acc = typename Traits<T>::Acc;
-  constexpr int KSTEP = Traits<T>::KSTEP;
-  constexpr int VE = 16 / sizeof(T);   // values per 16-byte vector
-  constexpr int BK = 64 / sizeof(T);   // K values per step (64 bytes)
-  constexpr int LDS = BK + VE;         // shared row stride (conflict-free frags)
-  constexpr int TE = 4 / sizeof(T);    // values per 32-bit fragment register
-  __shared__ __align__(16) T As[BM * LDS];  // [row][k]
-  __shared__ __align__(16) T Bs[BN * LDS];  // [col][k]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // A loader: rows ar and ar + 64, one 16-byte vector each (4 per row).
-  const int ar = tid >> 2, ac = (tid & 3) * VE;
-  // B loader: one 16-byte vector of w's row bk per thread.
-  constexpr int BVR = BN / VE;  // vectors per w row of the tile
-  const int bk = tid / BVR, bn = (tid % BVR) * VE;
-  const bool bn_ok = n0 + bn < N;
-
-  Acc acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + ar + r * 64;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M) v = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + ac);
-      *reinterpret_cast<uint4*>(&As[(ar + r * 64) * LDS + ac]) = v;
-    }
-    {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (bn_ok) v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + bk) * N + n0 + bn);
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int i = 0; i < VE; ++i) Bs[(bn + i) * LDS + bk] = e[i];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += KSTEP) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int im = 0; im < 2; ++im) {
-        const T* p = &As[(wm * 32 + im * 16 + g) * LDS + kk + TE * t];
-        af[im][0] = ld32(p);
-        af[im][1] = ld32(p + 8 * LDS);
-        af[im][2] = ld32(p + KSTEP / 2);
-        af[im][3] = ld32(p + 8 * LDS + KSTEP / 2);
-      }
-#pragma unroll
-      for (int in = 0; in < 4; ++in) {
-        const T* p = &Bs[(wn * 32 + in * 8 + g) * LDS + kk + TE * t];
-        bf[in][0] = ld32(p);
-        bf[in][1] = ld32(p + KSTEP / 2);
-      }
-#pragma unroll
-      for (int im = 0; im < 2; ++im)
-#pragma unroll
-        for (int in = 0; in < 4; ++in) mma(acc[im][in], af[im], bf[in]);
-    }
-    __syncthreads();
+template <int BN, bool SPLIT>
+cudaError_t launch_gemm_s8(const void* x, const void* wt, void* out, void* ws, int M, int K,
+                           int N, int splits, cudaStream_t s) {
+  static bool attr_set = false;  // one per instance
+  auto kern = i8::gemm_s8_kernel<BN, SPLIT>;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               i8::Tile<BN>::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
   }
-
-#pragma unroll
-  for (int in = 0; in < 4; ++in) {
-    const int col = n0 + wn * 32 + in * 8 + 2 * t;
-    if (col >= N) continue;  // N % VE == 0, so col + 1 < N here
-#pragma unroll
-    for (int im = 0; im < 2; ++im)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + im * 16 + g + h * 8;
-        if (row < M) store2(out + (size_t)row * N + col, acc[im][in][2 * h], acc[im][in][2 * h + 1]);
-      }
-  }
+  CUtensorMap tx, tw;
+  const cudaError_t e = encode_maps_s8(&tx, &tw, x, wt, M, K, N, BN);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  kern<<<grid, NT, i8::Tile<BN>::SMEM, s>>>(tx, tw, static_cast<int*>(out), static_cast<int*>(ws),
+                                           M, K, N);
+  return cudaGetLastError();
 }
 
-template <typename T, typename O>
-int launch(const void* x, const void* w, void* out, int M, int K, int N, void* stream) {
-  constexpr int VE = 16 / sizeof(T), BK = 64 / sizeof(T);
-  if (M <= 0 || K <= 0 || N <= 0 || K % BK || N % VE) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  dot_kernel<T, O><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<O*>(out), M, K, N);
-  return (int)cudaGetLastError();
+template <int BN>
+cudaError_t by_split_s8(const void* x, const void* wt, void* out, void* ws, int M, int K, int N,
+                        int splits, cudaStream_t s) {
+  if (splits > 1) return launch_gemm_s8<BN, true>(x, wt, out, ws, M, K, N, splits, s);
+  return launch_gemm_s8<BN, false>(x, wt, out, ws, M, K, N, 1, s);
 }
-
-}  // namespace i8
 
 }  // namespace
 
@@ -556,9 +660,51 @@ extern "C" int dot_bf16_splitk_launch(const void* ws, void* out, int M, int N, i
   return (int)cudaGetLastError();
 }
 
-// int8 -> int32: x (M, K), w (K, N) int8, out (M, N) int32, row-major and
-// contiguous; K a multiple of 64, N of 16.  Returns a cudaError_t.
-extern "C" int dot_int8_launch(const void* x, const void* w, void* out, int M, int K, int N,
-                               void* stream) {
-  return i8::launch<int8_t, int>(x, w, out, M, K, N, stream);
+// The tiles the int8 kernel runs with, which tools/probe_int8_dot.py:plan_dot
+// must assume: 0 BM, 1 BK, 2 the ring's stages, 3 and 4 the two BN; -1 for
+// another value.
+extern "C" int dot_int8_tile(int which) {
+  const int v[5] = {BM, i8::BK, STAGES, BN_A, BN_B};
+  return which >= 0 && which < 5 ? v[which] : -1;
+}
+
+// wt (N, K) = w (K, N)^T, int8, row-major and contiguous; K and N multiples
+// of 16.  Returns a cudaError_t.
+extern "C" int dot_int8_transpose_launch(const void* w, void* wt, int K, int N, void* stream) {
+  if (K <= 0 || N <= 0 || K % 16 || N % 16 || !w || !wt) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + 63) / 64, (K + 63) / 64);
+  i8::transpose_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(w), static_cast<int8_t*>(wt), K, N);
+  return (int)cudaGetLastError();
+}
+
+// int8 -> int32: x (M, K) and wt (N, K) int8 (w transposed: both K-major),
+// row-major, contiguous and 16-byte aligned; K a multiple of 16, N of 8; bn
+// (128 or 160) and splits (1 .. ceil(K/128)) from the plan.  splits == 1
+// writes out (M, N) int32 and ws must be null; splits > 1 writes only ws
+// (splits, M, N) int32 and out must be null (dot_int8_splitk_launch sums
+// it).  Returns a cudaError_t.
+extern "C" int dot_int8_launch(const void* x, const void* wt, void* out, void* ws, int M, int K,
+                               int N, int bn, int splits, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 16 || N % 8 || splits < 1 ||
+      splits > (K + i8::BK - 1) / i8::BK || (splits > 1) != (ws != nullptr) ||
+      (splits > 1) == (out != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == BN_A) return (int)by_split_s8<BN_A>(x, wt, out, ws, M, K, N, splits, s);
+  if (bn == BN_B) return (int)by_split_s8<BN_B>(x, wt, out, ws, M, K, N, splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (M, N) int32 = the sum over the splits of ws (splits, M, N) int32
+// (exact); M * N a multiple of 4.  Returns a cudaError_t.
+extern "C" int dot_int8_splitk_launch(const void* ws, void* out, int M, int N, int splits,
+                                      void* stream) {
+  const long long n = (long long)M * N;
+  if (M <= 0 || N <= 0 || n % 4 || splits < 1) return (int)cudaErrorInvalidValue;
+  const long long n4 = n / 4;
+  i8::splitk_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ws), static_cast<int*>(out), n4, splits);
+  return (int)cudaGetLastError();
 }

@@ -12,7 +12,11 @@ with the same rounding points.  The float conv is up to three kernels, each
 with its own wrapper, plain version and launch count: the prologue as an
 elementwise pre-pass (``conv3x3_prologue``), the GEMM, and, where
 ``plan_conv3x3_split`` splits the K loop, the fixed-order reduction of the
-slices' float32 partial sums (``conv3x3_splitk_reduce``).  Float kernel:
+slices' float32 partial sums (``conv3x3_splitk_reduce``).  The int8 conv
+has the same three (``conv3x3_int8_prologue`` writing a zero-point-padded
+code map, the GEMM on a K-major copy of the weights kept beside each int8
+weight tensor, ``conv3x3_int8_splitk_reduce`` over int32 partials, split
+by ``plan_conv3x3_int8_split``).  Float kernel:
 
 * the prologue output is rounded to the activation dtype, and the conv's
   zero padding comes AFTER the prologue (a pad pixel is 0, not SiLU(b));
@@ -111,13 +115,22 @@ def splitk_reduce_plain(ws: torch.Tensor, bias=None, residual=None, *,
     return (out, _moments(out)) if emit_stats else out
 
 
-def _conv3x3_int8_plain(x, kernel, conv_bias, a, c, s, z, w_scale, residual, emit_stats):
-    ci = x.shape[-1]
-    z = torch.zeros(ci, device=x.device) if z is None else z.float()
+def _zero_points(act_zp, ci, device) -> torch.Tensor:
+    return torch.zeros(ci, device=device) if act_zp is None else act_zp.float()
+
+
+def _int8_codes(x, a, c, s, z) -> torch.Tensor:
+    """The quantized prologue as float codes: ``clamp(round(silu(x * a + c)
+    * s) + z, -128, 127)`` from the float32 SiLU, half to even."""
     y = x.float() * a.float()[:, None, None, :]
     y = y + c.float()[:, None, None, :]
     y = y * torch.sigmoid(y)
-    q = torch.clamp(torch.round(y * s.float()) + z, -128.0, 127.0)
+    return torch.clamp(torch.round(y * s.float()) + z, -128.0, 127.0)
+
+
+def _conv3x3_int8_plain(x, kernel, conv_bias, a, c, s, z, w_scale, residual, emit_stats):
+    z = _zero_points(z, x.shape[-1], x.device)
+    q = _int8_codes(x, a, c, s, z)
     zc = z.double()[None, :, None, None]
     # the pad holds the zero point: pad q - z with 0, then add z back
     qp = F.pad((q.double().permute(0, 3, 1, 2) - zc), (1, 1, 1, 1)) + zc
@@ -128,6 +141,59 @@ def _conv3x3_int8_plain(x, kernel, conv_bias, a, c, s, z, w_scale, residual, emi
     if residual is not None:
         out = out + residual.float()
     out = out.to(x.dtype)
+    return (out, _moments(out)) if emit_stats else out
+
+
+def conv3x3_int8_codes_plain(x, scale, bias, act_inv_scale, act_zp=None) -> torch.Tensor:
+    """The int8 pre-pass's function: (B, H+2, W+2, Ci) int8 codes, the
+    quantized prologue of x (B, H, W, Ci) inside and the zero point on the
+    one-pixel ring (the pad is the real value 0)."""
+    b, h, w, ci = x.shape
+    z = _zero_points(act_zp, ci, x.device)
+    codes = z.expand(b, h + 2, w + 2, ci).clone()
+    codes[:, 1:-1, 1:-1] = _int8_codes(x, scale, bias, act_inv_scale, z)
+    return codes.to(torch.int8)
+
+
+def conv3x3_kmajor_plain(kernel: torch.Tensor) -> torch.Tensor:
+    """The int8 GEMM's weight layout: HWIO (3, 3, Ci, Co) -> (3, 3, Co, Ci),
+    each output channel's input channels contiguous (K-major)."""
+    return kernel.permute(0, 1, 3, 2).contiguous()
+
+
+def conv3x3_int8_split_plain(codes: torch.Tensor, kernel_kmajor: torch.Tensor,
+                             splits: int) -> torch.Tensor:
+    """The int8 GEMM's function on the padded codes and the K-major weights:
+    (S, B, H, W, Co) int32 partial sums, slice s over K steps [s*KT//S,
+    (s+1)*KT//S) of the flattened K loop (KT = ``int8_k_steps(Ci)``; step k
+    is tap k // ceil(Ci/BK), channels BK * (k % ceil(Ci/BK)) onwards), each
+    an exact integer sum (taken in float64)."""
+    b, hp, wp, ci = codes.shape
+    h, w, co = hp - 2, wp - 2, kernel_kmajor.shape[2]
+    q = codes.double()
+    nch, kt = -(-ci // INT8_BK), int8_k_steps(ci)
+    out = torch.zeros((splits, b, h, w, co), dtype=torch.float64, device=codes.device)
+    for s in range(splits):
+        for k in range(s * kt // splits, (s + 1) * kt // splits):
+            tap, ch = divmod(k, nch)
+            ty, tx = divmod(tap, 3)
+            c0, c1 = ch * INT8_BK, min(ci, ch * INT8_BK + INT8_BK)
+            out[s] += q[:, ty:ty + h, tx:tx + w, c0:c1] @ kernel_kmajor[ty, tx, :, c0:c1].double().T
+    return out.to(torch.int32)
+
+
+def conv3x3_int8_reduce_plain(ws: torch.Tensor, w_scale, bias=None, residual=None, *,
+                              emit_stats: bool = False, dtype=torch.bfloat16):
+    """The int8 reduction's function: the int32 slices of ``ws`` (S, B, H,
+    W, Co) summed exactly, then ``float32(acc) * w_scale``, bias, residual
+    and one rounding to ``dtype`` (the unsplit epilogue's steps); with the
+    moments of the rounded output."""
+    out = ws.sum(dim=0, dtype=torch.int64).double().float() * w_scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    if residual is not None:
+        out = out + residual.float()
+    out = out.to(dtype)
     return (out, _moments(out)) if emit_stats else out
 
 
@@ -165,19 +231,24 @@ def conv3x3_slab_plain(
     return (out, _moments(out)) if emit_stats else out
 
 
-# the GEMM's tiles (``csrc/conv3x3_slab.cu``; ``_lib`` checks the library
-# reports the same) and the split-K plan's limits
+# the GEMMs' tiles (``csrc/conv3x3_slab.cu``, ``csrc/conv3x3_slab_int8.cu``;
+# ``_lib`` checks each library reports the same) and the split-K plan's limits
 SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES = 128, 128, 32, 4
+INT8_BM, INT8_BN, INT8_BK, INT8_STAGES = 128, 128, 64, 4
 SMS = 132                              # H100 SXM
-MIN_SLICE_K_STEPS = 2 * SLAB_STAGES    # K steps a slice keeps: its ring fills twice
+MIN_SLICE_K_STEPS = 2 * SLAB_STAGES    # K steps a slice keeps: its ring fills twice (both GEMMs)
 MAX_SPLITS = 16
 
 # C entry points: (pointer arguments, int arguments) before the stream
 _SIGNATURES = {
     "conv3x3_slab": {"conv3x3_slab_launch": (7, 7), "conv3x3_prologue_launch": (4, 4),
                      "conv3x3_splitk_reduce_launch": (5, 5)},
-    "conv3x3_slab_int8": {"conv3x3_slab_int8_launch": (11, 5)},
+    "conv3x3_slab_int8": {"conv3x3_slab_int8_launch": (8, 6),
+                          "conv3x3_int8_prologue_launch": (6, 4),
+                          "conv3x3_int8_splitk_reduce_launch": (6, 5)},
 }
+_TILES = {"conv3x3_slab": (SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES),
+          "conv3x3_slab_int8": (INT8_BM, INT8_BN, INT8_BK, INT8_STAGES)}
 
 
 def _lib(name: str):
@@ -192,13 +263,13 @@ def _lib(name: str):
         m_tiles = getattr(lib, name + "_m_tiles")
         m_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
         m_tiles.restype = ctypes.c_int
-        if name == "conv3x3_slab":
-            lib.conv3x3_slab_tile.argtypes = [ctypes.c_int]
-            lib.conv3x3_slab_tile.restype = ctypes.c_int
-            tiles = tuple(lib.conv3x3_slab_tile(i) for i in range(4))
-            if tiles != (SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES):
-                raise RuntimeError(f"conv3x3_slab.cu runs tiles (BM, BN, BK, stages) {tiles}, "
-                                   f"the split plan assumes {(SLAB_BM, SLAB_BN, SLAB_BK, SLAB_STAGES)}")
+        tile = getattr(lib, name + "_tile")
+        tile.argtypes = [ctypes.c_int]
+        tile.restype = ctypes.c_int
+        tiles = tuple(tile(i) for i in range(4))
+        if tiles != _TILES[name]:
+            raise RuntimeError(f"{name}.cu runs tiles (BM, BN, BK, stages) {tiles}, "
+                               f"the split plan assumes {_TILES[name]}")
         lib._typed = True
     return lib
 
@@ -208,23 +279,39 @@ def slab_k_steps(ci: int) -> int:
     return 9 * -(-ci // SLAB_BK)
 
 
+def int8_k_steps(ci: int) -> int:
+    """The int8 GEMM's K steps: 9 taps x ceil(Ci / INT8_BK) channel chunks."""
+    return 9 * -(-ci // INT8_BK)
+
+
 def slab_blocks(b: int, h: int, w: int, co: int) -> int:
-    """Blocks of one unsplit GEMM launch over an H x W output map."""
+    """Blocks of one unsplit GEMM launch over an H x W output map (the
+    float and the int8 GEMM have the same BM x BN tile)."""
     return -(-(h * w) // SLAB_BM) * -(-co // SLAB_BN) * b
 
 
-def plan_conv3x3_split(b: int, h: int, w: int, ci: int, co: int) -> int:
-    """S, the slices of the K loop for a conv with an H x W OUTPUT map: the
-    smallest S whose grid of S x ``slab_blocks`` blocks is at least one
+def _plan_split(blocks: int, k_steps: int) -> int:
+    """The smallest S whose grid of S x ``blocks`` blocks is at least one
     block per SM (one full wave), capped so that each slice keeps at least
     ``MIN_SLICE_K_STEPS`` K steps (and at ``MAX_SPLITS``); 1 where the grid
     is full already."""
-    blocks = slab_blocks(b, h, w, co)
-    cap = max(1, min(MAX_SPLITS, slab_k_steps(ci) // MIN_SLICE_K_STEPS))
+    cap = max(1, min(MAX_SPLITS, k_steps // MIN_SLICE_K_STEPS))
     splits = 1
     while blocks * splits < SMS and splits < cap:
         splits += 1
     return splits
+
+
+def plan_conv3x3_split(b: int, h: int, w: int, ci: int, co: int) -> int:
+    """S, the slices of the float GEMM's K loop for a conv with an H x W
+    OUTPUT map (see :func:`_plan_split`)."""
+    return _plan_split(slab_blocks(b, h, w, co), slab_k_steps(ci))
+
+
+def plan_conv3x3_int8_split(b: int, h: int, w: int, ci: int, co: int) -> int:
+    """S, the slices of the int8 GEMM's K loop (64-channel steps) for a conv
+    with an H x W output map (see :func:`_plan_split`)."""
+    return _plan_split(slab_blocks(b, h, w, co), int8_k_steps(ci))
 
 
 def conv3x3_launches(key: str, x_shape, co: int, *, prologue: bool = False,
@@ -240,6 +327,17 @@ def conv3x3_launches(key: str, x_shape, co: int, *, prologue: bool = False,
         keys["conv3x3_slab_prologue"] = 1
     if plan_conv3x3_split(b, h, w, ci, co) > 1:
         keys["conv3x3_slab_splitk"] = 1
+    return keys
+
+
+def conv3x3_int8_launches(x_shape, co: int) -> dict:
+    """The launch counters one call of the int8 conv adds one to on the
+    card: the GEMM (``conv3x3_slab_int8``), its pre-pass, and the split-K
+    reduction where ``plan_conv3x3_int8_split`` gives S > 1."""
+    b, h, w, ci = x_shape
+    keys = {"conv3x3_slab_int8": 1, "conv3x3_slab_int8_prologue": 1}
+    if plan_conv3x3_int8_split(b, h, w, ci, co) > 1:
+        keys["conv3x3_slab_int8_splitk"] = 1
     return keys
 
 
@@ -319,21 +417,12 @@ def conv3x3_slab(
         return _slab_gemm(x, kernel, bias, residual, upsample=upsample, emit_stats=emit_stats,
                           key="conv3x3_slab_upsample" if upsample else "conv3x3_slab",
                           stream=stream)
-    lib = _lib("conv3x3_slab_int8")
-    out = torch.empty((b, h, w, co), device=dev, dtype=torch.bfloat16)
-    part = None
-    if emit_stats:
-        part = torch.empty((b, lib.conv3x3_slab_int8_m_tiles(h, w), 2, co),
-                           device=dev, dtype=torch.float32)
     qs = f32(act_inv_scale, "act_inv_scale", (ci,))
     qz = f32(torch.zeros(ci, device=dev) if act_zp is None else act_zp, "act_zp", (ci,))
     ws = f32(w_scale, "w_scale", (co,))
-    err = lib.conv3x3_slab_int8_launch(
-        _ptr(x), _ptr(kernel), _ptr(bias), _ptr(pa), _ptr(pc), _ptr(qs), _ptr(qz), _ptr(ws),
-        _ptr(residual), _ptr(out), _ptr(part), b, h, w, ci, co, _stream(x))
-    _build.check(err, "conv3x3_slab_int8")
-    launch_counts["conv3x3_slab_int8"] += 1
-    return (out, _tile_moments(part, h, w)) if emit_stats else out
+    stream = _stream(x)
+    codes = _int8_prologue_launch(x, pa, pc, qs, qz, stream)
+    return _int8_gemm(codes, kernel, bias, ws, residual, emit_stats, stream)
 
 
 def _ptr(t):
@@ -446,6 +535,155 @@ def _splitk_launch(ws, bias, residual, emit_stats, stream):
     _build.check(err, "conv3x3_splitk_reduce")
     launch_counts["conv3x3_slab_splitk"] += 1
     return (out, _tile_moments(part, h, w)) if emit_stats else out
+
+
+# -- the int8 conv's pieces on the card --------------------------------------
+
+
+def _kmajor(kernel: torch.Tensor) -> torch.Tensor:
+    """The K-major copy (``conv3x3_kmajor_plain``) of an int8 weight that
+    the int8 GEMM reads: made on the weight's device once and kept on the
+    weight tensor itself (outside the parameter tree), remade if the tensor
+    was written in place since (an inference tensor keeps no version
+    counter: its copy is never remade)."""
+    try:
+        version = kernel._version
+    except RuntimeError:  # an inference tensor keeps no version counter
+        version = None
+    cached = getattr(kernel, "_sdtpu_kmajor", None)
+    if cached is None or cached[0] != version:
+        cached = (version, conv3x3_kmajor_plain(kernel))
+        kernel._sdtpu_kmajor = cached
+    return cached[1]
+
+
+def _int8_prologue_launch(x, pa, pc, qs, qz, stream):
+    """The int8 pre-pass on the card; the caller has checked every tensor."""
+    b, h, w, ci = x.shape
+    codes = torch.empty((b, h + 2, w + 2, ci), device=x.device, dtype=torch.int8)
+    err = _lib("conv3x3_slab_int8").conv3x3_int8_prologue_launch(
+        _ptr(x), _ptr(pa), _ptr(pc), _ptr(qs), _ptr(qz), _ptr(codes), b, h, w, ci, stream)
+    _build.check(err, "conv3x3_int8_prologue")
+    launch_counts["conv3x3_slab_int8_prologue"] += 1
+    return codes
+
+
+def _int8_gemm_launch(codes, kernel, splits, stream, *, bias=None, wsc=None, residual=None,
+                      out=None, part=None, ws=None):
+    b, hp, wp, ci = codes.shape
+    co = kernel.shape[-1]
+    err = _lib("conv3x3_slab_int8").conv3x3_slab_int8_launch(
+        _ptr(codes), _ptr(_kmajor(kernel)), _ptr(bias), _ptr(wsc), _ptr(residual), _ptr(out),
+        _ptr(part), _ptr(ws), b, hp - 2, wp - 2, ci, co, splits, stream)
+    _build.check(err, "conv3x3_slab_int8")
+    launch_counts["conv3x3_slab_int8"] += 1
+
+
+def _int8_gemm(codes, kernel, bias, wsc, residual, emit_stats, stream):
+    """The int8 GEMM on the card (on the padded codes), with the split-K
+    reduction where the plan splits; the caller has checked every tensor.
+    Returns out, or (out, moments)."""
+    b, hp, wp, ci = codes.shape
+    h, w, co = hp - 2, wp - 2, kernel.shape[-1]
+    splits = plan_conv3x3_int8_split(b, h, w, ci, co)
+    if splits > 1:
+        ws = torch.empty((splits, b, h, w, co), device=codes.device, dtype=torch.int32)
+        _int8_gemm_launch(codes, kernel, splits, stream, ws=ws)
+        return _int8_splitk_launch(ws, wsc, bias, residual, emit_stats, stream)
+    out = torch.empty((b, h, w, co), device=codes.device, dtype=torch.bfloat16)
+    part = None
+    if emit_stats:
+        part = torch.empty((b, _lib("conv3x3_slab_int8").conv3x3_slab_int8_m_tiles(h, w), 2, co),
+                           device=codes.device, dtype=torch.float32)
+    _int8_gemm_launch(codes, kernel, 1, stream, bias=bias, wsc=wsc, residual=residual, out=out,
+                      part=part)
+    return (out, _tile_moments(part, h, w)) if emit_stats else out
+
+
+def _int8_splitk_launch(ws, wsc, bias, residual, emit_stats, stream):
+    """The int8 split-K reduction on the card; the caller has checked every
+    tensor.  Returns out, or (out, moments)."""
+    splits, b, h, w, co = ws.shape
+    lib = _lib("conv3x3_slab_int8")
+    out = torch.empty((b, h, w, co), device=ws.device, dtype=torch.bfloat16)
+    part = None
+    if emit_stats:
+        part = torch.empty((b, lib.conv3x3_slab_int8_m_tiles(h, w), 2, co), device=ws.device,
+                           dtype=torch.float32)
+    err = lib.conv3x3_int8_splitk_reduce_launch(_ptr(ws), _ptr(bias), _ptr(wsc), _ptr(residual),
+                                                _ptr(out), _ptr(part), b, h, w, co, splits,
+                                                stream)
+    _build.check(err, "conv3x3_int8_splitk_reduce")
+    launch_counts["conv3x3_slab_int8_splitk"] += 1
+    return (out, _tile_moments(part, h, w)) if emit_stats else out
+
+
+def conv3x3_int8_prologue(x, scale, bias, act_inv_scale, act_zp=None) -> torch.Tensor:
+    """The int8 pre-pass: the padded (B, H+2, W+2, Ci) int8 codes of
+    :func:`conv3x3_int8_codes_plain`.  On the card x must be contiguous
+    bf16 with Ci a multiple of 16; scale and bias (B, Ci), act_inv_scale and
+    act_zp (Ci,) float32."""
+    if x.device.type == "cpu":
+        return conv3x3_int8_codes_plain(x, scale, bias, act_inv_scale, act_zp)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_int8_prologue: unsupported device {x.device}")
+    b, h, w, ci = x.shape
+    what = "conv3x3_int8_prologue"
+    if ci % 16:
+        raise ValueError(f"{what}: Ci={ci} must be a multiple of 16")
+    _expect(x, "x", (b, h, w, ci), torch.bfloat16, x.device, what)
+    for t, name, shape in ((scale, "scale", (b, ci)), (bias, "bias", (b, ci)),
+                           (act_inv_scale, "act_inv_scale", (ci,))):
+        _expect(t, name, shape, torch.float32, x.device, what)
+    qz = torch.zeros(ci, device=x.device) if act_zp is None else act_zp
+    _expect(qz, "act_zp", (ci,), torch.float32, x.device, what)
+    return _int8_prologue_launch(x, scale, bias, act_inv_scale, qz, _stream(x))
+
+
+def conv3x3_int8_split(codes: torch.Tensor, kernel: torch.Tensor, splits: int) -> torch.Tensor:
+    """The int8 GEMM alone in its split form: (S, B, H, W, Co) int32
+    partial sums of :func:`conv3x3_int8_split_plain` from the padded codes
+    and the HWIO int8 kernel (its K-major copy made once).  On the card S
+    is 2 up to the K steps, codes and kernel contiguous int8, Ci a multiple
+    of 16 and Co of 8."""
+    if codes.device.type == "cpu":
+        return conv3x3_int8_split_plain(codes, conv3x3_kmajor_plain(kernel), splits)
+    if codes.device.type != "cuda":
+        raise ValueError(f"conv3x3_int8_split: unsupported device {codes.device}")
+    b, hp, wp, ci = codes.shape
+    co = kernel.shape[-1]
+    what = "conv3x3_int8_split"
+    if ci % 16 or co % 8 or not 2 <= splits <= int8_k_steps(ci):
+        raise ValueError(f"{what}: Ci={ci} (a multiple of 16), Co={co} (of 8), "
+                         f"splits={splits} (2 .. {int8_k_steps(ci)})")
+    _expect(codes, "codes", (b, hp, wp, ci), torch.int8, codes.device, what)
+    _expect(kernel, "kernel", (3, 3, ci, co), torch.int8, codes.device, what)
+    ws = torch.empty((splits, b, hp - 2, wp - 2, co), device=codes.device, dtype=torch.int32)
+    _int8_gemm_launch(codes, kernel, splits, _stream(codes), ws=ws)
+    return ws
+
+
+def conv3x3_int8_splitk_reduce(ws: torch.Tensor, w_scale, bias, residual=None, *,
+                               emit_stats: bool = False):
+    """The int8 split-K reduction: ``bf16(float(sum_s ws[s]) * w_scale +
+    bias + residual)`` (see :func:`conv3x3_int8_reduce_plain`);
+    ``emit_stats=True`` adds the (B, 2, Co) moments.  ws (S, B, H, W, Co)
+    int32, w_scale and bias (Co,) float32, residual (B, H, W, Co) bf16; on
+    the card Co a multiple of 8 and every tensor contiguous."""
+    if ws.device.type == "cpu":
+        return conv3x3_int8_reduce_plain(ws, w_scale, bias, residual, emit_stats=emit_stats)
+    if ws.device.type != "cuda":
+        raise ValueError(f"conv3x3_int8_splitk_reduce: unsupported device {ws.device}")
+    splits, b, h, w, co = ws.shape
+    what, dev = "conv3x3_int8_splitk_reduce", ws.device
+    if co % 8:
+        raise ValueError(f"{what}: Co={co} must be a multiple of 8")
+    _expect(ws, "ws", (splits, b, h, w, co), torch.int32, dev, what)
+    _expect(w_scale, "w_scale", (co,), torch.float32, dev, what)
+    _expect(bias, "bias", (co,), torch.float32, dev, what)
+    if residual is not None:
+        _expect(residual, "residual", (b, h, w, co), torch.bfloat16, dev, what)
+    return _int8_splitk_launch(ws, w_scale, bias, residual, emit_stats, _stream(ws))
 
 
 def gn_silu_conv3x3_slab(

@@ -65,11 +65,11 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 10):
+def device_ms_by_kernel(fn, reps: int = 10):
     """The kernels' own device time per call under torch.profiler (CUDA
-    activity only) over ``reps`` calls: for each kernel name its mean
-    recorded duration times its launches per call (its record count over
-    ``reps``, rounded, at least 1), summed.  The mean, not the total over
+    activity only) over ``reps`` calls, by kernel name: for each name its
+    mean recorded duration times its launches per call (its record count
+    over ``reps``, rounded, at least 1).  The mean, not the total over
     ``reps``, because the profiler does not record every launch on the
     card.  A second window is taken if the first records no device time;
     None if neither does."""
@@ -82,11 +82,17 @@ def device_ms(fn, reps: int = 10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-                 for e in prof.key_averages() if e.count and e.self_device_time_total > 0)
-        if us > 0:
-            return us / 1e3
+        by = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / reps)) / 1e3
+              for e in prof.key_averages() if e.count and e.self_device_time_total > 0}
+        if by:
+            return by
     return None
+
+
+def device_ms(fn, reps: int = 10):
+    """The sum over the kernels of :func:`device_ms_by_kernel`, or None."""
+    by = device_ms_by_kernel(fn, reps)
+    return None if by is None else sum(by.values())
 
 
 def run_variants(label: str, variants, ops: float, peak: float, chain: int, calls: Counter):

@@ -14,16 +14,21 @@ at ``probe_flash_vpu.SHAPES`` (the probe's legacy / shipped ratio), I
 ``CARD_VARIANTS`` entry (each on the largest Lq the variant takes, as phase
 9 runs it) and its ``1q`` at ``probe_flash_vpu.SHAPES`` (1q / shipped), and J
 (``probe_int8_dot.make``) bf16 -> f32 -> bf16 and int8 -> int32 at
-``probe_int8_dot.SHAPES``; each with CUDA events (``reps`` back-to-back
+``probe_int8_dot.SHAPES``, J int8 also without its transpose of w
+(``dot_int8_kmajor`` on a w transposed beforehand, "J int8 K-major") and
+the transpose alone ("J int8 transpose"; a tree without these two rows'
+functions records nan); each with CUDA events (``reps`` back-to-back
 calls after a warm-up; below about 0.15 ms a call they time the host's
 enqueue) and by the profiler's device time (``tools.device_ms``).  Give a
 tree twice, in turns (old, new, new, old), to see the spread.  This
 process times the library beside them the same two ways: SDPA for H, C and
-I, ``torch.matmul`` for J bf16, ``torch._int_mm`` for J int8.  It prints, per
+I, ``torch.matmul`` for J bf16, ``torch._int_mm`` for J int8 (both rows),
+``w.t().contiguous()`` for the transpose.  It prints, per
 row, every run's ms (events; device), the library's, the bound and
 T(FL)OP/s by device time, then per run: H summed over phase 9's shapes, H/C
 by device time at the probe's shapes, I summed over phase 9's 12 checks, I's
-1q/C at the probe's shapes, J bf16 and J int8 summed; and the
+1q/C at the probe's shapes, J bf16, J int8, J int8 K-major and the
+transpose summed; and the
 host's cost per call of building J bf16's two TMA tensor maps in this tree
 (``dot_bf16_tensor_maps``, host clock over ``100 * reps`` builds).  Without
 a card it exits non-zero.
@@ -61,13 +66,17 @@ def rows(probe_flash_vpu, probe_int8_dot):
     out += [("C", s) for s in probe]
     out += [("I", s) for s in PHASE9_I + [i_shape(*p, 1, 64) for p in probe
                                           if i_shape(*p, 1, 64) not in PHASE9_I]]
-    out += [(kind, s) for kind in ("J bf16", "J int8") for s in probe_int8_dot.SHAPES]
+    out += [(kind, s) for kind in J_KINDS for s in probe_int8_dot.SHAPES]
     return out
+
+
+J_KINDS = ("J bf16", "J int8", "J int8 K-major", "J int8 transpose")
 
 
 def calls(torch, kind, shape, mods, lib):
     """A function of no arguments running ``kind`` at ``shape`` (this tree's
-    wrapper, or with ``lib`` the library's call) on seeded inputs."""
+    wrapper, or with ``lib`` the library's call) on seeded inputs; None if
+    this tree has no such wrapper."""
     vpu, dot, flash, two = mods
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kind == "I":
@@ -90,8 +99,15 @@ def calls(torch, kind, shape, mods, lib):
             return lambda: torch.matmul(x16, w16)
         f = dot.make(m, kk, n, torch.bfloat16, torch.float32, torch.bfloat16)
         return lambda: f(x16, w16)
+    if kind == "J int8 transpose":
+        if lib:
+            return lambda: w8.t().contiguous()
+        return (lambda: dot.dot_int8_transpose(w8)) if hasattr(dot, "dot_int8_transpose") else None
     if lib:
         return lambda: torch._int_mm(x8, w8)
+    if kind == "J int8 K-major":
+        wt = w8.t().contiguous()
+        return (lambda: dot.dot_int8_kmajor(x8, wt)) if hasattr(dot, "dot_int8_kmajor") else None
     f = dot.make(m, kk, n, torch.int8, torch.int32, torch.int32)
     return lambda: f(x8, w8)
 
@@ -115,9 +131,9 @@ def worker(tree: str, reps: int) -> None:
     ms, dev = [], []
     for kind, shape in rows(mods[0], mods[1]):
         fn = calls(torch, kind, shape, mods, lib=False)
-        ms.append(event_ms(fn, reps))
-        d = device_ms(fn, reps)
-        dev.append(float("nan") if d is None else d)  # nan: not measured
+        d = None if fn is None else device_ms(fn, reps)
+        ms.append(float("nan") if fn is None else event_ms(fn, reps))
+        dev.append(float("nan") if d is None else d)  # nan: not measured or no such wrapper
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"package": os.path.dirname(sdtpu_torch.__file__), "ms": ms,
@@ -171,10 +187,12 @@ def main(argv=None) -> int:
         else:
             m, k, n = shape
             ops = 2.0 * m * k * n
-            int8 = kind == "J int8"
+            int8 = kind.startswith("J int8")
             nbytes = (m * k + k * n + 4 * m * n) if int8 else 2 * (m * k + k * n + m * n)
-            bound = max(ops / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS), nbytes / 3.35e12)
             lib_name = "torch._int_mm" if int8 else "torch.matmul"
+            if kind == "J int8 transpose":
+                ops, nbytes, lib_name = 0.0, 2 * k * n, "w.t().contiguous()"
+            bound = max(ops / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS), nbytes / 3.35e12)
         bound *= 1e3
         times = ", ".join(f"run {r} {run['ms'][i]:.4f}; {run['device_ms'][i]:.4f}"
                           for r, run in enumerate(runs))
@@ -207,7 +225,7 @@ def main(argv=None) -> int:
             s["H_over_C_device"] = [dev(by[("H", p)]) / dev(by[("C", p)]) for p in probe]
             s["I_1q_over_C_device"] = [dev(by[("I", i_shape(*p, 1, 64))]) / dev(by[("C", p)])
                                        for p in probe]
-        for kind in ("J bf16", "J int8"):
+        for kind in J_KINDS:
             js = [row for row in table if row["kernel"] == kind]
             s[f"{kind} device_ms"] = sum(dev(row) for row in js)
             s[f"{kind} ms"] = sum(evt(row) for row in js)

@@ -8,10 +8,12 @@ bf16, int8 inputs accumulate in int32 and return int32, exact.  Both
 variants take the same integer-valued inputs (int8 values, exact in bf16),
 so max |delta| of int8 against bf16 is bf16's rounding alone.
 
-On the card the bf16 form takes its output tile and its split of the K
-loop from ``plan_dot``; a split call adds the fixed-order reduction
-(``dot_bf16_splitk``, counted on its own; ``dot_launches`` derives a call's
-launches).
+On the card both forms take their output tile and their split of the K
+loop from ``plan_dot``; a split call adds the reduction (``dot_bf16_splitk``
+in a fixed order, ``dot_int8_splitk`` exact), counted on its own.  The
+int8 form first transposes w to (n, k) (``dot_int8_transpose``, counted on
+its own): the card's integer ``wgmma`` reads both operands K-major.
+``dot_launches`` derives a call's launches.
 
     python -m sdtpu_torch.tools.probe_int8_dot [chain]    (default 2000)
 """
@@ -50,6 +52,10 @@ DOT_STAGES = 4          # TMA ring depth
 DOT_BNS = (128, 160)    # output columns per block, the plan's two choices
 DOT_MIN_SPLIT = 2 * DOT_STAGES  # K steps a split keeps, at least
 DOT_MAX_SPLITS = 16
+# The int8 kernel: the same BM, ring and BNs, 128-value K steps; a split
+# keeps at least the bf16 form's K depth (512 values)
+DOT_I8_BK = 128
+DOT_I8_MIN_SPLIT = DOT_MIN_SPLIT * DOT_BK // DOT_I8_BK
 
 
 def dot_plain(x: torch.Tensor, w: torch.Tensor, acc_t, out_dtype) -> torch.Tensor:
@@ -63,11 +69,12 @@ def dot_plain(x: torch.Tensor, w: torch.Tensor, acc_t, out_dtype) -> torch.Tenso
 
 
 @functools.lru_cache(maxsize=64)  # a call's host time sits at the enqueue floor
-def plan_dot(m: int, k: int, n: int) -> tuple:
-    """``(bn, splits)`` for one bf16 call of kernel J, (m, k) @ (k, n): the
-    output tile is ``DOT_BM`` x bn and the K loop of ``ceil(k / DOT_BK)``
-    steps is split over ``splits`` blocks.  Among bn in ``DOT_BNS`` and the
-    splits that keep at least ``DOT_MIN_SPLIT`` steps each (at most
+def plan_dot(m: int, k: int, n: int, int8: bool = False) -> tuple:
+    """``(bn, splits)`` for one call of kernel J, (m, k) @ (k, n): the
+    output tile is ``DOT_BM`` x bn and the K loop of ``ceil(k / bk)`` steps
+    (bk ``DOT_BK``, or ``DOT_I8_BK`` for ``int8``) is split over ``splits``
+    blocks.  Among bn in ``DOT_BNS`` and the splits that keep at least
+    ``DOT_MIN_SPLIT`` (int8: ``DOT_I8_MIN_SPLIT``) steps each (at most
     ``DOT_MAX_SPLITS``), the one with the least ``waves * steps per block *
     bn`` (waves of one block per SM; a block's step costs in proportion to
     bn), then the fewest splits, then the wider tile.  Raises on a shape the
@@ -75,8 +82,9 @@ def plan_dot(m: int, k: int, n: int) -> tuple:
     if min(m, k, n) <= 0 or k % 32 or n % 8:
         raise ValueError(f"plan_dot: no plan for m={m} k={k} n={n} (k a multiple of 32, n of "
                          "8; sizes positive)")
-    steps = -(-k // DOT_BK)
-    cap = max(1, min(DOT_MAX_SPLITS, steps // DOT_MIN_SPLIT))
+    bk, min_split = (DOT_I8_BK, DOT_I8_MIN_SPLIT) if int8 else (DOT_BK, DOT_MIN_SPLIT)
+    steps = -(-k // bk)
+    cap = max(1, min(DOT_MAX_SPLITS, steps // min_split))
     best = None
     for bn in DOT_BNS:
         tiles = -(-m // DOT_BM) * -(-n // bn)
@@ -90,13 +98,15 @@ def plan_dot(m: int, k: int, n: int) -> tuple:
 
 def dot_launches(m: int, k: int, n: int, in_dtype) -> dict:
     """The launch counters one call of ``make(m, k, n, in_dtype, ...)``
-    adds one to on the card: its own, and for bf16 the split-K reduction
-    where ``plan_dot`` splits."""
-    if in_dtype == torch.int8:
-        return {"dot_int8": 1}
-    keys = {"dot_bf16": 1}
-    if plan_dot(m, k, n)[1] > 1:
-        keys["dot_bf16_splitk"] = 1
+    adds one to on the card: its own, the split-K reduction where
+    ``plan_dot`` splits, and for int8 the transpose of w."""
+    int8 = in_dtype == torch.int8
+    key = "dot_int8" if int8 else "dot_bf16"
+    keys = {key: 1}
+    if int8:
+        keys["dot_int8_transpose"] = 1
+    if plan_dot(m, k, n, int8)[1] > 1:
+        keys[key + "_splitk"] = 1
     return keys
 
 
@@ -123,46 +133,130 @@ def dot_splitk_plain(x: torch.Tensor, w: torch.Tensor, splits: int) -> torch.Ten
     return splitk_reduce_plain(ws)
 
 
+def dot_int8_split_plain(x: torch.Tensor, w: torch.Tensor, splits: int) -> torch.Tensor:
+    """The int8 card kernel's split partials: (splits, m, n) int32, split s
+    over the K steps ``[s * T // splits, (s + 1) * T // splits)`` of T =
+    ceil(k / ``DOT_I8_BK``), each an exact integer sum."""
+    k = x.shape[1]
+    steps = -(-k // DOT_I8_BK)
+    bounds = [min(k, s * steps // splits * DOT_I8_BK) for s in range(splits + 1)]
+    return torch.stack([dot_plain(x[:, a:b], w[a:b], torch.int32, torch.int32)
+                        for a, b in zip(bounds, bounds[1:])])
+
+
+def dot_int8_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
+    """The int8 split-K reduction's function: the sum over ws (S, m, n)
+    int32, exact (the int32 result fits)."""
+    return ws.sum(dim=0, dtype=torch.int64).to(torch.int32)
+
+
+def dot_transpose_plain(w: torch.Tensor) -> torch.Tensor:
+    """The int8 form's transpose: w (k, n) -> (n, k), contiguous."""
+    return w.t().contiguous()
+
+
 def _lib():
     lib = _build.load("dot")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dot_bf16_launch.argtypes = [p] * 4 + [i] * 5 + [p]
-        lib.dot_bf16_launch.restype = i
-        lib.dot_bf16_splitk_launch.argtypes = [p] * 2 + [i] * 3 + [p]
-        lib.dot_bf16_splitk_launch.restype = i
-        lib.dot_int8_launch.argtypes = [p] * 3 + [i] * 3 + [p]
-        lib.dot_int8_launch.restype = i
-        lib.dot_bf16_tile.argtypes = [i]
-        lib.dot_bf16_tile.restype = i
+        for fn in (lib.dot_bf16_launch, lib.dot_int8_launch):
+            fn.argtypes = [p] * 4 + [i] * 5 + [p]
+            fn.restype = i
+        for fn in (lib.dot_bf16_splitk_launch, lib.dot_int8_splitk_launch):
+            fn.argtypes = [p] * 2 + [i] * 3 + [p]
+            fn.restype = i
+        lib.dot_int8_transpose_launch.argtypes = [p] * 2 + [i] * 2 + [p]
+        lib.dot_int8_transpose_launch.restype = i
         lib.dot_bf16_tensor_maps.argtypes = [p] * 2 + [i] * 3
         lib.dot_bf16_tensor_maps.restype = i
-        tiles = tuple(lib.dot_bf16_tile(j) for j in range(5))
-        want = (DOT_BM, DOT_BK, DOT_STAGES, *DOT_BNS)
-        if tiles != want:
-            raise RuntimeError(f"dot.cu runs tiles (BM, BK, STAGES, BN_A, BN_B) {tiles}, "
-                               f"plan_dot assumes {want}")
+        for form, bk in (("bf16", DOT_BK), ("int8", DOT_I8_BK)):
+            tile = getattr(lib, f"dot_{form}_tile")
+            tile.argtypes = [i]
+            tile.restype = i
+            tiles = tuple(tile(j) for j in range(5))
+            want = (DOT_BM, bk, DOT_STAGES, *DOT_BNS)
+            if tiles != want:
+                raise RuntimeError(f"dot.cu runs {form} tiles (BM, BK, STAGES, BN_A, BN_B) "
+                                   f"{tiles}, plan_dot assumes {want}")
         lib._typed = True
     return lib
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def dot_splitk_reduce(ws: torch.Tensor) -> torch.Tensor:
-    """The split-K reduction alone: ws (S, m, n) float32 -> (m, n) bf16 as
-    ``splitk_reduce_plain``.  On the card: ws contiguous, m * n a multiple
-    of 8."""
+    """A split-K reduction alone: ws (S, m, n) float32 -> (m, n) bf16 as
+    ``splitk_reduce_plain``, or int32 -> int32 as ``dot_int8_reduce_plain``.
+    On the card: ws contiguous, m * n a multiple of 8."""
+    int8 = ws.dtype == torch.int32
+    key = "dot_int8_splitk" if int8 else "dot_bf16_splitk"
     if ws.device.type == "cpu":
-        return splitk_reduce_plain(ws)
+        return dot_int8_reduce_plain(ws) if int8 else splitk_reduce_plain(ws)
     if ws.device.type != "cuda":
-        raise ValueError(f"dot_bf16_splitk: unsupported device {ws.device}")
-    if ws.dtype != torch.float32 or ws.dim() != 3 or not ws.is_contiguous():
-        raise ValueError("dot_bf16_splitk: ws must be contiguous float32 (S, m, n)")
+        raise ValueError(f"{key}: unsupported device {ws.device}")
+    if ws.dtype not in (torch.float32, torch.int32) or ws.dim() != 3 or not ws.is_contiguous():
+        raise ValueError(f"{key}: ws must be contiguous float32 or int32 (S, m, n)")
     splits, m, n = ws.shape
-    out = torch.empty((m, n), device=ws.device, dtype=torch.bfloat16)
-    err = _lib().dot_bf16_splitk_launch(ws.data_ptr(), out.data_ptr(), m, n, splits,
-                                        torch.cuda.current_stream(ws.device).cuda_stream)
-    _build.check(err, "dot_bf16_splitk")
-    launch_counts["dot_bf16_splitk"] += 1
+    out = torch.empty((m, n), device=ws.device, dtype=torch.int32 if int8 else torch.bfloat16)
+    launch = _lib().dot_int8_splitk_launch if int8 else _lib().dot_bf16_splitk_launch
+    err = launch(ws.data_ptr(), out.data_ptr(), m, n, splits, _stream(ws))
+    _build.check(err, key)
+    launch_counts[key] += 1
     return out
+
+
+def dot_int8_transpose(w: torch.Tensor) -> torch.Tensor:
+    """The int8 form's transpose alone: w (k, n) int8 -> (n, k) as
+    ``dot_transpose_plain``.  On the card w contiguous, k and n multiples of
+    16."""
+    if w.device.type == "cpu":
+        return dot_transpose_plain(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"dot_int8_transpose: unsupported device {w.device}")
+    if w.dtype != torch.int8 or w.dim() != 2 or not w.is_contiguous() or w.shape[0] % 16 \
+            or w.shape[1] % 16:
+        raise ValueError("dot_int8_transpose: w must be contiguous int8 (k, n), k and n "
+                         "multiples of 16")
+    k, n = w.shape
+    wt = torch.empty((n, k), device=w.device, dtype=torch.int8)
+    err = _lib().dot_int8_transpose_launch(w.data_ptr(), wt.data_ptr(), k, n, _stream(w))
+    _build.check(err, "dot_int8_transpose")
+    launch_counts["dot_int8_transpose"] += 1
+    return wt
+
+
+def dot_int8_kmajor(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """J int8 on an already transposed w: x (m, k) and wt (n, k) int8 ->
+    (m, n) int32 = x @ wt.T, exact, with ``plan_dot``'s tile and splits (a
+    split call adds ``dot_int8_splitk``).  On the card both contiguous, k a
+    multiple of 64 and n of 16."""
+    (m, k), n = x.shape, wt.shape[0]
+    if wt.dtype != torch.int8 or x.dtype != torch.int8 or tuple(wt.shape) != (n, k) \
+            or wt.device != x.device:
+        raise ValueError(f"dot_int8: x (m, k) and wt (n, k) must be int8 on one device, got "
+                         f"{x.dtype} {tuple(x.shape)} and {wt.dtype} {tuple(wt.shape)}")
+    if x.device.type == "cpu":
+        return dot_plain(x, wt.t(), torch.int32, torch.int32)
+    if x.device.type != "cuda":
+        raise ValueError(f"dot_int8: unsupported device {x.device}")
+    if k % 64 or n % 16:
+        raise ValueError(f"dot_int8: k={k} must be a multiple of 64 and n={n} of 16")
+    if not (x.is_contiguous() and wt.is_contiguous()):
+        raise ValueError("dot_int8: x and wt must be contiguous")
+    bn, splits = plan_dot(m, k, n, True)
+    out = ws = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), device=x.device, dtype=torch.int32)
+    else:
+        out = torch.empty((m, n), device=x.device, dtype=torch.int32)
+    err = _lib().dot_int8_launch(x.data_ptr(), wt.data_ptr(), None if out is None else
+                                 out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
+                                 bn, splits, _stream(x))
+    _build.check(err, "dot_int8")
+    launch_counts["dot_int8"] += 1
+    return out if ws is None else dot_splitk_reduce(ws)
 
 
 def make(m: int, k: int, n: int, in_dtype, acc_t, out_dtype):
@@ -170,7 +264,8 @@ def make(m: int, k: int, n: int, in_dtype, acc_t, out_dtype):
     ``out_dtype``, accumulated in ``acc_t``.  The forms taken are bf16 ->
     float32 -> bf16 and int8 -> int32 -> int32.  On the card x and w must be
     contiguous, k a multiple of 32 (bf16) or 64 (int8) and n of 8 or 16;
-    the bf16 form runs ``plan_dot``'s tile and splits."""
+    both forms run ``plan_dot``'s tile and splits, the int8 form after
+    ``dot_int8_transpose``."""
     form = (in_dtype, acc_t, out_dtype)
     if form not in _FORMS:
         raise ValueError(f"make: (in, acc, out) = {form} is not one of {list(_FORMS)}")
@@ -190,22 +285,17 @@ def make(m: int, k: int, n: int, in_dtype, acc_t, out_dtype):
                              f"{n_mult}")
         if not (x.is_contiguous() and w.is_contiguous()):
             raise ValueError(f"{key}: x and w must be contiguous")
-        lib, stream = _lib(), torch.cuda.current_stream(x.device).cuda_stream
         if in_dtype == torch.int8:
-            out = torch.empty((m, n), device=x.device, dtype=out_dtype)
-            err = lib.dot_int8_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, stream)
-            _build.check(err, key)
-            launch_counts[key] += 1
-            return out
+            return dot_int8_kmajor(x, dot_int8_transpose(w))
         bn, splits = plan_dot(m, k, n)
         out = ws = None
         if splits > 1:
             ws = torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
         else:
             out = torch.empty((m, n), device=x.device, dtype=out_dtype)
-        err = lib.dot_bf16_launch(x.data_ptr(), w.data_ptr(), None if out is None else
-                                  out.data_ptr(), None if ws is None else ws.data_ptr(), m, k,
-                                  n, bn, splits, stream)
+        err = _lib().dot_bf16_launch(x.data_ptr(), w.data_ptr(), None if out is None else
+                                     out.data_ptr(), None if ws is None else ws.data_ptr(), m,
+                                     k, n, bn, splits, _stream(x))
         _build.check(err, key)
         launch_counts[key] += 1
         return out if ws is None else dot_splitk_reduce(ws)
@@ -237,7 +327,8 @@ def main(argv=None) -> Counter:
         r16 = run_variants(label, [("bf16->f32", dot_launches(m, k, n, torch.bfloat16),
                                     lambda: f16(x16, w16))], ops,
                            PEAK_BF16_FLOPS, chain, calls)["bf16->f32"]
-        r8 = run_variants(label, [("int8->i32", "dot_int8", lambda: f8(x8, w8))], ops,
+        r8 = run_variants(label, [("int8->i32", dot_launches(m, k, n, torch.int8),
+                                   lambda: f8(x8, w8))], ops,
                           PEAK_INT8_OPS, chain, calls)["int8->i32"]
         drift = float((r8[2].double() - r16[2].double()).abs().max())
         dev = "" if r8[1] is None or r16[1] is None else f", device {r16[1] / r8[1]:.3f}x"

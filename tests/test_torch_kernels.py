@@ -320,6 +320,48 @@ def test_split_plan_examples():
     assert tconv.plan_conv3x3_split(1, 4, 4, 8, 8) == 1      # 9 K steps: no split
 
 
+# kernel D's calls on the int8 image: every resnet conv of the main path
+INT8_MAIN_PATH_CONVS = [(x, co) for x, co, up in MAIN_PATH_CONVS if not up]
+
+
+@pytest.mark.parametrize("x_shape,co", INT8_MAIN_PATH_CONVS)
+def test_int8_split_plan_fills_one_wave_on_the_main_path(x_shape, co):
+    """D's plan on its 64-channel K steps, at every int8 resnet conv: at
+    least one block per SM or S at its cap, S = 1 where the unsplit grid is
+    full, and each slice keeps at least MIN_SLICE_K_STEPS steps; the
+    reduction's launch key follows S."""
+    b, h, w, ci = x_shape
+    splits = tconv.plan_conv3x3_int8_split(b, h, w, ci, co)
+    blocks = tconv.slab_blocks(b, h, w, co)
+    k_steps = tconv.int8_k_steps(ci)
+    cap = min(tconv.MAX_SPLITS, k_steps // tconv.MIN_SLICE_K_STEPS)
+    assert 1 <= splits <= k_steps
+    assert splits * blocks >= tconv.SMS or splits == cap
+    if blocks >= tconv.SMS:
+        assert splits == 1
+    else:
+        assert (splits - 1) * blocks < tconv.SMS
+    if splits > 1:
+        assert k_steps // splits >= tconv.MIN_SLICE_K_STEPS
+    keys = tconv.conv3x3_int8_launches(x_shape, co)
+    assert keys == {"conv3x3_slab_int8": 1, "conv3x3_slab_int8_prologue": 1,
+                    **({"conv3x3_slab_int8_splitk": 1} if splits > 1 else {})}
+
+
+def test_int8_split_plan_examples():
+    """D's tiles are A's (128 x 128), its K step 64 channels: the UNet's
+    16x16 maps split in four, its 32x32 maps and the VAE's 64x64 map
+    (128 blocks) in two; a 64x64 map at batch 2 is full; a short K caps S."""
+    assert (tconv.INT8_BM, tconv.INT8_BN, tconv.INT8_BK) == (128, 128, 64)
+    assert tconv.plan_conv3x3_int8_split(2, 16, 16, 1280, 1280) == 4
+    assert tconv.plan_conv3x3_int8_split(2, 16, 16, 2560, 1280) == 4
+    assert tconv.plan_conv3x3_int8_split(2, 32, 32, 640, 640) == 2
+    assert tconv.plan_conv3x3_int8_split(1, 64, 64, 512, 512) == 2
+    assert tconv.plan_conv3x3_int8_split(2, 64, 64, 320, 320) == 1
+    assert tconv.plan_conv3x3_int8_split(1, 12, 20, 96, 72) == 2   # 18 K steps: cap 2
+    assert tconv.plan_conv3x3_int8_split(1, 4, 4, 32, 8) == 1      # 9 K steps: no split
+
+
 @pytest.mark.parametrize("up", [False, True])
 def test_prepass_then_plain_conv_equals_the_prologue_conv_bitwise(rng, up):
     """The rounding point did not move: the pre-pass rounds SiLU(x*a + c)
@@ -397,14 +439,25 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
     for g, w in zip(tflash.flash_attention_merge(ws, 1, 3, 168, 2, stats=True),
                     tflash.flash_merge_plain(ws, 1, 3, 168, 2)):
         np.testing.assert_array_equal(nn(g.float()), nn(w.float()))
+    xb = x.to(torch.bfloat16)
+    s = tt(rng.uniform(5.0, 20.0, 8))
+    codes = tconv.conv3x3_int8_prologue(xb, a, a, s)
+    assert torch.equal(codes, tconv.conv3x3_int8_codes_plain(xb, a, a, s))
+    k8 = torch.ones((3, 3, 8, 8), dtype=torch.int8)
+    parts = tconv.conv3x3_int8_split(codes, k8, 2)
+    assert torch.equal(parts, tconv.conv3x3_int8_split_plain(codes, tconv.conv3x3_kmajor_plain(k8),
+                                                             2))
+    assert torch.equal(tconv.conv3x3_int8_splitk_reduce(parts, s, s),
+                       tconv.conv3x3_int8_reduce_plain(parts, s, s))
     assert launch_counts == {"conv3x3_slab": 0, "conv3x3_slab_upsample": 0,
                              "conv3x3_slab_prologue": 0, "conv3x3_slab_splitk": 0,
-                             "conv3x3_slab_int8": 0, "flash_attention": 0,
+                             "conv3x3_slab_int8": 0, "conv3x3_slab_int8_prologue": 0,
+                             "conv3x3_slab_int8_splitk": 0, "flash_attention": 0,
                              "flash_attention_stats": 0, "flash_attention_merge": 0,
                              "out_proj_packed": 0, "out_proj_packed_splitk": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
                              "flash_attention_nq": 0, "dot_bf16": 0, "dot_bf16_splitk": 0,
-                             "dot_int8": 0}
+                             "dot_int8": 0, "dot_int8_transpose": 0, "dot_int8_splitk": 0}
 
 
 def test_wrappers_raise_on_other_devices():

@@ -201,10 +201,11 @@ def test_cuda_txt2img_runs_through_the_kernels():
     reset_launch_counts()
     img = pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=1, image_size=64)
     assert img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
-    others = ("conv3x3_slab_int8", "flash_attention_stats", "out_proj_packed",
+    others = ("conv3x3_slab_int8", "conv3x3_slab_int8_prologue", "conv3x3_slab_int8_splitk",
+              "flash_attention_stats", "out_proj_packed",
               "out_proj_packed_splitk", "conv3x3_gemm",
               "flash_attention_legacy", "flash_attention_nq", "dot_bf16", "dot_bf16_splitk",
-              "dot_int8",
+              "dot_int8", "dot_int8_transpose", "dot_int8_splitk",
               "flash_attention_merge")  # the merge runs only at head dims above 160
     assert all(launch_counts[k] == 0 for k in others), launch_counts
     assert all(n > 0 for k, n in launch_counts.items() if k not in others), launch_counts

@@ -327,7 +327,44 @@ def test_plan_dot_fills_the_card_at_the_probe_shapes(shape, plan):
     assert k // tdot.DOT_BK // splits >= tdot.DOT_MIN_SPLIT
     assert tdot.dot_launches(m, k, n, torch.bfloat16) == (
         {"dot_bf16": 1, "dot_bf16_splitk": 1} if splits > 1 else {"dot_bf16": 1})
-    assert tdot.dot_launches(m, k, n, torch.int8) == {"dot_int8": 1}
+    i8_splits = tdot.plan_dot(m, k, n, True)[1]
+    assert tdot.dot_launches(m, k, n, torch.int8) == {
+        "dot_int8": 1, "dot_int8_transpose": 1, **({"dot_int8_splitk": 1} if i8_splits > 1 else {})}
+
+
+@pytest.mark.parametrize("shape,plan", [((1024, 2560, 512), (128, 4)),
+                                        ((4096, 640, 640), (160, 1))])
+def test_plan_dot_int8_fills_the_card_at_the_probe_shapes(shape, plan):
+    """J int8's plan on 128-value K steps: the same tiles as bf16 and one
+    wave over 128 of the 132 SMs; each split keeps at least
+    DOT_I8_MIN_SPLIT steps (512 K values, bf16's depth), so (4096, 640,
+    640), 5 steps, does not split."""
+    m, k, n = shape
+    bn, splits = tdot.plan_dot(m, k, n, True)
+    assert (bn, splits) == plan
+    blocks = -(-m // tdot.DOT_BM) * -(-n // bn) * splits
+    assert 0.95 * tdot.SMS <= blocks <= tdot.SMS
+    assert -(-k // tdot.DOT_I8_BK) // splits >= tdot.DOT_I8_MIN_SPLIT or splits == 1
+    assert tdot.DOT_I8_MIN_SPLIT * tdot.DOT_I8_BK == tdot.DOT_MIN_SPLIT * tdot.DOT_BK
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(1024, 2560, 512, 4), (100, 640, 48, 3),
+                                          (64, 192, 16, 2)])
+def test_dot_int8_split_partials_sum_to_dot_plain(rng, m, k, n, splits):
+    """J int8's split partials (128-value K steps, ragged last split) and
+    the exact reduction equal ``dot_plain`` bitwise; the K-major route
+    (w transposed once) equals ``make``'s."""
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    want = tdot.dot_plain(x, w, torch.int32, torch.int32)
+    ws = tdot.dot_int8_split_plain(x, w, splits)
+    assert ws.dtype == torch.int32 and tuple(ws.shape) == (splits, m, n)
+    assert torch.equal(tdot.dot_int8_reduce_plain(ws), want)
+    assert torch.equal(tdot.dot_splitk_reduce(ws), want)
+    wt = tdot.dot_int8_transpose(w)
+    assert tuple(wt.shape) == (n, k) and wt.is_contiguous() and torch.equal(wt, w.T)
+    assert torch.equal(tdot.dot_transpose_plain(w), wt)
+    assert torch.equal(tdot.dot_int8_kmajor(x, wt), want)
 
 
 @pytest.mark.parametrize("m,k,n", [(64, 48, 64), (64, 64, 60), (0, 64, 64), (64, 64, 0)])
@@ -377,6 +414,21 @@ def test_tool_exits_non_zero_without_a_card(tool):
     assert "ms/call" not in proc.stdout
 
 
+def test_ab_slab_splits_kernel_d_by_kernel_name():
+    """``ab_slab`` (and ``chip_smoke.py`` phase 8) split D's device time by
+    the names of its CUDA kernels; a one-kernel D counts as the GEMM and the
+    wrapper's torch work as ``other``."""
+    from sdtpu_torch.tools.ab_slab import int8_pieces
+
+    names = {"void (anonymous namespace)::quantize_kernel(...)": 1.0,
+             "void (anonymous namespace)::conv3x3_int8_kernel<true, false, false>(...)": 2.0,
+             "void (anonymous namespace)::int8_splitk_reduce_kernel<false, true>(...)": 0.5,
+             "void at::native::reduce_kernel<...>(...)": 0.25}
+    assert int8_pieces(names) == {"prologue": 1.0, "gemm": 2.0, "reduction": 0.5,
+                                  "other": 0.25}
+    assert int8_pieces({"conv3x3_int8_kernel<true, true>": 3.0})["gemm"] == 3.0
+
+
 def test_probe_wrappers_run_plain_versions_on_the_cpu_and_count_nothing(rng):
     reset_launch_counts()
     x = tt(rng.standard_normal((1, 8, 8, 64)))
@@ -394,6 +446,10 @@ def test_probe_wrappers_run_plain_versions_on_the_cpu_and_count_nothing(rng):
     assert torch.equal(got, torch.full((8, 8), 64, dtype=torch.bfloat16))
     ws = tt(rng.standard_normal((4, 8, 8)))
     assert torch.equal(tdot.dot_splitk_reduce(ws), tdot.splitk_reduce_plain(ws))
+    wi = torch.from_numpy(rng.integers(-128, 128, (64, 16), dtype=np.int8))
+    assert torch.equal(tdot.dot_int8_transpose(wi), tdot.dot_transpose_plain(wi))
+    assert torch.equal(tdot.dot_int8_kmajor(xi, wi.T.contiguous()),
+                       tdot.dot_plain(xi, wi, torch.int32, torch.int32))
     assert all(n == 0 for n in launch_counts.values()), launch_counts
 
 
@@ -539,7 +595,8 @@ def test_cuda_dot_matches_plain(m, k, n):
         f8 = tdot.make(m, k, n, torch.int8, torch.int32, torch.int32)
         reset_launch_counts()
         assert torch.equal(f8(x8, w8), tdot.dot_plain(x8, w8, torch.int32, torch.int32))
-        assert {key: c for key, c in launch_counts.items() if c} == {"dot_int8": 1}
+        assert {key: c for key, c in launch_counts.items() if c} == tdot.dot_launches(
+            m, k, n, torch.int8)
 
 
 @pytest.mark.gpu
@@ -571,4 +628,31 @@ def test_cuda_tool_launches_its_kernels_once_per_call():
     calls = tdot.main(["2"])
     torch.cuda.synchronize()
     assert {n: c for n, c in launch_counts.items() if c} == dict(calls)
-    assert set(calls) == {"dot_bf16", "dot_bf16_splitk", "dot_int8"}
+    assert set(calls) == {"dot_bf16", "dot_bf16_splitk", "dot_int8", "dot_int8_transpose",
+                          "dot_int8_splitk"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1024, 2560, 512), (4096, 640, 640), (100, 640, 48),
+                                   (130, 2560, 208)])
+def test_cuda_dot_int8_pieces_match_plain(m, k, n):
+    """J int8's pieces on the card, each bitwise against its plain version:
+    the transpose (``dot_int8_transpose``), the GEMM on the K-major w
+    (``dot_int8`` and, where the plan splits, ``dot_int8_splitk``), and the
+    reduction alone on int32 partials."""
+    _cuda_or_skip()
+    x8, w8, _, _ = tdot.dot_inputs(m, k, n)
+    reset_launch_counts()
+    wt = tdot.dot_int8_transpose(w8)
+    torch.cuda.synchronize()
+    assert launch_counts["dot_int8_transpose"] == 1
+    assert torch.equal(wt, tdot.dot_transpose_plain(w8))
+    reset_launch_counts()
+    got = tdot.dot_int8_kmajor(x8, wt)
+    torch.cuda.synchronize()
+    splits = tdot.plan_dot(m, k, n, True)[1]
+    assert {key: c for key, c in launch_counts.items() if c} == (
+        {"dot_int8": 1, "dot_int8_splitk": 1} if splits > 1 else {"dot_int8": 1})
+    assert torch.equal(got, tdot.dot_plain(x8, w8, torch.int32, torch.int32))
+    ws = tdot.dot_int8_split_plain(x8, w8, 3)
+    assert torch.equal(tdot.dot_splitk_reduce(ws), tdot.dot_int8_reduce_plain(ws))

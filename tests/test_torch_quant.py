@@ -333,6 +333,127 @@ def test_int8_slab_rejects_what_it_does_not_take():
         tconv.conv3x3_slab(x, k, prologue_scale=v[None], prologue_bias=v[None])
 
 
+# ------------------------------------------- kernel D's pieces (plain) --
+
+def _int8_pieces(x, kernel, conv_bias=None, *, prologue_scale, prologue_bias, residual=None,
+                 emit_stats=False, act_inv_scale, act_zp=None, w_scale, splits, **_):
+    """Kernel D as the card runs it, from the plain versions of its pieces:
+    the padded codes, the int32 split partials of the flattened K loop on
+    the K-major weights, and the reduction's exact sum and epilogue."""
+    codes = tconv.conv3x3_int8_codes_plain(x, prologue_scale, prologue_bias, act_inv_scale,
+                                           act_zp)
+    ws = tconv.conv3x3_int8_split_plain(codes, tconv.conv3x3_kmajor_plain(kernel), splits)
+    return tconv.conv3x3_int8_reduce_plain(ws, w_scale, conv_bias, residual,
+                                           emit_stats=emit_stats, dtype=x.dtype)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,splits,residual,stats", [
+    (1, 8, 8, 64, 64, 1, False, False),
+    (2, 12, 20, 96, 72, 2, True, True),    # 240 pixels: a ragged M tile; a ragged Ci chunk
+    (1, 5, 7, 32, 40, 3, True, False),     # Co not a multiple of 64
+    (2, 16, 9, 128, 16, 5, False, True),
+    (1, 3, 3, 64, 8, 9, True, True),       # one K step a split
+])
+def test_int8_pieces_compose_to_the_plain_conv_bitwise(rng, b, h, w, ci, co, splits, residual,
+                                                       stats):
+    """The padded code map, the int32 split partials and the reduction,
+    composed, equal ``_conv3x3_int8_plain`` (the float64 conv with the
+    zero-point pad) bitwise, output and moments, for any split: integer
+    partial sums are exact in any order and the epilogue rounds at the
+    same points.  Zero points are nonzero, so the border taps read z."""
+    x = tt(rng.normal(size=(b, h, w, ci)) * 1.5, torch.bfloat16)
+    kw = dict(prologue_scale=tt(rng.uniform(0.5, 1.5, (b, ci))),
+              prologue_bias=tt(rng.normal(size=(b, ci))),
+              act_inv_scale=tt(rng.uniform(5.0, 40.0, ci)),
+              act_zp=tt(rng.integers(-110, 60, ci)), w_scale=tt(rng.uniform(1e-4, 1e-3, co)),
+              emit_stats=stats)
+    if residual:
+        kw["residual"] = tt(rng.normal(size=(b, h, w, co)), torch.bfloat16)
+    k = torch.from_numpy(rng.integers(-127, 128, (3, 3, ci, co)).astype(np.int8))
+    bias = tt(rng.normal(size=co))
+    want = tconv.conv3x3_slab_plain(x, k, bias, **kw)
+    got = _int8_pieces(x, k, bias, splits=splits, **kw)
+    ws = tconv.conv3x3_int8_split_plain(
+        tconv.conv3x3_int8_codes_plain(x, kw["prologue_scale"], kw["prologue_bias"],
+                                       kw["act_inv_scale"], kw["act_zp"]),
+        tconv.conv3x3_kmajor_plain(k), splits)
+    assert ws.dtype == torch.int32 and tuple(ws.shape) == (splits, b, h, w, co)
+    if stats:
+        (got, got_st), (want, want_st) = got, want
+        assert torch.equal(got_st, want_st)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,co,temb,residual,emit,splits", [
+    (1, 64, False, False, False, 1),
+    (2, 64, True, True, True, 3),
+    (2, 40, True, False, True, 2),     # Co not a multiple of 64
+])
+def test_int8_pieces_match_pallas_interpret(rng, monkeypatch, b, co, temb, residual, emit,
+                                            splits):
+    """The composition of D's pieces under ``gn_silu_conv3x3_slab`` against
+    the JAX int8 slab kernel in interpret mode, with the tolerance of
+    ``test_int8_slab_plain_matches_pallas_interpret``."""
+    hw, ci, g = 8, 64, 8
+    c = _int8_slab_case(rng, b, hw, ci, co, g)
+    opt_t, opt_j = {}, {}
+    if temb:
+        t = rng.normal(size=(b, ci)).astype(np.float32)
+        opt_t["temb"], opt_j["temb"] = tt(t), jnp.asarray(t)
+    if residual:
+        r = rng.normal(size=(b, hw, hw, co)).astype(np.float32)
+        opt_t["residual"], opt_j["residual"] = tt(r), jnp.asarray(r)
+    monkeypatch.setattr(tconv, "conv3x3_slab", functools.partial(_int8_pieces, splits=splits))
+    got = tconv.gn_silu_conv3x3_slab(
+        tt(c["x"]), {k: tt(v) for k, v in c["norm"].items()},
+        torch.from_numpy(c["q"]), tt(c["cb"]), num_groups=g, emit_stats=emit,
+        act_inv_scale=1.0 / tt(c["s_act"]), act_zp=tt(c["z_act"]), w_scale=tt(c["w_scale"]),
+        **opt_t)
+    want = jconv.gn_silu_conv3x3_slab(
+        jnp.asarray(c["x"]), c["norm"], jnp.asarray(c["q"]), jnp.asarray(c["cb"]),
+        num_groups=g, emit_stats=emit, act_inv_scale=1.0 / jnp.asarray(c["s_act"]),
+        act_zp=jnp.asarray(c["z_act"]), w_scale=jnp.asarray(c["w_scale"]),
+        h_tile=8, co_tile=64, interpret=True, **opt_j)
+    if emit:
+        (got, got_st), (want, want_st) = got, want
+        np.testing.assert_allclose(nn(got_st), nn(want_st), rtol=1e-3, atol=1e-3)
+    _assert_int8_close(got, want, c["w_scale"])
+
+
+def test_int8_codes_ring_holds_the_zero_point(rng):
+    """The pre-pass's padded map: the one-pixel ring is z (the real value
+    0), the inside the codes of the quantized prologue, half to even."""
+    b, h, w, ci = 2, 3, 5, 32
+    x = tt(rng.normal(size=(b, h, w, ci)), torch.bfloat16)
+    a, c = tt(rng.uniform(0.5, 1.5, (b, ci))), tt(rng.normal(size=(b, ci)))
+    s, z = tt(rng.uniform(5.0, 40.0, ci)), tt(rng.integers(-110, 60, ci))
+    codes = tconv.conv3x3_int8_prologue(x, a, c, s, z)
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (b, h + 2, w + 2, ci)
+    ring = torch.ones((h + 2, w + 2), dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    assert torch.equal(codes[:, ring].float(), z.expand(b, int(ring.sum()), ci))
+    y = x.float() * a[:, None, None] + c[:, None, None]
+    want = torch.clamp(torch.round(y * torch.sigmoid(y) * s) + z, -128, 127)
+    assert torch.equal(codes[:, 1:-1, 1:-1].float(), want)
+    zero = tconv.conv3x3_int8_prologue(x, a, c, s)  # no zero point: the ring is 0
+    assert not zero[:, ring].any()
+
+
+def test_int8_kmajor_copy_is_made_once_per_weight(rng):
+    """D's K-major weights, (3, 3, Co, Ci): the permuted copy, made on
+    first use, kept on the weight tensor (the parameter tree is untouched),
+    and made again after the weight is written in place."""
+    k = torch.from_numpy(rng.integers(-127, 128, (3, 3, 32, 24)).astype(np.int8))
+    wk = tconv._kmajor(k)
+    assert tuple(wk.shape) == (3, 3, 24, 32) and wk.is_contiguous()
+    assert torch.equal(wk, tconv.conv3x3_kmajor_plain(k))
+    assert torch.equal(wk[1, 2], k[1, 2].T)
+    assert tconv._kmajor(k) is wk
+    k[0, 0, 0, 0] = 5
+    again = tconv._kmajor(k)
+    assert again is not wk and int(again[0, 0, 0, 0]) == 5
+
+
 # ----------------------------------------------------- quantized resnets --
 
 @pytest.fixture
@@ -671,3 +792,62 @@ def test_cuda_int8_txt2img_runs_through_kernel_d():
     img = pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=1, image_size=64)
     assert img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
     assert launch_counts["conv3x3_slab_int8"] > 0, launch_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,co,res,stats", [
+    ((2, 16, 16, 1280), 1280, True, True),  # S = 4: the int32 reduction
+    ((1, 12, 20, 96), 72, False, True),     # unsplit; ragged M, Ci chunk and N tile
+    ((2, 32, 32, 640), 640, True, False),   # S = 2
+])
+def test_cuda_int8_pieces_match_plain(rng, x_shape, co, res, stats):
+    """Kernel D's pieces on the card: the pre-pass's codes within one code
+    of the plain version's (an ulp of the card's expf may flip a rounding),
+    the ring exactly z; the split GEMM's int32 partials and the reduction
+    bitwise against their plain versions on the same inputs; the whole
+    call bitwise equal to the plain reduction of the plain GEMM on the
+    card's own codes; launches as ``conv3x3_int8_launches`` says."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    b, h, w, ci = x_shape
+    c = _int8_slab_case(rng, b, h, ci, co, 32)
+    a = tt(rng.uniform(0.5, 1.5, (b, ci))).to(dev)
+    pc = tt(rng.normal(size=(b, ci))).to(dev)
+    s, z = (1.0 / tt(c["s_act"])).to(dev), tt(c["z_act"]).to(dev)
+    wsc, bias = tt(c["w_scale"]).to(dev), tt(c["cb"]).to(dev)
+    x = tt(rng.normal(size=x_shape), torch.bfloat16).to(dev)
+    k = torch.from_numpy(c["q"]).to(dev)
+    r = tt(rng.normal(size=(b, h, w, co)), torch.bfloat16).to(dev) if res else None
+    reset_launch_counts()
+    codes = tconv.conv3x3_int8_prologue(x, a, pc, s, z)
+    torch.cuda.synchronize()
+    assert launch_counts["conv3x3_slab_int8_prologue"] == 1
+    want_codes = tconv.conv3x3_int8_codes_plain(x, a, pc, s, z)
+    diff = (codes.int() - want_codes.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    assert torch.equal(codes[:, 0], want_codes[:, 0]) and torch.equal(codes[:, :, -1],
+                                                                      want_codes[:, :, -1])
+    splits = tconv.plan_conv3x3_int8_split(b, h, w, ci, co)
+    wk = tconv.conv3x3_kmajor_plain(k)
+    for sp in {2, max(2, splits)}:
+        assert torch.equal(tconv.conv3x3_int8_split(codes, k, sp),
+                           tconv.conv3x3_int8_split_plain(codes, wk, sp))
+    ws = tconv.conv3x3_int8_split_plain(codes, wk, max(2, splits))
+    got, got_st = tconv.conv3x3_int8_splitk_reduce(ws, wsc, bias, r, emit_stats=True)
+    want, want_st = tconv.conv3x3_int8_reduce_plain(ws, wsc, bias, r, emit_stats=True)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got_st, want_st, rtol=1e-4, atol=1e-4)
+    kw = dict(prologue_scale=a, prologue_bias=pc, act_inv_scale=s, act_zp=z, w_scale=wsc,
+              residual=r, emit_stats=stats)
+    reset_launch_counts()
+    out = tconv.conv3x3_slab(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in launch_counts.items() if v} == tconv.conv3x3_int8_launches(x_shape,
+                                                                                         co)
+    ref = tconv.conv3x3_int8_reduce_plain(tconv.conv3x3_int8_split_plain(codes, wk, 1), wsc,
+                                          bias, r, emit_stats=stats)
+    if stats:
+        (out, out_st), (ref, ref_st) = out, ref
+        torch.testing.assert_close(out_st, ref_st, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, ref)
