@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``sdtpu_torch``) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--out details.json]
+    python3 chip_smoke.py [--out details.json] [--trace-dir build/trace]
 
 Phases, each printing its own lines; any failure ends the run non-zero:
 
@@ -83,6 +83,30 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               at tiny-sd b1 and b8, SD2.1 768 and SDXL 1024, the plain
               attention over blocks of query rows); then each tool's ``main()`` (``sdtpu_torch/tools/``) at a short
               chain, with the launch counters held to the calls it made.
+10. seeds  -- ``utils/prng.py``'s draws on the card against its numpy form
+              for seeds 0, 40 and 2^32-1 at the image's shape (bits and
+              uniforms bitwise, normals within 4 ulp); the host time of one
+              request's draws; two ``generate(seed=40)`` images bitwise
+              equal; the host syncs left in one ``output="device"`` request
+              (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 prints
+              ``from_random``'s host seconds; phase 8 quantizes the same tree.
+11. bench  -- ``sdtpu_torch.bench.main`` in this process with ``--repeats
+              3``: default, ``--int8`` and the packed route, each JSON line
+              checked (value > 0, device, 0 < mfu_pct <= 100) and its
+              launches held to its images (the default's to phase 4's
+              counts).
+12. library -- s/image of the kernel route and of ``attention_impl="xla",
+              conv_impl="xla"`` (SDPA and cuDNN) in turns; the library route
+              launches no kernel.
+13. stages -- ``tools/profile_stages`` at tiny-sd 512; one ``profiling.trace``
+              of a warm bf16 image: wall, device-busy time (the union of
+              the card's activity intervals), idle share, device time by
+              kind (hand-written kernels, library GEMMs/convs, PyTorch's
+              elementwise and reductions, copies), the ten device ops with
+              the most time, the five longest device-idle gaps with the
+              host stage each falls in (the library route's image traced
+              and summarised beside it); ``StageTimer``'s split of the same
+              request.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -97,8 +121,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import glob
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -819,11 +846,21 @@ def to_dtype(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
+    ap.add_argument("--trace-dir", default="build/trace",
+                    help="where phase 13 writes its profiler trace (trace.json)")
     args = ap.parse_args()
 
     import torch
@@ -924,7 +961,13 @@ def main() -> int:
         (4, 1, 4096, 512), (16, 1, 1024, 512), (2, 3, 100, 168)))
 
     ids = np.random.default_rng(40).integers(1, 49408, (2, 77))
+    t0 = time.perf_counter()
     pipe = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    from_random_s = time.perf_counter() - t0
+    log(f"from_random(\"tiny-sd\", seed=0): {from_random_s:.3f} s on the host (numpy Philox "
+        "draws as the JAX package's init, then one copy of each leaf to the card)")
+    details["from_random_s"] = from_random_s
     pcfg = pipe.config
     pipe_ring = StableDiffusionPipeline(pcfg.replace(attention_impl="ring"), pipe.params,
                                         device="cuda")
@@ -1205,11 +1248,14 @@ def main() -> int:
             attn_mod._PACKED_OUT_PROJ = False
     log("s/image in turns: " + ", ".join(f"{r} {t:.4f}" for r, t in turns))
     details["route_turns_s"] = turns
+    # phase 8's int8 pipeline quantizes the same tree (quantize_int8 makes a
+    # new tree and leaves this one as it is); a host copy serves phases 10-13
+    host_params = tree_to(pipe.params, "cpu")
+    pipe_q = StableDiffusionPipeline(pcfg, pipe.params, device="cuda")
     pipe.params = pipe_ring.params = None  # the int8 image's peak memory holds only its own tree
 
     # phase 8: int8 (W8A8); kernel D checked and timed at every int8 call
     # shape (phase 3's work for this path), then the int8 image
-    pipe_q = StableDiffusionPipeline.from_random("tiny-sd", seed=0, device="cuda")
     t0 = time.perf_counter()
     pipe_q.quantize_int8(transformer=True, vae=True)
     torch.cuda.synchronize()
@@ -1379,6 +1425,28 @@ def main() -> int:
     # phase 9: the measurement entry points' kernels E, H, I, J
     probes = probes_phase(torch, gen, exp_rate, launch_counts, reset_launch_counts)
     details["probes"] = probes
+
+    # phases 10-13: seeds, bench, the library row, stages and trace, on the
+    # bf16 tree again
+    t0 = time.perf_counter()
+    pipe_q.params = None
+    pipe.params = tree_to(host_params, "cuda")
+    del host_params
+    details["seeds"] = seeds_phase(torch, np, pipe, ids)
+    details["seeds"]["from_random_s"] = from_random_s
+    t1 = time.perf_counter()
+    details["bench"] = bench_phase(torch, launch_counts, reset_launch_counts, kind,
+                                   e2e_expected, n_self, 2 * n_unet * STEPS)
+    t2 = time.perf_counter()
+    details["library_row"] = library_phase(torch, np, pipe, ids, launch_counts,
+                                           reset_launch_counts)
+    t3 = time.perf_counter()
+    details["stages"] = stages_phase(torch, pipe, ids, args.trace_dir)
+    t4 = time.perf_counter()
+    details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
+                          "stages": t4 - t3}
+    log("phases 10-13 wall s: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in details["phase_s"].items()))
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -1730,6 +1798,333 @@ def run_image(torch, np, pipe, ids, label, launch_counts, reset_launch_counts):
         raise AssertionError(f"{label} image is not a non-constant (1, 512, 512, 3) uint8 image")
     return counts, {"s_per_image": sec, "warmup_s": warm_s, "peak_bytes": peak,
                     "launches": counts}
+
+
+# ------------------------------------------------- measurement phases --
+
+STAGES = ("tokenize", "noise", "clip", "precompute", "unet_step", "vae_decode", "to_uint8")
+ULP_MAX = 4           # device normals against numpy's
+BENCH_REPEATS = 3
+
+
+def seeds_phase(torch, np, pipe, ids):
+    """The device draws of ``utils/prng.py`` against its numpy form (bits
+    and uniforms bitwise, normals within ULP_MAX), their host time per
+    request, two seed-40 images bitwise equal, and the host syncs left in
+    one ``output="device"`` request."""
+    import warnings
+
+    from sdtpu_torch.pipeline.pipeline import request_keys, request_noise
+    from sdtpu_torch.utils import prng
+
+    shape = (1, 64, 64, 4)
+    out = {"draws": []}
+    for seed in (0, 40, 2**32 - 1):
+        keys = request_keys(prng.key(seed), STEPS)
+        bits = prng.bits_torch(keys, shape, "cuda").cpu().numpy()
+        uni = prng.uniform_torch(keys, shape, "cuda").cpu().numpy()
+        nor = prng.normal_torch(keys, shape, "cuda").cpu().numpy()
+        bits_ok = all(np.array_equal(bits[i], prng.random_bits(k, shape))
+                      for i, k in enumerate(keys))
+        uni_ok = all(np.array_equal(uni[i].view(np.uint32), prng.uniform(k, shape).view(np.uint32))
+                     for i, k in enumerate(keys))
+        want = np.stack([prng.normal(k, shape) for k in keys])
+        ulp = int(np.abs(nor.view(np.int32).astype(np.int64)
+                         - want.view(np.int32).astype(np.int64)).max())
+        share = float((nor != want).mean())
+        ok = bits_ok and uni_ok and ulp <= ULP_MAX
+        log(f"seeds: seed {seed}, {len(keys)} draws of {shape} on the card vs numpy: bits "
+            f"equal {bits_ok}, uniforms equal {uni_ok}, normals max {ulp} ulp "
+            f"(tol {ULP_MAX}), {share:.4f} of them differ" + (" ok" if ok else " FAIL"))
+        out["draws"].append({"seed": seed, "bits_equal": bits_ok, "uniform_equal": uni_ok,
+                             "normal_max_ulp": ulp, "normal_share_differing": share})
+        if not ok:
+            raise AssertionError(f"seed {seed}: the card's draws disagree with numpy's")
+
+    # host time of one request's draws (keys split on the host, 26 normals
+    # of the latent shape on the card): eager torch ops, and the replayed
+    # CUDA graph that generate uses (equal to the eager draw bitwise); the
+    # numpy path for comparison
+    graphs = prng.NormalGraphs()
+    for i in range(3):
+        eager = request_noise(prng.key(i), STEPS, shape, "cuda")
+        replay = request_noise(prng.key(i), STEPS, shape, "cuda", graphs=graphs)
+    same = bool(torch.equal(eager, replay))
+    log(f"seeds: the replayed draw equals the eager draw bitwise: {same}"
+        + (" ok" if same else " FAIL"))
+    if not same:
+        raise AssertionError("the CUDA graph's draw differs from the eager draw")
+
+    def host_ms(draw):
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            draw(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return sorted(ms)[len(ms) // 2], min(ms)
+
+    keys_ms = host_ms(lambda i: request_keys(prng.key(i), STEPS))
+    eager_ms = host_ms(lambda i: request_noise(prng.key(i), STEPS, shape, "cuda"))
+    graph_ms = host_ms(lambda i: request_noise(prng.key(i), STEPS, shape, "cuda",
+                                               graphs=graphs))
+    keys0 = request_keys(prng.key(0), STEPS)
+    dev_ms = event_ms(lambda: graphs(keys0, shape, "cuda"), 20)
+    t0 = time.perf_counter()
+    request_noise(prng.key(0), STEPS, shape, "cpu")
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    log(f"seeds: one request's draws ({STEPS + 1} x {shape}), host ms median (min) of 20: "
+        f"replayed graph {graph_ms[0]:.3f} ({graph_ms[1]:.3f}), eager torch ops "
+        f"{eager_ms[0]:.3f} ({eager_ms[1]:.3f}), of which the host key splits "
+        f"{keys_ms[0]:.3f}; copy + replay back to back by CUDA events {dev_ms:.3f} ms; "
+        f"the numpy path "
+        f"{numpy_ms:.1f} ms" + (" ok" if graph_ms[0] <= 2.0 else " (above the 2 ms aim)"))
+    out.update(draw_host_ms=graph_ms[0], draw_host_ms_min=graph_ms[1],
+               draw_eager_host_ms=eager_ms[0], key_split_ms=keys_ms[0],
+               draw_event_ms=dev_ms, draw_numpy_ms=numpy_ms)
+
+    a = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    b = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    same = bool(np.array_equal(a, b))
+    log(f"seeds: two generate(seed=40) images on the card bitwise equal: {same}"
+        + (" ok" if same else " FAIL"))
+    if not same:
+        raise AssertionError("generate(seed=40) is not deterministic on the card")
+    out["seed40_images_equal"] = same
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            img = pipe.generate(token_ids=ids, num_inference_steps=STEPS, seed=40,
+                                image_size=512, output="device")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = Counter(f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing" in str(w.message))
+    same = bool(np.array_equal(img.cpu().numpy(), a))
+    log(f"seeds: host syncs in one output='device' request (set_sync_debug_mode warn): "
+        f"{sum(syncs.values())} {dict(syncs)}; its tensor equals the uint8 image: {same}")
+    out["host_syncs_per_request"] = dict(syncs)
+    if not same:
+        raise AssertionError("output='device' differs from the uint8 output")
+    if syncs:
+        raise AssertionError(f"an output='device' request synchronised the host: {dict(syncs)}")
+    return out
+
+
+def bench_phase(torch, launch_counts, reset_launch_counts, kind, e2e_expected, n_self,
+                n_unet_convs):
+    """``sdtpu_torch.bench``'s entry in this process: default, --int8, and
+    the packed route, each with its JSON line checked and its launches held
+    to the images it made (the first run, then 1 + repeats pipelined)."""
+    from sdtpu_torch import bench
+
+    attn_mod = sys.modules["sdtpu_torch.ops.attention"]
+    images = BENCH_REPEATS + 2
+    out = {}
+    for route, argv in (("default", []), ("int8", ["--int8"]), ("packed", [])):
+        attn_mod._PACKED_OUT_PROJ = route == "packed"
+        reset_launch_counts()
+        try:
+            line = bench.main(["--repeats", str(BENCH_REPEATS), *argv])
+        finally:
+            attn_mod._PACKED_OUT_PROJ = False
+        counts = dict(launch_counts)
+        problems = []
+        if not line["value"] > 0:
+            problems.append("value")
+        if line["device"] != kind:
+            problems.append("device")
+        if not (line["mfu_pct"] is not None and 0 < line["mfu_pct"] <= 100):
+            problems.append("mfu_pct")
+        if route == "default" and counts != {k: images * v for k, v in e2e_expected.items()}:
+            problems.append(f"launches {counts} != {images} x {e2e_expected}")
+        if route == "int8" and counts["conv3x3_slab_int8"] != images * n_unet_convs:
+            problems.append(f"conv3x3_slab_int8 {counts['conv3x3_slab_int8']} != "
+                            f"{images} x {n_unet_convs}")
+        if route == "packed" and counts["out_proj_packed"] != images * n_self:
+            problems.append(f"out_proj_packed {counts['out_proj_packed']} != {images} x {n_self}")
+        log(f"bench {route}: {json.dumps(line)}")
+        log(f"bench {route} launches ({images} images): {counts}"
+            + (" ok" if not problems else f" FAIL {problems}"))
+        if problems:
+            raise AssertionError(f"bench {route}: {problems}")
+        out[route] = {"line": line, "launches": counts}
+    return out
+
+
+def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
+    """Seconds per image of the kernel route and of the library route
+    (``attention_impl="xla", conv_impl="xla"``: SDPA and cuDNN convs) in
+    turns on the same weights; the library route launches no kernel."""
+    from sdtpu_torch import StableDiffusionPipeline
+
+    lib = StableDiffusionPipeline(pipe.config.replace(attention_impl="xla", conv_impl="xla"),
+                                  pipe.params, device="cuda")
+    kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    reset_launch_counts()
+    lib_img = lib.generate(**kw)
+    kernel_img = pipe.generate(**kw)
+    turns = []
+    for route in ("kernels", "library", "library", "kernels"):
+        if route == "library":
+            reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lib if route == "library" else pipe).generate(**kw)
+        turns.append((route, time.perf_counter() - t0))
+        if route == "library" and any(launch_counts.values()):
+            raise AssertionError(f"the library route launched kernels: {dict(launch_counts)}")
+    diff = int(np.abs(lib_img.astype(int) - kernel_img.astype(int)).max())
+    per = {r: sorted(t for rr, t in turns if rr == r) for r in ("kernels", "library")}
+    log("library row, s/image in turns: " + ", ".join(f"{r} {t:.4f}" for r, t in turns)
+        + f"; the library route launched no kernel; its image vs the kernels' image: max "
+        f"{diff} uint8 levels (for information)")
+    return {"turns_s": turns, "kernels_s": per["kernels"], "library_s": per["library"],
+            "max_level_diff": diff}
+
+
+@functools.lru_cache(maxsize=1)
+def hand_kernel_names() -> tuple:
+    """The ``__global__`` functions of ``sdtpu_torch/csrc/*.cu``."""
+    import sdtpu_torch
+
+    names = set()
+    for path in glob.glob(os.path.join(os.path.dirname(sdtpu_torch.__file__), "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))? (\w+)",
+                                    f.read()))
+    return tuple(sorted(names))
+
+
+def device_category(name: str) -> str:
+    """A device activity's kind: the port's hand-written kernels (the
+    ``__global__`` functions of ``sdtpu_torch/csrc``, in its anonymous
+    namespaces), the libraries' GEMMs, convolutions and attention,
+    PyTorch's own elementwise and reduction kernels, copies."""
+    # the qualified function name: up to its template arguments or parameters
+    head = re.sub(r"\(anonymous namespace\)", "anon", name.removeprefix("void "))
+    head = re.split(r"[<(]", head, maxsplit=1)[0]
+    if (head.startswith("anon::")
+            and any(head.endswith(f"::{k}") for k in hand_kernel_names())):
+        return "hand-written kernels"
+    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "cudnn", "conv", "sm90",
+                                       "fmha", "flash", "attention")):
+        return "library GEMM, conv and attention"
+    if "Memcpy" in name or "Memset" in name:
+        return "copies and sets"
+    if "at::native" in name:
+        return "PyTorch elementwise and reductions"
+    return "other"
+
+
+def trace_split(torch, events, wall_s):
+    """From a profiler trace of one image: the window (first stage start to
+    last event end), the device-busy time (the union of the card's activity
+    intervals), the idle share, the device time by kind of activity, the
+    ten device ops with the most total time, and the five longest
+    device-idle gaps with the host stage each falls in."""
+    cuda = torch.autograd.DeviceType.CUDA
+    dev, spans = [], []
+    for e in events:
+        tr = e.time_range
+        if e.name in STAGES and e.device_type != cuda:
+            spans.append((tr.start, tr.end, e.name))
+        elif (e.device_type == cuda and e.name not in STAGES
+              and not getattr(e, "is_user_annotation", False)):
+            dev.append((tr.start, tr.end, e.name))
+    if not spans:
+        raise AssertionError("the trace holds none of the pipeline's stages")
+    lo = min(s[0] for s in spans)
+    hi = max([s[1] for s in spans] + [d[1] for d in dev])
+    merged = []
+    for a, b, _ in sorted(dev):
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    window = hi - lo
+    edges = [lo] + [x for ab in merged for x in ab] + [hi]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), reverse=True)[:5]
+
+    def stage_at(t):
+        names = [n for a, b, n in spans if a <= t <= b]
+        return names[-1] if names else "between stages"
+
+    by_name = {}
+    for a, b, n in dev:
+        tot, cnt = by_name.get(n, (0.0, 0))
+        by_name[n] = (tot + (b - a), cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    stage_sum = {}
+    for a, b, n in spans:
+        stage_sum[n] = stage_sum.get(n, 0.0) + (b - a)
+    kinds = {}
+    for n, (t, c) in by_name.items():
+        k = kinds.setdefault(device_category(n), [0.0, 0])
+        k[0] += t / 1e3
+        k[1] += c
+    return {
+        "device_ms_by_kind": {k: {"ms": v[0], "count": v[1]} for k, v in kinds.items()},
+        "wall_ms": wall_s * 1e3, "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / window if window > 0 else None,
+        "device_events": len(dev),
+        "top_device_ops": [{"name": n, "total_ms": t / 1e3, "count": c} for n, (t, c) in top],
+        "longest_idle_gaps": [{"ms": g / 1e3, "at_ms": (t - lo) / 1e3,
+                               "stage": stage_at(t + g / 2)} for g, t in gaps],
+        "host_stage_ms": {n: v / 1e3 for n, v in stage_sum.items()},
+    }
+
+
+def stages_phase(torch, pipe, ids, trace_dir):
+    """``tools/profile_stages`` at tiny-sd 512; one profiler trace of a warm
+    bf16 image split into device-busy and idle time by stage (and, for
+    comparison, the library route's image summarised the same way); the
+    StageTimer split of the same request."""
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.tools import profile_stages
+    from sdtpu_torch.utils import profiling
+
+    out = {"profile_stages": profile_stages.main(["tiny-sd", "512", "--steps", str(STEPS),
+                                                  "--n", "5"])}
+    kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    lib = StableDiffusionPipeline(pipe.config.replace(attention_impl="xla", conv_impl="xla"),
+                                  pipe.params, device="cuda")
+    for route, p in (("library", lib), ("bf16", pipe)):
+        p.generate(**kw)
+        torch.cuda.synchronize()
+        with profiling.trace(f"{trace_dir}/{route}") as prof:
+            t0 = time.perf_counter()
+            p.generate(**kw)
+            wall = time.perf_counter() - t0
+        split = trace_split(torch, prof.events(), wall)
+        out[f"trace_{route}"] = split
+        log(f"trace of one {route} image ({trace_dir}/{route}/trace.json): wall "
+            f"{split['wall_ms']:.1f} ms, window {split['window_ms']:.1f} ms, device busy "
+            f"{split['device_busy_ms']:.1f} ms (union of {split['device_events']} device "
+            f"activities), idle share {split['idle_share']:.4f}")
+        log(f"trace {route} device ms by kind: " + ", ".join(
+            f"{k} {v['ms']:.1f} (x{v['count']})" for k, v in split["device_ms_by_kind"].items()))
+    log("trace host stage ms: " + ", ".join(f"{n} {v:.1f}"
+                                            for n, v in split["host_stage_ms"].items()))
+    for op in split["top_device_ops"]:
+        log(f"trace device op {op['total_ms']:9.3f} ms x{op['count']:5d} {op['name'][:110]}")
+    for g in split["longest_idle_gaps"]:
+        log(f"trace idle gap {g['ms']:8.3f} ms at +{g['at_ms']:.1f} ms, host in {g['stage']}")
+    timer = profiling.StageTimer()
+    with timer.record():
+        pipe.generate(**kw)
+    log("StageTimer (each stage ended by a device sync):\n" + timer.report())
+    out["stage_timer_ms"] = {k: v * 1e3 for k, v in timer.totals.items()}
+    return out
 
 
 if __name__ == "__main__":

@@ -128,7 +128,10 @@ class PipelineConfig:
     # CPU tensor each kernel wrapper runs its plain PyTorch version.
     # attention_impl="ring" runs sequence-parallel ring attention over the
     # active sdtpu_torch.parallel.ring_context (dense where the token count
-    # does not shard, e.g. the 77-token text context).
+    # does not shard, e.g. the 77-token text context).  attention_impl="xla"
+    # and conv_impl="xla" are the JAX package's non-Pallas route: dense
+    # attention (F.scaled_dot_product_attention on a card) and GN -> SiLU ->
+    # F.conv2d resnets; "gemm" is the same as "auto".
     attention_impl: str = "auto"
     conv_impl: str = "auto"
 

@@ -26,6 +26,8 @@ from sdtpu_torch.ops import (
     linear,
     quick_gelu,
 )
+from sdtpu_torch.ops.embedding import scaled_normal
+from sdtpu_torch.utils import hostrng
 
 
 def _layer(stacked, i: int):
@@ -103,20 +105,23 @@ def clip_encode_windows(
     return hidden.reshape(b, length, hidden.shape[-1]), pooled.reshape(b, n, -1)[:, 0]
 
 
-def init_clip(gen: torch.Generator, config: CLIPConfig, *, dtype=torch.float32) -> dict:
-    """Random parameters (layers stacked along a leading axis).  The token
-    and position embeddings are float32 whatever ``dtype`` is, as in the
-    JAX package's host-side init."""
+def init_clip(key, config: CLIPConfig, *, dtype=torch.float32) -> dict:
+    """Random parameters (layers stacked along a leading axis) on the CPU,
+    drawn on the host from ``key`` (an int seed or a ``HostKey``) in the JAX
+    package's key order.  The token and position embeddings are float32
+    whatever ``dtype`` is, as in the JAX package's host-side init."""
     d = config.hidden_size
+    keys = hostrng.split(hostrng.ensure_key(key), config.num_layers + 3)
 
-    def init_layer():
+    def init_layer(k):
+        k1, k2, k3 = hostrng.split(k, 3)
         return {
-            "norm1": init_norm(gen, d, dtype=dtype),
-            "attn": init_attention(gen, d, qkv_bias=True, dtype=dtype),
-            "norm2": init_norm(gen, d, dtype=dtype),
+            "norm1": init_norm(d, dtype=dtype),
+            "attn": init_attention(k1, d, qkv_bias=True, dtype=dtype),
+            "norm2": init_norm(d, dtype=dtype),
             "mlp": {
-                "fc1": init_linear(gen, d, config.intermediate_size, dtype=dtype),
-                "fc2": init_linear(gen, config.intermediate_size, d, dtype=dtype),
+                "fc1": init_linear(k2, d, config.intermediate_size, dtype=dtype),
+                "fc2": init_linear(k3, config.intermediate_size, d, dtype=dtype),
             },
         }
 
@@ -126,13 +131,12 @@ def init_clip(gen: torch.Generator, config: CLIPConfig, *, dtype=torch.float32) 
         return torch.stack(trees)
 
     params = {
-        "token_embedding": init_embedding(gen, config.vocab_size, d),
-        "position_embedding": torch.randn(
-            (config.max_length, d), generator=gen, device=gen.device) * 0.01,
-        "layers": stack([init_layer() for _ in range(config.num_layers)]),
-        "final_norm": init_norm(gen, d, dtype=dtype),
+        "token_embedding": init_embedding(keys[-3], config.vocab_size, d, dtype=dtype),
+        "position_embedding": scaled_normal(keys[-2], (config.max_length, d), dtype, 0.01),
+        "layers": stack([init_layer(k) for k in keys[:config.num_layers]]),
+        "final_norm": init_norm(d, dtype=dtype),
     }
     if config.projection_dim is not None:
         params["text_projection"] = init_linear(
-            gen, d, config.projection_dim, use_bias=False, dtype=dtype)
+            keys[-1], d, config.projection_dim, use_bias=False, dtype=dtype)
     return params

@@ -39,7 +39,8 @@ from sdtpu_torch.ops import (
     timestep_embedding,
     transformer_block,
 )
-from sdtpu_torch.utils.quant import resnet_conv_args, resnet_takes_slab
+from sdtpu_torch.utils import hostrng
+from sdtpu_torch.utils.quant import float_conv_kernel, resnet_conv_args, resnet_takes_slab
 
 
 def _check_family(config: UNetConfig) -> None:
@@ -146,24 +147,30 @@ def resnet_block(
     num_groups: int = 32,
     t_pre: Optional[torch.Tensor] = None,
     emit_stats: bool = False,
+    conv_impl: str = "gemm",
 ):
     """Resnet: GN -> SiLU -> conv1; + time projection; GN -> SiLU -> conv2;
     + shortcut.  ``temb`` is already SiLU'd; ``t_pre`` the precomputed
     (B, C_out) time projection.  ``emit_stats=True`` returns ``(out,
     moments)``, the per-channel output moments for the next GroupNorm
-    (None off the slab path, as in the JAX package).  Routed as the JAX
-    package's ``conv_impl="gemm"`` program (``utils/quant.py:
+    (None off the slab path, as in the JAX package).  With ``conv_impl=
+    "gemm"`` routed as the JAX package's kernel program (``utils/quant.py:
     resnet_takes_slab``): the slab kernels, int8 where quantized, or else
     the op path of ``sdtpu/models/unet.py:287-295`` with the float or
-    dequantized kernels."""
+    dequantized kernels.  ``conv_impl="xla"`` is that op path everywhere,
+    its convs ``F.conv2d``."""
     t = linear(temb, params["time_emb_proj"]) if t_pre is None else t_pre
-    (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
-    if not resnet_takes_slab(x.shape, params, num_groups):
+    if conv_impl == "xla":
+        (k1, b1, q1), (k2, b2, q2) = [(float_conv_kernel(params[c], x.dtype),
+                                       params[c]["bias"], {}) for c in ("conv1", "conv2")]
+    else:
+        (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
+    if conv_impl == "xla" or not resnet_takes_slab(x.shape, params, num_groups):
         h = silu(group_norm(x, params["norm1"], num_groups=num_groups))
-        h = conv2d(h, k1, b1, padding=1, impl="gemm")
+        h = conv2d(h, k1, b1, padding=1, impl=conv_impl)
         h = h + t.to(h.dtype)[:, None, None, :]
         h = silu(group_norm(h, params["norm2"], num_groups=num_groups))
-        h = conv2d(h, k2, b2, padding=1, impl="gemm")
+        h = conv2d(h, k2, b2, padding=1, impl=conv_impl)
         out = _shortcut(x, params) + h
         return (out, None) if emit_stats else out
     h, hstats = gn_silu_conv3x3_slab(
@@ -206,10 +213,10 @@ def downsample(x: torch.Tensor, params: dict) -> torch.Tensor:
     return conv2d(x, params["kernel"], params["bias"], stride=2, padding=1)
 
 
-def upsample(x: torch.Tensor, params: dict) -> torch.Tensor:
+def upsample(x: torch.Tensor, params: dict, conv_impl: str = "gemm") -> torch.Tensor:
     """Nearest 2x + 3x3 conv, fused in the slab kernel's upsample mode where
-    the slab shape rule accepts it."""
-    return nearest_up_conv2d(x, params["kernel"].to(x.dtype), params["bias"])
+    the slab shape rule accepts it (``conv_impl="gemm"``)."""
+    return nearest_up_conv2d(x, params["kernel"].to(x.dtype), params["bias"], impl=conv_impl)
 
 
 def _heads_for_level(config: UNetConfig, channels: int) -> int:
@@ -228,12 +235,15 @@ def unet_forward(
     config: UNetConfig,
     *,
     attention_impl: str = "flash",
+    conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_cache: Optional[dict] = None,
 ) -> torch.Tensor:
     """Predict noise.  latents: (B, H, W, C_in); timesteps: (B,) or scalar;
     context: (B, L, cross_attention_dim).  ``time_cache``: one step's slice
-    of :func:`precompute_time_projections` (then ``timesteps`` is unused)."""
+    of :func:`precompute_time_projections` (then ``timesteps`` is unused).
+    ``attention_impl``: "flash" (kernel C), "ring", "xla" (dense; SDPA on a
+    card); ``conv_impl``: "gemm" (the slab kernels) or "xla" (``F.conv2d``)."""
     if time_cache is not None:
         temb = time_cache["temb"]
     else:
@@ -241,11 +251,11 @@ def unet_forward(
             timesteps, params, config, batch=latents.shape[0], dtype=latents.dtype)
     x, skips = unet_encode(
         latents, temb, context, params, config, attention_impl=attention_impl,
-        cross_kv=cross_kv, time_proj=time_cache,
+        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache,
     )
     return unet_decode(
         x, skips, temb, context, params, config, attention_impl=attention_impl,
-        cross_kv=cross_kv, time_proj=time_cache,
+        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache,
     )
 
 
@@ -257,6 +267,7 @@ def unet_encode(
     config: UNetConfig,
     *,
     attention_impl: str = "flash",
+    conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_proj: Optional[dict] = None,
 ) -> tuple:
@@ -272,7 +283,7 @@ def unet_encode(
         for i, res in enumerate(block["resnets"]):
             x = resnet_block(x, temb, res, num_groups=ng,
                              t_pre=None if tp is None else tp["down"][level][i],
-                             emit_stats=has_attn)
+                             emit_stats=has_attn, conv_impl=conv_impl)
             if has_attn:
                 x, rstats = x
                 x = attention_block(
@@ -290,7 +301,7 @@ def unet_encode(
         heads = _heads_for_level(config, config.block_out_channels[-1])
         x, rstats = resnet_block(x, temb, mid["resnets"][0], num_groups=ng,
                                  t_pre=None if tp is None else tp["mid"][0],
-                                 emit_stats=True)
+                                 emit_stats=True, conv_impl=conv_impl)
         x = attention_block(
             x, context, mid["attentions"][0], num_heads=heads, num_groups=ng,
             implementation=attention_impl,
@@ -298,7 +309,7 @@ def unet_encode(
             stats=rstats,
         )
         x = resnet_block(x, temb, mid["resnets"][1], num_groups=ng,
-                         t_pre=None if tp is None else tp["mid"][1])
+                         t_pre=None if tp is None else tp["mid"][1], conv_impl=conv_impl)
     return x, tuple(skips)
 
 
@@ -311,6 +322,7 @@ def unet_decode(
     config: UNetConfig,
     *,
     attention_impl: str = "flash",
+    conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_proj: Optional[dict] = None,
 ) -> torch.Tensor:
@@ -327,7 +339,7 @@ def unet_decode(
             x = torch.cat([x, skips.pop()], dim=-1)
             x = resnet_block(x, temb, res, num_groups=ng,
                              t_pre=None if tp is None else tp["up"][rev][i],
-                             emit_stats=has_attn)
+                             emit_stats=has_attn, conv_impl=conv_impl)
             if has_attn:
                 x, rstats = x
                 x = attention_block(
@@ -337,61 +349,67 @@ def unet_decode(
                     stats=rstats,
                 )
         if "upsample" in block:
-            x = upsample(x, block["upsample"])
+            x = upsample(x, block["upsample"], conv_impl)
     x = silu(group_norm(x, params["norm_out"], num_groups=ng))
     return conv2d(x, params["conv_out"]["kernel"], params["conv_out"]["bias"], padding=1)
 
 
-def _init_resnet(gen, in_ch, out_ch, time_dim, *, dtype):
+def _init_resnet(key, in_ch, out_ch, time_dim, *, dtype):
+    k1, k2, k3, k4 = hostrng.split(key, 4)
     params = {
-        "norm1": init_norm(gen, in_ch, dtype=dtype),
-        "conv1": init_conv2d(gen, in_ch, out_ch, 3, dtype=dtype),
-        "time_emb_proj": init_linear(gen, time_dim, out_ch, dtype=dtype),
-        "norm2": init_norm(gen, out_ch, dtype=dtype),
-        "conv2": init_conv2d(gen, out_ch, out_ch, 3, dtype=dtype),
+        "norm1": init_norm(in_ch, dtype=dtype),
+        "conv1": init_conv2d(k1, in_ch, out_ch, 3, dtype=dtype),
+        "time_emb_proj": init_linear(k2, time_dim, out_ch, dtype=dtype),
+        "norm2": init_norm(out_ch, dtype=dtype),
+        "conv2": init_conv2d(k3, out_ch, out_ch, 3, dtype=dtype),
     }
     if in_ch != out_ch:
-        params["conv_shortcut"] = init_conv2d(gen, in_ch, out_ch, 1, dtype=dtype)
+        params["conv_shortcut"] = init_conv2d(k4, in_ch, out_ch, 1, dtype=dtype)
     return params
 
 
-def _init_attn_block(gen, ch, depth, context_dim, *, dtype):
+def _init_attn_block(key, ch, depth, context_dim, *, dtype):
+    keys = hostrng.split(key, depth + 2)
     return {
-        "norm": init_norm(gen, ch, dtype=dtype),
-        "proj_in": init_linear(gen, ch, ch, dtype=dtype),
-        "blocks": [init_transformer_block(gen, ch, context_dim=context_dim, dtype=dtype)
-                   for _ in range(depth)],
-        "proj_out": init_linear(gen, ch, ch, dtype=dtype),
+        "norm": init_norm(ch, dtype=dtype),
+        "proj_in": init_linear(keys[0], ch, ch, dtype=dtype),
+        "blocks": [init_transformer_block(keys[1 + i], ch, context_dim=context_dim, dtype=dtype)
+                   for i in range(depth)],
+        "proj_out": init_linear(keys[-1], ch, ch, dtype=dtype),
     }
 
 
-def init_unet(gen: torch.Generator, config: UNetConfig, *, dtype=torch.float32) -> dict:
-    """Random parameters with the JAX package's tree, shapes and bounds."""
+def init_unet(key, config: UNetConfig, *, dtype=torch.float32) -> dict:
+    """Random parameters with the JAX package's tree, shapes and bounds, on
+    the CPU, drawn on the host from ``key`` (an int seed or a ``HostKey``)
+    in the JAX package's key order: 256 children taken in turn."""
     _check_family(config)
+    keys = iter(hostrng.split(hostrng.ensure_key(key), 256))
+    nk = lambda: next(keys)  # noqa: E731
     time_dim = config.time_embed_dim
     ch0 = config.block_out_channels[0]
     params = {
-        "conv_in": init_conv2d(gen, config.in_channels, ch0, 3, dtype=dtype),
+        "conv_in": init_conv2d(nk(), config.in_channels, ch0, 3, dtype=dtype),
         "time_embedding": {
-            "linear_1": init_linear(gen, ch0, time_dim, dtype=dtype),
-            "linear_2": init_linear(gen, time_dim, time_dim, dtype=dtype),
+            "linear_1": init_linear(nk(), ch0, time_dim, dtype=dtype),
+            "linear_2": init_linear(nk(), time_dim, time_dim, dtype=dtype),
         },
     }
 
     def attn(ch, level):
-        return _init_attn_block(gen, ch, config.transformer_layers_per_block[level],
+        return _init_attn_block(nk(), ch, config.transformer_layers_per_block[level],
                                 config.cross_attention_dim, dtype=dtype)
 
     down_blocks, out_ch = [], ch0
     for level, ch in enumerate(config.block_out_channels):
         block = {"resnets": [], "attentions": []}
         for _ in range(config.layers_per_block):
-            block["resnets"].append(_init_resnet(gen, out_ch, ch, time_dim, dtype=dtype))
+            block["resnets"].append(_init_resnet(nk(), out_ch, ch, time_dim, dtype=dtype))
             out_ch = ch
             if config.attention_levels[level]:
                 block["attentions"].append(attn(ch, level))
         if level < config.num_levels - 1:
-            block["downsample"] = init_conv2d(gen, ch, ch, 3, dtype=dtype)
+            block["downsample"] = init_conv2d(nk(), ch, ch, 3, dtype=dtype)
         if not block["attentions"]:
             del block["attentions"]
         down_blocks.append(block)
@@ -400,8 +418,8 @@ def init_unet(gen: torch.Generator, config: UNetConfig, *, dtype=torch.float32) 
     if config.mid_block:
         ch = config.block_out_channels[-1]
         params["mid_block"] = {
-            "resnets": [_init_resnet(gen, ch, ch, time_dim, dtype=dtype),
-                        _init_resnet(gen, ch, ch, time_dim, dtype=dtype)],
+            "resnets": [_init_resnet(nk(), ch, ch, time_dim, dtype=dtype),
+                        _init_resnet(nk(), ch, ch, time_dim, dtype=dtype)],
             "attentions": [attn(ch, config.num_levels - 1)],
         }
 
@@ -417,16 +435,16 @@ def init_unet(gen: torch.Generator, config: UNetConfig, *, dtype=torch.float32) 
         block = {"resnets": [], "attentions": []}
         for _ in range(config.layers_per_block + 1):
             block["resnets"].append(
-                _init_resnet(gen, prev_ch + skip_chs.pop(), ch, time_dim, dtype=dtype))
+                _init_resnet(nk(), prev_ch + skip_chs.pop(), ch, time_dim, dtype=dtype))
             prev_ch = ch
             if config.attention_levels[level]:
                 block["attentions"].append(attn(ch, level))
         if level > 0:
-            block["upsample"] = init_conv2d(gen, ch, ch, 3, dtype=dtype)
+            block["upsample"] = init_conv2d(nk(), ch, ch, 3, dtype=dtype)
         if not block["attentions"]:
             del block["attentions"]
         up_blocks.append(block)
     params["up_blocks"] = up_blocks
-    params["norm_out"] = init_norm(gen, ch0, dtype=dtype)
-    params["conv_out"] = init_conv2d(gen, ch0, config.out_channels, 3, dtype=dtype)
+    params["norm_out"] = init_norm(ch0, dtype=dtype)
+    params["conv_out"] = init_conv2d(nk(), ch0, config.out_channels, 3, dtype=dtype)
     return params

@@ -9,6 +9,10 @@ f32 softmax, the weights cast to v's dtype, and a float32-accumulated P.V.
 Quantized projections (``utils/quant.py``) go through ``linear``'s int8
 forms on both routes.
 
+``implementation="xla"`` is the JAX package's dense route, the library's
+attention: on a card ``F.scaled_dot_product_attention`` for every
+non-causal call, on the CPU the dense form above.
+
 ``implementation="ring"`` is the JAX package's ring route: linear q/k/v,
 then sequence-parallel ring attention over the active ``ring_context``
 (``parallel/ring_attention.py``, kernel F on the card), else -- no context,
@@ -28,12 +32,14 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from sdtpu_torch.kernels.flash_attention import flash_attention_packed, out_proj_packed
 from sdtpu_torch.ops.activations import geglu
 from sdtpu_torch.ops.linear import init_linear, linear, linear_q8_dyn
 from sdtpu_torch.ops.norm import init_norm, layer_norm
 from sdtpu_torch.parallel.ring_attention import maybe_ring_attention
+from sdtpu_torch.utils import hostrng
 
 _PACKED_OUT_PROJ = os.environ.get("SDTPU_PACKED_OUT_PROJ", "0") not in ("0", "false", "")
 
@@ -59,7 +65,7 @@ def attention(
     if implementation == "flash" and not causal and context is None:
         return _flash_attention_fused_projections(
             x, params, num_heads=num_heads, head_dim=head_dim, residual=residual)
-    if implementation not in ("dense", "flash", "ring"):
+    if implementation not in ("dense", "flash", "ring", "xla"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
 
     ctx = x if context is None else context
@@ -73,6 +79,9 @@ def attention(
     out = None
     if implementation == "ring" and not causal:
         out = maybe_ring_attention(q, k, v)
+    if out is None and implementation == "xla" and q.is_cuda and not causal:
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     if out is None:
         out = _dense_attention(q, k, v, causal=causal)
     out = out.reshape(b, lq, d)
@@ -128,7 +137,7 @@ def _dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 def init_attention(
-    gen: torch.Generator,
+    key,
     dim: int,
     *,
     context_dim: Optional[int] = None,
@@ -137,11 +146,12 @@ def init_attention(
     dtype=torch.float32,
 ) -> dict:
     ctx = dim if context_dim is None else context_dim
+    kq, kk, kv, ko = hostrng.split(key, 4)
     return {
-        "q": init_linear(gen, dim, dim, use_bias=qkv_bias, dtype=dtype),
-        "k": init_linear(gen, ctx, dim, use_bias=qkv_bias, dtype=dtype),
-        "v": init_linear(gen, ctx, dim, use_bias=qkv_bias, dtype=dtype),
-        "out": init_linear(gen, dim, dim, use_bias=out_bias, dtype=dtype),
+        "q": init_linear(kq, dim, dim, use_bias=qkv_bias, dtype=dtype),
+        "k": init_linear(kk, ctx, dim, use_bias=qkv_bias, dtype=dtype),
+        "v": init_linear(kv, ctx, dim, use_bias=qkv_bias, dtype=dtype),
+        "out": init_linear(ko, dim, dim, use_bias=out_bias, dtype=dtype),
     }
 
 
@@ -176,19 +186,19 @@ def precompute_transformer_cross_kv(context: torch.Tensor, params: dict) -> dict
     }
 
 
-def init_transformer_block(
-    gen: torch.Generator, dim: int, *, context_dim: int, dtype=torch.float32
-) -> dict:
+def init_transformer_block(key, dim: int, *, context_dim: int, dtype=torch.float32) -> dict:
     mult = 4
+    k1, k2, k3 = hostrng.split(key, 3)
+    kp, ko = hostrng.split(k3)  # the GeGLU feed-forward's two linears
     return {
-        "norm1": init_norm(gen, dim, dtype=dtype),
-        "attn1": init_attention(gen, dim, qkv_bias=False, dtype=dtype),
-        "norm2": init_norm(gen, dim, dtype=dtype),
-        "attn2": init_attention(gen, dim, context_dim=context_dim,
+        "norm1": init_norm(dim, dtype=dtype),
+        "attn1": init_attention(k1, dim, qkv_bias=False, dtype=dtype),
+        "norm2": init_norm(dim, dtype=dtype),
+        "attn2": init_attention(k2, dim, context_dim=context_dim,
                                 qkv_bias=False, dtype=dtype),
-        "norm3": init_norm(gen, dim, dtype=dtype),
+        "norm3": init_norm(dim, dtype=dtype),
         "ff": {
-            "proj": init_linear(gen, dim, 2 * mult * dim, dtype=dtype),
-            "out": init_linear(gen, mult * dim, dim, dtype=dtype),
+            "proj": init_linear(kp, dim, 2 * mult * dim, dtype=dtype),
+            "out": init_linear(ko, mult * dim, dim, dtype=dtype),
         },
     }

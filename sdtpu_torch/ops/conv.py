@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from sdtpu_torch.kernels.conv2d import conv3x3_gemm, conv3x3_slab, plan_co_tile
 from sdtpu_torch.ops.linear import uniform
 from sdtpu_torch.ops.resize import nearest_upsample
+from sdtpu_torch.utils import hostrng
 from sdtpu_torch.utils.quant import slab_plan_ok
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
@@ -70,19 +71,21 @@ def conv2d(
 
 
 def nearest_up_conv2d(
-    x: torch.Tensor, kernel: torch.Tensor, bias=None, *, emit_stats: bool = False
+    x: torch.Tensor, kernel: torch.Tensor, bias=None, *, emit_stats: bool = False,
+    impl: str = "gemm",
 ):
-    """Nearest-2x upsample + 3x3 same-pad conv, fused where the slab shape
-    rule accepts the upsampled map: only the small map is read.
-    ``emit_stats=True`` returns ``(out, moments)`` for the consumer
-    GroupNorm.  Elsewhere upsample, then :func:`conv2d` (``impl="gemm"``),
-    with ``(out, None)`` under ``emit_stats``, as ``sdtpu/ops/conv.py:98-120``.
+    """Nearest-2x upsample + 3x3 same-pad conv, fused with ``impl="gemm"``
+    where the slab shape rule accepts the upsampled map: only the small map
+    is read.  ``emit_stats=True`` returns ``(out, moments)`` for the
+    consumer GroupNorm.  Elsewhere upsample, then :func:`conv2d` with
+    ``impl``, with ``(out, None)`` under ``emit_stats``, as
+    ``sdtpu/ops/conv.py:98-120``.
     The JAX package also wants an even row tile there, a limit of the TPU
     kernel's VMEM slabs that this kernel does not have."""
     b, h, w, ci = x.shape
-    if slab_plan_ok((b, 2 * h, 2 * w, ci), kernel.shape):
+    if impl == "gemm" and slab_plan_ok((b, 2 * h, 2 * w, ci), kernel.shape):
         return conv3x3_slab(x, kernel, bias, upsample=True, emit_stats=emit_stats)
-    out = conv2d(nearest_upsample(x, 2), kernel, bias, padding=1, impl="gemm")
+    out = conv2d(nearest_upsample(x, 2), kernel, bias, padding=1, impl=impl)
     return (out, None) if emit_stats else out
 
 
@@ -96,17 +99,19 @@ def conv1x1_tokens(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 
 def init_conv2d(
-    gen: torch.Generator,
+    key,
     in_channels: int,
     out_channels: int,
     kernel_size: int = 3,
     *,
     dtype=torch.float32,
 ) -> dict:
-    """Fan-in uniform init U(-1/sqrt(k), 1/sqrt(k)), k = in * kh * kw."""
+    """Fan-in uniform init U(-1/sqrt(k), 1/sqrt(k)), k = in * kh * kw, from
+    the key's two children as in the JAX package."""
     bound = (in_channels * kernel_size * kernel_size) ** -0.5
+    k_key, b_key = hostrng.split(key)
     return {
-        "kernel": uniform(gen, (kernel_size, kernel_size, in_channels, out_channels),
+        "kernel": uniform(k_key, (kernel_size, kernel_size, in_channels, out_channels),
                           dtype, bound),
-        "bias": uniform(gen, (out_channels,), dtype, bound),
+        "bias": uniform(b_key, (out_channels,), dtype, bound),
     }

@@ -8,22 +8,27 @@ import math
 
 import torch
 
+from sdtpu_torch.utils import hostrng
+
 
 def embedding_lookup(token_ids: torch.Tensor, params: dict) -> torch.Tensor:
     """(B, L) int ids -> (B, L, D) rows of the table."""
     return params["weight"][token_ids.long()]
 
 
-def init_embedding(
-    gen: torch.Generator, num_embeddings: int, features: int
-) -> dict:
-    """N(0, 0.02^2) table.  Float32 whatever the parameter dtype, as the JAX
-    package's host-side init leaves it."""
-    w = torch.randn(
-        (num_embeddings, features), generator=gen, device=gen.device,
-        dtype=torch.float32,
-    )
-    return {"weight": w * 0.02}
+def init_embedding(key, num_embeddings: int, features: int, *, dtype=torch.float32) -> dict:
+    """N(0, 1) drawn in ``dtype``, times 0.02 in float32: the table is
+    float32 whatever ``dtype`` is, as the JAX package's numpy product
+    leaves it."""
+    return {"weight": scaled_normal(key, (num_embeddings, features), dtype, 0.02)}
+
+
+def scaled_normal(key, shape, dtype, scale: float) -> torch.Tensor:
+    """``hostrng.normal(key, shape, dtype) * scale`` as the JAX package's
+    numpy computes it: the draw rounded to ``dtype``, the product in
+    float32."""
+    return hostrng.leaf(hostrng.normal(key, shape), dtype).float() * torch.tensor(
+        scale, dtype=torch.float32)
 
 
 def timestep_embedding(

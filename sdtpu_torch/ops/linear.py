@@ -16,6 +16,7 @@ import threading
 import numpy as np
 import torch
 
+from sdtpu_torch.utils import hostrng
 from sdtpu_torch.utils.quant import quantize_act
 
 _capture = threading.local()
@@ -117,23 +118,24 @@ def linear_q8_dyn(x: torch.Tensor, params: dict) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def uniform(gen: torch.Generator, shape, dtype, bound: float) -> torch.Tensor:
-    """U(-bound, bound) drawn in float32 on the generator's device."""
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (u * (2.0 * bound) - bound).to(dtype)
+def uniform(key, shape, dtype, bound: float) -> torch.Tensor:
+    """U(-bound, bound) drawn on the host from ``key``: a CPU tensor."""
+    return hostrng.leaf(hostrng.uniform(key, shape, -bound, bound), dtype)
 
 
 def init_linear(
-    gen: torch.Generator,
+    key,
     in_features: int,
     out_features: int,
     *,
     use_bias: bool = True,
     dtype=torch.float32,
 ) -> dict:
-    """U(-1/sqrt(in), 1/sqrt(in)) kernel (in, out) and bias."""
+    """U(-1/sqrt(in), 1/sqrt(in)) kernel (in, out) and bias, from the key's
+    two children as in the JAX package."""
     bound = in_features**-0.5
-    params = {"kernel": uniform(gen, (in_features, out_features), dtype, bound)}
+    k_key, b_key = hostrng.split(key)
+    params = {"kernel": uniform(k_key, (in_features, out_features), dtype, bound)}
     if use_bias:
-        params["bias"] = uniform(gen, (out_features,), dtype, bound)
+        params["bias"] = uniform(b_key, (out_features,), dtype, bound)
     return params

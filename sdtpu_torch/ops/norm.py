@@ -50,9 +50,9 @@ def layer_norm(x: torch.Tensor, params: dict, *, eps: float = 1e-5) -> torch.Ten
     return out.to(x.dtype)
 
 
-def init_norm(gen: torch.Generator, num_channels: int, *, dtype=torch.float32) -> dict:
-    """Unit scale, zero bias (GroupNorm and LayerNorm alike)."""
+def init_norm(num_channels: int, *, dtype=torch.float32) -> dict:
+    """Unit scale, zero bias (GroupNorm and LayerNorm alike), on the CPU."""
     return {
-        "scale": torch.ones((num_channels,), dtype=dtype, device=gen.device),
-        "bias": torch.zeros((num_channels,), dtype=dtype, device=gen.device),
+        "scale": torch.ones((num_channels,), dtype=dtype),
+        "bias": torch.zeros((num_channels,), dtype=dtype),
     }

@@ -11,9 +11,18 @@ one program; here it runs eagerly, in the same order:
    combine -> ``ddpm_step`` with that step's noise;
 4. ``vae_decode`` and the uint8 conversion, on the device.
 
-``generate(seed=)`` draws the initial latents and then the per-step noise
-from one ``torch.Generator`` on the device; it does not reproduce
-``jax.random``'s bits.  ``txt2img`` takes both as explicit tensors.
+``generate(seed=)`` draws the initial latents and the per-step noise as
+the JAX package does (``sdtpu/pipeline/pipeline.py:1902-1915, 2062-2066,
+1777-1778``): ``key(uint32(seed))``, one split for the latents, then one
+split per step, each draw a ``normal`` (``utils/prng.py``).  All of a
+request's draws run in one batched call before the loop, on the device
+(on a card as one replayed CUDA graph).
+``txt2img`` takes both as explicit tensors.
+
+Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
+``clip``, ``precompute``, ``unet_step`` (once per step), ``vae_decode``,
+``to_uint8``.  With ``output="device"`` a request makes no host sync
+between its tokens and the returned tensor.
 """
 
 from __future__ import annotations
@@ -33,7 +42,55 @@ from sdtpu_torch.models.unet import (
 )
 from sdtpu_torch.models.vae import vae_decode
 from sdtpu_torch.samplers import get_sampler
+from sdtpu_torch.utils import prng
 from sdtpu_torch.utils.image import to_uint8
+from sdtpu_torch.utils.profiling import stage
+from sdtpu_torch.utils.runtime import to_device
+
+OUTPUTS = ("uint8", "float", "latents", "device")
+
+
+def request_keys(key, steps: int, *, init: bool = True) -> np.ndarray:
+    """One request's keys, as the JAX program derives them from its key:
+    with ``init``, ``key, k_init = split(key)`` for the initial latents;
+    then each step's ``key, sub = split(key)`` for its variance noise.
+    (init + steps, 2) uint32."""
+    keys = []
+    if init:
+        key, k_init = prng.split(key)
+        keys.append(k_init)
+    for _ in range(steps):
+        key, sub = prng.split(key)
+        keys.append(sub)
+    return np.stack(keys)
+
+
+def request_noise(key, steps: int, shape, device, *, init: bool = True,
+                  graphs: Optional[prng.NormalGraphs] = None) -> torch.Tensor:
+    """The normals of :func:`request_keys`, (init + steps, *shape) float32
+    on ``device``, drawn in one batched call: by numpy on the CPU
+    (``prng.normal``), by torch on a card (``prng.normal_torch``), through
+    ``graphs`` (its CUDA graph replayed) where given."""
+    keys = request_keys(key, steps, init=init)
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy(np.stack([prng.normal(k, shape) for k in keys]))
+    if graphs is not None:
+        return graphs(keys, shape, device)
+    return prng.normal_torch(keys, shape, device)
+
+
+class PendingImages:
+    """An in-flight :meth:`StableDiffusionPipeline.generate_async` result:
+    the uint8 images as a device tensor whose work may still be queued.
+    ``result()`` waits for it and copies it to the host."""
+
+    __slots__ = ("device_images",)
+
+    def __init__(self, device_images: torch.Tensor):
+        self.device_images = device_images
+
+    def result(self) -> np.ndarray:
+        return self.device_images.cpu().numpy()
 
 
 class StableDiffusionPipeline:
@@ -41,27 +98,31 @@ class StableDiffusionPipeline:
 
     def __init__(self, config: PipelineConfig, params: dict, tokenizer=None,
                  *, device="cuda"):
-        if config.attention_impl not in ("auto", "flash", "ring") or config.conv_impl not in (
-                "auto", "gemm"):
-            raise NotImplementedError(
-                "the port runs the flash- and ring-attention and slab-conv kernel routes "
-                f"only (got attention_impl={config.attention_impl!r}, "
-                f"conv_impl={config.conv_impl!r})")
+        if config.attention_impl not in ("auto", "flash", "ring", "xla"):
+            raise ValueError(f"unknown attention_impl {config.attention_impl!r}")
+        if config.conv_impl not in ("auto", "gemm", "xla"):
+            raise ValueError(f"unknown conv_impl {config.conv_impl!r}")
         self.config = config
-        # "auto" is the flash route on every device: on a CPU tensor each
+        # "auto" is the kernel route on every device: on a CPU tensor each
         # kernel wrapper runs its plain version.  "ring" runs ring attention
         # over the ring_context active when generate is called (dense where
-        # there is none).
-        self.attention_impl = "ring" if config.attention_impl == "ring" else "flash"
+        # there is none).  "xla" is the JAX package's non-Pallas route, the
+        # library's ops: dense attention (SDPA on a card) and F.conv2d
+        # resnets; only a caller who asks for it gets it.
+        self.attention_impl = {"ring": "ring", "xla": "xla"}.get(config.attention_impl, "flash")
+        self.conv_impl = "xla" if config.conv_impl == "xla" else "gemm"
         self.params = params
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        # a request's draws on a card: one CUDA graph replay per request
+        self._draws = prng.NormalGraphs() if self.device.type == "cuda" else None
 
     @classmethod
     def from_random(cls, preset: Union[str, PipelineConfig], *, seed: int = 0,
                     device="cuda", tokenizer=None) -> "StableDiffusionPipeline":
         """Seeded random weights (benchmarks and tests: speed does not depend
-        on the weight values)."""
+        on the weight values), equal to the JAX package's
+        ``from_random``/``init_pipeline_params`` for the same ``seed``."""
         from sdtpu_torch.utils.weights import init_pipeline_params
 
         config = preset if isinstance(preset, PipelineConfig) else get_preset(preset)
@@ -126,8 +187,11 @@ class StableDiffusionPipeline:
     ):
         """Text -> image.  ``token_ids`` bypasses the tokenizer (one cond row,
         or cond and uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the
-        drawn initial noise.  ``output``: "uint8" (B, H, W, 3) numpy,
-        "float" ([-1, 1] numpy) or "latents"."""
+        drawn initial noise.  ``seed`` in [0, 2^32) draws the JAX package's
+        latents and per-step noise (``utils/prng.py``).  ``output``:
+        "uint8" (B, H, W, 3) numpy, "float" ([-1, 1] numpy), "latents", or
+        "device": the uint8 images as a tensor on the device, returned
+        without waiting for it (see :meth:`generate_async`)."""
         later = {
             "init_image": (init_image is not None, "img2img/inpainting slice"),
             "mask_image": (mask_image is not None, "img2img/inpainting slice"),
@@ -151,22 +215,44 @@ class StableDiffusionPipeline:
         f = self.config.vae.downscale_factor
         if size <= 0 or size % f:
             raise ValueError(f"image_size must be a positive multiple of {f}")
-        if output not in ("uint8", "float", "latents"):
+        if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
+        key = prng.key(seed)
 
-        ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
+        with stage("tokenize"):
+            ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
         batch = ids.shape[0] // 2 if cfg else ids.shape[0]
         shape = (batch, size // f, size // f, self.config.vae.latent_channels)
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        if latents is None:
-            lat0 = torch.randn(shape, generator=gen, device=self.device)
-        else:
-            lat0 = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
-            if lat0.ndim == 3:
-                lat0 = lat0[None]
-        noise = torch.randn((steps, *lat0.shape), generator=gen, device=self.device)
+        with stage("noise"):
+            if latents is None:
+                draws = request_noise(key, steps, shape, self.device, graphs=self._draws)
+                lat0, noise = draws[0], draws[1:]
+            else:
+                lat0 = to_device(np.asarray(latents, np.float32), self.device)
+                if lat0.ndim == 3:
+                    lat0 = lat0[None]
+                noise = request_noise(key, steps, tuple(lat0.shape), self.device,
+                                      init=False, graphs=self._draws)
         return self.txt2img(ids, lat0, noise, cfg=cfg, cfg_scale=cfg_scale,
                             output=output, clip_skip=clip_skip)
+
+    def generate_async(self, prompt: str = "", negative_prompt: str = "",
+                       **kwargs) -> "PendingImages":
+        """Queue a generation without waiting for it: a :class:`PendingImages`
+        whose ``result()`` fetches the uint8 images.  Dispatching request
+        N+1 before fetching N keeps the card busy while the host prepares
+        the next request::
+
+            pending = pipe.generate_async(token_ids=ids, seed=0)
+            for seed in range(1, n):
+                nxt = pipe.generate_async(token_ids=ids, seed=seed)
+                image = pending.result()   # N computes while N+1 is queued
+                pending = nxt
+        """
+        if kwargs.get("output", "device") != "device":
+            raise ValueError("generate_async implies output='device'")
+        kwargs["output"] = "device"
+        return PendingImages(self.generate(prompt, negative_prompt, **kwargs))
 
     def generate_batch(self, *args, **kwargs):
         raise NotImplementedError("generate_batch belongs to the batching/serving slice")
@@ -177,12 +263,14 @@ class StableDiffusionPipeline:
         """The whole request with its noise given: ``ids`` (rows, L) token
         ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
         float32 initial noise, ``noise`` (steps, B, h, w, 4) float32 DDPM
-        variance noise, one slice per step."""
+        variance noise, one slice per step.  ``generate`` draws both as the
+        JAX package does; a caller may pass any."""
         cdt = self.config.compute_dtype
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=self.device)
-        hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
-                                        clip_skip=clip_skip)
-        context = hidden.to(cdt)
+        with stage("clip"):
+            ids = to_device(np.asarray(ids, np.int64), self.device)
+            hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
+                                            clip_skip=clip_skip)
+            context = hidden.to(cdt)
         steps = noise.shape[0]
         schedule = get_sampler("ddpm").make_schedule(
             self.config.scheduler, steps, device=self.device)
@@ -190,11 +278,15 @@ class StableDiffusionPipeline:
                            cfg_scale=cfg_scale)
         if output == "latents":
             return lat.float().cpu().numpy()
-        img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae,
-                         attention_impl=self.attention_impl).float()
+        with stage("vae_decode"):
+            img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae,
+                             attention_impl=self.attention_impl,
+                             conv_impl=self.conv_impl).float()
         if output == "float":
             return img.cpu().numpy()
-        return to_uint8(img).cpu().numpy()
+        with stage("to_uint8"):
+            img = to_uint8(img)
+        return img if output == "device" else img.cpu().numpy()
 
     def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float):
         """The DDPM loop; ``context`` is (2B, L, D) under CFG, else (B, L, D)."""
@@ -203,22 +295,24 @@ class StableDiffusionPipeline:
         cdt = self.config.compute_dtype
         batch = latents.shape[0]
         model_batch = 2 * batch if cfg else batch
-        cross_kv = precompute_cross_kv(context, unet, ucfg)
-        time_cache = precompute_time_projections(
-            schedule.timesteps, unet, ucfg, batch=model_batch, dtype=cdt)
+        with stage("precompute"):
+            cross_kv = precompute_cross_kv(context, unet, ucfg)
+            time_cache = precompute_time_projections(
+                schedule.timesteps, unet, ucfg, batch=model_batch, dtype=cdt)
         sampler = get_sampler("ddpm")
         lat = latents
         for i in range(schedule.num_steps):
-            lat_in = torch.cat([lat, lat]) if cfg else lat
-            eps = unet_forward(
-                lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
-                attention_impl=self.attention_impl, cross_kv=cross_kv,
-                time_cache=time_cache_step(time_cache, i),
-            ).float()
-            if cfg:
-                cond, uncond = eps[:batch], eps[batch:]
-                eps = uncond + cfg_scale * (cond - uncond)
-            lat = sampler.step(schedule, i, lat, eps, noise[i])
+            with stage("unet_step"):
+                lat_in = torch.cat([lat, lat]) if cfg else lat
+                eps = unet_forward(
+                    lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
+                    attention_impl=self.attention_impl, conv_impl=self.conv_impl,
+                    cross_kv=cross_kv, time_cache=time_cache_step(time_cache, i),
+                ).float()
+                if cfg:
+                    cond, uncond = eps[:batch], eps[batch:]
+                    eps = uncond + cfg_scale * (cond - uncond)
+                lat = sampler.step(schedule, i, lat, eps, noise[i])
         return lat
 
     def _uncond_row(self) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 Counterpart of ``sdtpu/samplers/ddpm.py``: the schedule tables are built
 with numpy in float64 exactly as the JAX package builds them, then held as
-float32 tensors; ``ddpm_step`` takes its noise as an argument.
+float32 tensors, copied to the device without a host sync;
+``ddpm_step`` takes its noise as an argument.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from sdtpu_torch.config import SchedulerConfig
+from sdtpu_torch.utils.runtime import to_device
 
 
 def make_betas(config: SchedulerConfig) -> np.ndarray:
@@ -99,11 +101,10 @@ def make_schedule(
     sigma = np.where(ts > 0, np.sqrt(variance), 0.0)
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return to_device(np.asarray(a, np.float32), device)
 
     return DDPMSchedule(
-        # "linspace" spacing reverses with a negative stride, which torch rejects
-        timesteps=torch.as_tensor(np.ascontiguousarray(ts), dtype=torch.int64, device=device),
+        timesteps=to_device(ts.astype(np.int64), device),
         coeff_x0=f32(coeff_x0),
         coeff_xt=f32(coeff_xt),
         sqrt_alpha_prod=f32(np.sqrt(alpha_prod_t)),

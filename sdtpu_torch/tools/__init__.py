@@ -8,6 +8,7 @@ shapes::
     python -m sdtpu_torch.tools.probe_flash_2stream [chain]        # kernel I's chain counts
     python -m sdtpu_torch.tools.probe_int8_dot [chain]             # kernel J, int8 against bf16
     python -m sdtpu_torch.tools.ab_flash TREE [TREE ...]            # C and F of source trees
+    python -m sdtpu_torch.tools.profile_stages [preset] [size]     # CLIP, UNet step, VAE times
 
 Each variant runs ``chain`` back-to-back calls on the same inputs, timed two
 ways: CUDA events around the chain (which, for calls shorter than their

@@ -139,7 +139,7 @@ def test_heads_for_level(heads, channels, want):
 def test_unet_rejects_model_family_embeddings():
     cfg = dataclasses.replace(TTINY.unet, addition_embed_dim=16)
     with pytest.raises(NotImplementedError, match="model-family"):
-        tunet.init_unet(torch.Generator().manual_seed(0), cfg)
+        tunet.init_unet(0, cfg)
 
 
 # ------------------------------------------------------------------- VAE --
@@ -214,23 +214,39 @@ def _leaves(tree, path=()):
 
 
 def test_init_pipeline_params_matches_jax_tree():
-    """Same keys, shapes and dtypes as the JAX package's init under a bf16
-    param dtype (the CLIP embeddings stay float32 there too), and values
-    inside each leaf's fan-in bound.  The VAE encoder belongs to the
+    """``init_pipeline_params(seed)`` is the JAX package's
+    ``init_pipeline_params(seed)`` bitwise, leaf by leaf (keys, shapes,
+    dtypes and values), under a float32 and a bf16 param dtype (the CLIP
+    embeddings stay float32 there too).  The VAE encoder belongs to the
     img2img slice."""
-    cfg = TINY.replace(param_dtype=jnp.bfloat16)
-    want = jax.tree.map(np.asarray, jax_init(0, cfg))
-    del want["vae_encoder"]
-    got = init_pipeline_params(0, port_config(cfg), device="cpu")
-    want_leaves, got_leaves = list(_leaves(want)), list(_leaves(got))
-    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
-    for (path, g), (_, w) in zip(got_leaves, want_leaves):
-        wdt = torch.bfloat16 if w.dtype == ml_dtypes.bfloat16 else torch.from_numpy(
-            np.zeros(0, w.dtype)).dtype
-        assert tuple(g.shape) == w.shape and g.dtype == wdt, path
-        if path[-1] == "kernel" and path[-2] != "text_projection":
-            # CLIP's layers are stacked on a leading axis
-            fan_in = w.shape[-2] if "layers" in path else int(np.prod(w.shape[:-1]))
-            assert float(g.float().abs().max()) <= fan_in ** -0.5 * 1.01, path
-    again = init_pipeline_params(0, port_config(cfg), device="cpu")
-    assert torch.equal(again["unet"]["conv_in"]["kernel"], got["unet"]["conv_in"]["kernel"])
+    for dt in (jnp.float32, jnp.bfloat16):
+        cfg = TINY.replace(param_dtype=dt)
+        want = jax.tree.map(np.asarray, jax_init(0, cfg))
+        del want["vae_encoder"]
+        got = init_pipeline_params(0, port_config(cfg), device="cpu")
+        want_leaves, got_leaves = list(_leaves(want)), list(_leaves(got))
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (path, g), (_, w) in zip(got_leaves, want_leaves):
+            if w.dtype == ml_dtypes.bfloat16:
+                assert g.dtype == torch.bfloat16, path
+                np.testing.assert_array_equal(g.view(torch.int16).numpy(), w.view(np.int16),
+                                              err_msg=str(path))
+            else:
+                assert g.dtype == torch.from_numpy(np.zeros(0, w.dtype)).dtype, path
+                np.testing.assert_array_equal(g.numpy(), w, err_msg=str(path))
+
+
+@pytest.mark.parametrize("name,init,jinit,cfg", [
+    ("clip", tclip.init_clip, jclip.init_clip, TINY.clip),
+    ("unet", tunet.init_unet, junet.init_unet, TINY.unet),
+    ("vae_decoder", tvae.init_vae_decoder, jvae.init_vae_decoder, TINY.vae),
+])
+def test_model_init_from_a_seed_matches_jax(name, init, jinit, cfg):
+    """Each model's ``init_*`` from an int seed (a ``HostKey`` underneath)
+    draws the JAX package's leaves bitwise, on the CPU."""
+    want = list(_leaves(jax.tree.map(np.asarray, jinit(9, cfg))))
+    got = list(_leaves(init(9, port_config(cfg))))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.device.type == "cpu", path
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{name} {path}")

@@ -280,9 +280,24 @@ def test_attention(rng, case, residual):
 
 
 def test_attention_rejects_unknown_implementation(rng):
+    """("xla" became the dense route, ``test_attention_xla_route_is_dense``.)"""
     p = port_params(_attn_params(rng, 8, 8, bias=True))
     with pytest.raises(ValueError):
-        tops.attention(torch.zeros(1, 3, 8), p, num_heads=2, implementation="xla")
+        tops.attention(torch.zeros(1, 3, 8), p, num_heads=2, implementation="pallas")
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_attention_xla_route_is_dense(rng, cross):
+    """On the CPU ``implementation="xla"`` computes what the JAX package's
+    ``xla`` route does: dense attention, self or cross."""
+    jp = _attn_params(rng, 16, 8 if cross else 16, bias=True)
+    x = rng.normal(size=(2, 12, 16)).astype(np.float32)
+    ctx = rng.normal(size=(2, 5, 8)).astype(np.float32) if cross else None
+    got = tops.attention(tt(x), port_params(jp), num_heads=2, implementation="xla",
+                         context=None if ctx is None else tt(ctx))
+    want = jops.attention(jnp.asarray(x), jp, num_heads=2, implementation="xla",
+                          context=None if ctx is None else jnp.asarray(ctx))
+    close(got, want)
 
 
 def _block_params(rng, dim, ctx_dim):

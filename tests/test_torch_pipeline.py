@@ -2,11 +2,13 @@
 rule that keeps JAX out of the port.
 
 End-to-end parity: ``sdtpu_torch`` at the TINY config (32 px, 3 DDPM steps,
-CFG) with the JAX package's own initial latents and per-step noise injected
-matches ``sdtpu``'s ``generate(seed=...)`` within one uint8 level
-(``conftest.assert_images_match``).  The JAX package runs its CPU program
-(``xla`` convolutions and dense attention); the port runs its kernel route,
-whose wrappers take the plain PyTorch versions on the CPU.  Both are float32.
+CFG) matches ``sdtpu``'s ``generate(seed=...)`` within one uint8 level
+(``conftest.assert_images_match``): with the JAX package's own initial
+latents and per-step noise injected, with the port's own draws from the
+seed (``utils/prng.py``), and on the port's ``"xla"`` route.  The JAX
+package runs its CPU program (``xla`` convolutions and dense attention);
+the port runs its kernel route, whose wrappers take the plain PyTorch
+versions on the CPU, or its ``"xla"`` route.  Both are float32.
 """
 
 import ast
@@ -25,7 +27,9 @@ from conftest import assert_images_match
 from sdtpu.tokenizer.bpe import CLIPTokenizer as JaxTokenizer
 from sdtpu_torch import StableDiffusionPipeline
 from sdtpu_torch.kernels import launch_counts, reset_launch_counts
+from sdtpu_torch.pipeline.pipeline import PendingImages, request_noise
 from sdtpu_torch.tokenizer.bpe import CLIPTokenizer
+from sdtpu_torch.utils import prng
 from test_pipeline import TINY, TOKENS
 from test_tokenizer import build_assets
 from test_torch_ops import port_config
@@ -70,6 +74,67 @@ def test_txt2img_matches_jax_within_one_level(tiny_pipe, port_pipe, rows):
     assert_images_match(got, want)
 
 
+@pytest.mark.parametrize("rows", [2, 1])
+def test_generate_seed_matches_jax_without_injection(tiny_pipe, port_pipe, rows):
+    """The port's own draws from the seed give the JAX package's image."""
+    steps, seed = 3, 40
+    tokens = TOKENS[:rows]
+    want = tiny_pipe.generate("x", token_ids=tokens, num_inference_steps=steps, seed=seed)
+    got = port_pipe.generate(token_ids=tokens, num_inference_steps=steps, seed=seed)
+    assert got.shape == want.shape == (1, 32, 32, 3) and got.dtype == np.uint8
+    assert_images_match(got, want)
+
+
+def test_request_noise_is_the_jax_programs_draws():
+    """The draws ``generate`` feeds ``txt2img``, against ``jax.random``:
+    normals within 4 float32 ulp (abs <= 1e-6), with and without the
+    initial-latents split."""
+    shape = (1, 4, 4, 4)
+    lat0, noise = jax_noise(40, 3, shape)
+    got = request_noise(prng.key(40), 3, shape, "cpu")
+    np.testing.assert_allclose(got.numpy(), np.concatenate([lat0[None], noise]),
+                               rtol=0, atol=1e-6)
+    key = jax.random.key(np.uint32(40))
+    want = []
+    for _ in range(2):
+        key, sub = jax.random.split(key)
+        want.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
+    np.testing.assert_allclose(request_noise(prng.key(40), 2, shape, "cpu", init=False).numpy(),
+                               np.stack(want), rtol=0, atol=1e-6)
+
+
+def test_xla_route_matches_jax_within_one_level(tiny_pipe, port_pipe):
+    """``attention_impl="xla", conv_impl="xla"``: dense attention and
+    ``F.conv2d`` resnets, the JAX package's non-Pallas program."""
+    pipe = StableDiffusionPipeline(TTINY.replace(attention_impl="xla", conv_impl="xla"),
+                                   port_pipe.params, device="cpu")
+    assert (pipe.attention_impl, pipe.conv_impl) == ("xla", "xla")
+    want = tiny_pipe.generate("x", token_ids=TOKENS, num_inference_steps=3, seed=5)
+    reset_launch_counts()
+    got = pipe.generate(token_ids=TOKENS, num_inference_steps=3, seed=5)
+    assert_images_match(got, want)
+    assert not any(launch_counts.values())
+
+
+def test_device_output_and_generate_async(port_pipe):
+    kw = dict(token_ids=TOKENS, num_inference_steps=2, seed=11)
+    want = port_pipe.generate(**kw)
+    dev = port_pipe.generate(output="device", **kw)
+    assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
+    np.testing.assert_array_equal(dev.numpy(), want)
+    pending = port_pipe.generate_async(**kw)
+    assert isinstance(pending, PendingImages)
+    np.testing.assert_array_equal(pending.result(), want)
+    with pytest.raises(ValueError, match="output='device'"):
+        port_pipe.generate_async(output="uint8", **kw)
+
+
+@pytest.mark.parametrize("seed", [-1, 2**32])
+def test_seed_outside_uint32_raises(port_pipe, seed):
+    with pytest.raises(OverflowError, match="uint32"):
+        port_pipe.generate(token_ids=TOKENS, num_inference_steps=1, seed=seed)
+
+
 def test_generate_is_seeded_and_outputs(port_pipe):
     a = port_pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=7)
     b = port_pipe.generate(token_ids=TOKENS, num_inference_steps=2, seed=7)
@@ -108,10 +173,18 @@ def test_later_slices_raise(port_pipe, kwargs, slice_name):
 
 
 def test_generate_batch_and_other_routes_raise(port_pipe):
+    """``"xla"`` is a route now (``test_xla_route_matches_jax_within_one_level``);
+    a name that is no route raises."""
     with pytest.raises(NotImplementedError, match="serving"):
         port_pipe.generate_batch(["x"])
-    with pytest.raises(NotImplementedError, match="kernel routes"):
-        StableDiffusionPipeline(TTINY.replace(attention_impl="xla"), port_pipe.params,
+    for impl in ("xla", "flash", "ring", "auto"):
+        StableDiffusionPipeline(TTINY.replace(attention_impl=impl), port_pipe.params,
+                                device="cpu")
+    with pytest.raises(ValueError, match="attention_impl"):
+        StableDiffusionPipeline(TTINY.replace(attention_impl="pallas"), port_pipe.params,
+                                device="cpu")
+    with pytest.raises(ValueError, match="conv_impl"):
+        StableDiffusionPipeline(TTINY.replace(conv_impl="direct"), port_pipe.params,
                                 device="cpu")
     with pytest.raises(ValueError, match="multiple of"):
         port_pipe.generate(token_ids=TOKENS, image_size=30)
