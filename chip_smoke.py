@@ -107,6 +107,25 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               host stage each falls in (the library route's image traced
               and summarised beside it); ``StageTimer``'s split of the same
               request.
+14. checkpoint -- a full-width tiny-sd directory in diffusers' fp16 layout
+              written under ``build/`` (``tests/torch_ref.py``'s UNet and
+              VAE with seeded random weights, the CLIP keys from the port's
+              seeded tree, the JSON configs), loaded by
+              ``from_pretrained(device="cuda")`` (host seconds, bytes read,
+              peak memory; the config from its JSON equal to tiny-sd's);
+              ``tools/validate_checkpoint``: the UNet (batch 2, 64x64), the
+              VAE decode and the 512x512 VAE encode through the kernels
+              (bf16) against the mirror in float32, within max(2 x the
+              plain route's bf16-vs-f32 difference, 1e-2); one encode's
+              launches of A (its pre-passes and split-K reductions) and C
+              (its merge) held to the counts derived from its recorded
+              calls and the plans, against its plain version, and its
+              kernels timed; one 512x512, 25-step, CFG 7.5 image per
+              sampler (ddim, euler, euler-a, dpm++-karras, dpm++-sde, unipc,
+              lcm, after ddpm as the yardstick): s/image, finite, two runs
+              bitwise equal, the bf16 image's launch counts; ``bench
+              --sampler dpm++-karras``.  The directory is deleted at the
+              end.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -682,11 +701,10 @@ def out_proj_case(torch, gen, o_shape, c):
     return err, t_k, t_p, t_l, dev
 
 
-def record_main_path_calls(torch, pipe, ids):
-    """A main path's kernel call configurations with their counts per
-    image: one 1-step image recorded through shims, UNet calls (batch 2
-    under CFG) scaled to STEPS steps.  Returns ``{wrapper: {config: n}}``;
-    a conv configuration is (x shape, Co, prologue, residual, upsample,
+def record_calls(torch, fn):
+    """``fn()`` run once through recording shims: each kernel wrapper's call
+    configurations with their counts, ``{wrapper: Counter(config)}``; a
+    conv configuration is (x shape, Co, prologue, residual, upsample,
     moments, int8 kernel), an attention one (q shape, Lk), an
     out-projection one (o shape, C).  The ring context in force, if any,
     applies."""
@@ -716,7 +734,16 @@ def record_main_path_calls(torch, pipe, ids):
                 flash_attention_packed=attn_shim("flash_attention_packed"),
                 flash_attention_stats_packed=attn_shim("flash_attention_stats_packed"),
                 out_proj_packed=out_proj_shim):
-        pipe.generate(token_ids=ids, num_inference_steps=1, seed=1, image_size=512)
+        fn()
+    return calls
+
+
+def record_main_path_calls(torch, pipe, ids):
+    """A main path's kernel call configurations (:func:`record_calls`) with
+    their counts per image: one 1-step image recorded, UNet calls (batch 2
+    under CFG) scaled to STEPS steps."""
+    calls = record_calls(torch, lambda: pipe.generate(token_ids=ids, num_inference_steps=1,
+                                                      seed=1, image_size=512))
 
     def per_image(shape):
         return STEPS if shape[0] == 2 else 1  # UNet runs at batch 2, the VAE at 1
@@ -1443,9 +1470,18 @@ def main() -> int:
     t3 = time.perf_counter()
     details["stages"] = stages_phase(torch, pipe, ids, args.trace_dir)
     t4 = time.perf_counter()
+
+    # phase 14: a diffusers checkpoint, the VAE encoder, the samplers
+    clip_tree = tree_to(pipe.params["clip"], "cpu")
+    pipe.params = None
+    torch.cuda.empty_cache()
+    details["checkpoint"] = checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree,
+                                             launch_counts, reset_launch_counts, e2e_expected,
+                                             kind)
+    t5 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
-                          "stages": t4 - t3}
-    log("phases 10-13 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "stages": t4 - t3, "checkpoint": t5 - t4}
+    log("phases 10-14 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -1985,6 +2021,314 @@ def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
         f"{diff} uint8 levels (for information)")
     return {"turns_s": turns, "kernels_s": per["kernels"], "library_s": per["library"],
             "max_level_diff": diff}
+
+
+# ---------------------------------------------- checkpoint and samplers --
+
+# the samplers of phase 14, after the main path's ddpm as the yardstick
+SAMPLER_RUNS = ("ddpm", "ddim", "euler", "euler-a", "dpm++-karras", "dpm++-sde", "unipc", "lcm")
+ST_DTYPES = {"float16": "F16", "float32": "F32", "bfloat16": "BF16", "int64": "I64"}
+# the JSON configs of a diffusers tiny-sd directory, as diffusers and
+# transformers write them (widths of the port's tiny-sd preset)
+TINY_SD_JSON = {
+    "unet/config.json": {
+        "_class_name": "UNet2DConditionModel", "_diffusers_version": "0.27.2", "act_fn": "silu",
+        "attention_head_dim": 8, "block_out_channels": [320, 640, 1280],
+        "center_input_sample": False, "cross_attention_dim": 768,
+        "down_block_types": ["CrossAttnDownBlock2D"] * 3, "downsample_padding": 1,
+        "flip_sin_to_cos": True, "freq_shift": 0, "in_channels": 4, "layers_per_block": 1,
+        "mid_block_scale_factor": 1, "mid_block_type": None, "norm_eps": 1e-05,
+        "norm_num_groups": 32, "out_channels": 4, "sample_size": 64,
+        "up_block_types": ["CrossAttnUpBlock2D"] * 3, "use_linear_projection": False},
+    "vae/config.json": {
+        "_class_name": "AutoencoderKL", "_diffusers_version": "0.27.2", "act_fn": "silu",
+        "block_out_channels": [128, 256, 512, 512],
+        "down_block_types": ["DownEncoderBlock2D"] * 4, "in_channels": 3,
+        "latent_channels": 4, "layers_per_block": 2, "norm_num_groups": 32,
+        "out_channels": 3, "sample_size": 512, "scaling_factor": 0.18215,
+        "up_block_types": ["UpDecoderBlock2D"] * 4},
+    "text_encoder/config.json": {
+        "architectures": ["CLIPTextModel"], "hidden_act": "quick_gelu", "hidden_size": 768,
+        "intermediate_size": 3072, "layer_norm_eps": 1e-05, "max_position_embeddings": 77,
+        "model_type": "clip_text_model", "num_attention_heads": 12, "num_hidden_layers": 12,
+        "projection_dim": 768, "torch_dtype": "float16", "vocab_size": 49408},
+    "scheduler/scheduler_config.json": {
+        "_class_name": "PNDMScheduler", "_diffusers_version": "0.27.2", "beta_end": 0.012,
+        "beta_schedule": "scaled_linear", "beta_start": 0.00085, "clip_sample": False,
+        "num_train_timesteps": 1000, "set_alpha_to_one": False, "skip_prk_steps": True,
+        "steps_offset": 1, "trained_betas": None},
+}
+
+
+def write_safetensors(torch, path, tensors):
+    """A .safetensors file (the 8-byte little-endian header length, the JSON
+    header padded with spaces to 8 bytes, the tensors' bytes in order); the
+    card's machine has no ``safetensors`` package."""
+    header, offset = {}, 0
+    flat = {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        flat[name] = t.reshape(-1).view(torch.uint8).numpy()
+        offset += nbytes
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for arr in flat.values():
+            f.write(arr.data)
+
+
+def clip_state_dict(tree, config):
+    """The port's CLIP tree -> HF ``CLIPTextModel`` keys: the inverse of
+    ``utils/weights.py:clip_params_from_state_dict`` (linears (I, O) ->
+    (O, I), the stacked layers unstacked)."""
+    sd = {"text_model.embeddings.token_embedding.weight": tree["token_embedding"]["weight"],
+          "text_model.embeddings.position_embedding.weight": tree["position_embedding"],
+          "text_model.final_layer_norm.weight": tree["final_norm"]["scale"],
+          "text_model.final_layer_norm.bias": tree["final_norm"]["bias"]}
+    lay = tree["layers"]
+    for i in range(config.num_layers):
+        p = f"text_model.encoder.layers.{i}"
+        for hf, ours in (("layer_norm1", lay["norm1"]), ("layer_norm2", lay["norm2"])):
+            sd[f"{p}.{hf}.weight"], sd[f"{p}.{hf}.bias"] = ours["scale"][i], ours["bias"][i]
+        for hf, ours in (("self_attn.q_proj", lay["attn"]["q"]),
+                         ("self_attn.k_proj", lay["attn"]["k"]),
+                         ("self_attn.v_proj", lay["attn"]["v"]),
+                         ("self_attn.out_proj", lay["attn"]["out"]),
+                         ("mlp.fc1", lay["mlp"]["fc1"]), ("mlp.fc2", lay["mlp"]["fc2"])):
+            sd[f"{p}.{hf}.weight"] = ours["kernel"][i].t()
+            sd[f"{p}.{hf}.bias"] = ours["bias"][i]
+    return sd
+
+
+def write_tiny_sd_checkpoint(torch, root, clip_tree, config):
+    """A full-width tiny-sd directory in diffusers' fp16 layout: the UNet and
+    VAE of ``tests/torch_ref.py``'s mirror (built on the meta device,
+    then every parameter drawn by ``randomize_`` from seeds 1 and 2), the
+    CLIP keys from the port's seeded CLIP tree, and the JSON configs.
+    Returns the bytes written."""
+    from sdtpu_torch.tools.validate_checkpoint import torch_ref
+
+    ref = torch_ref()
+    parts = {}
+    for sub, cls, seed in (("unet", ref.RefUNet, 1), ("vae", ref.RefAutoencoderKL, 2)):
+        with torch.device("meta"):
+            model = cls(getattr(config, sub))
+        model = model.to_empty(device="cpu")
+        ref.randomize_(model, seed=seed)
+        parts[sub] = ("diffusion_pytorch_model.fp16.safetensors", model.state_dict())
+    parts["text_encoder"] = ("model.fp16.safetensors", clip_state_dict(clip_tree, config.clip))
+    total = 0
+    for sub, (fname, sd) in parts.items():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, fname)
+        write_safetensors(torch, path, {k: v.to(torch.float16) for k, v in sd.items()})
+        total += os.path.getsize(path)
+    for rel, cfg in TINY_SD_JSON.items():
+        os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "w") as f:
+            json.dump(cfg, f, indent=2)
+    return total
+
+
+def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
+                     reset_launch_counts, e2e_expected, kind):
+    """Phase 14: a full-width tiny-sd checkpoint written, loaded with
+    ``from_pretrained`` and held to the diffusers mirror; the VAE encoder's
+    kernels; an image per sampler; the bench with ``--sampler``."""
+    import shutil
+    import tempfile
+
+    from sdtpu_torch import StableDiffusionPipeline, bench
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.kernels._build import BUILD_DIR
+    from sdtpu_torch.models.vae import vae_encoder
+    from sdtpu_torch.tools import validate_checkpoint as vc
+    from sdtpu_torch.utils import native_safetensors
+    from sdtpu_torch.utils.image import to_uint8
+
+    out = {}
+    preset = get_preset("tiny-sd")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = os.path.join(tempfile.mkdtemp(prefix="ckpt-", dir=BUILD_DIR), "tiny-sd-seeded")
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_tiny_sd_checkpoint(torch, root, clip_tree, preset)
+        write_s = time.perf_counter() - t0
+        log(f"checkpoint: wrote {root} ({nbytes / 2**30:.3f} GiB of fp16 safetensors, "
+            f"diffusers layout) in {write_s:.1f} s")
+
+        # from_pretrained: the config from the directory's own JSON (its
+        # name is no preset), the weights by the native reader (built first,
+        # with g++, so that the load's time holds no build), bf16
+        t0 = time.perf_counter()
+        native_safetensors.build()
+        log(f"checkpoint: the native reader's library ready in {time.perf_counter() - t0:.1f} s "
+            f"({native_safetensors.library_path()})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = StableDiffusionPipeline.from_pretrained(root, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        cfg = pipe.config
+        same = (cfg.unet, cfg.vae, cfg.clip) == (preset.unet, preset.vae, preset.clip)
+        log(f"checkpoint: from_pretrained(device='cuda') {load_s:.3f} s on the host, "
+            f"{nbytes} bytes read, peak device memory {peak / 2**30:.3f} GiB; config "
+            f"{cfg.name!r} from its JSON: architecture == tiny-sd preset: {same}; scheduler "
+            f"{cfg.scheduler}" + (" ok" if same else " FAIL"))
+        if not same:
+            raise AssertionError("the checkpoint's JSON configs did not give tiny-sd")
+        out.update(write_s=write_s, bytes=nbytes, from_pretrained_s=load_s, peak_bytes=peak)
+
+        # validate_checkpoint on the card: the kernel route (bf16) and the
+        # plain route (bf16) against the mirror in float32
+        t0 = time.perf_counter()
+        mirror = vc.load_mirror(root, cfg, device="cuda")
+        inputs = vc.make_inputs(cfg, latent=64, batch=2, image=512)
+        want = vc.run_mirror(mirror, cfg, inputs, device="cuda")
+        del mirror
+        got = vc.run_port(pipe.params, cfg, inputs, dtype=torch.bfloat16, device="cuda")
+        with routed(**plain_routes()):
+            got_plain = vc.run_port(pipe.params, cfg, inputs, dtype=torch.bfloat16,
+                                    device="cuda")
+        e_k, e_p = vc.errors(got, want), vc.errors(got_plain, want)
+        val = {}
+        for name in vc.NETWORKS:
+            finite = bool(torch.isfinite(got[name]).all())
+            d_k, d_p = e_k[name]["rel_l2"], e_p[name]["rel_l2"]
+            ok = finite and d_k <= max(2.0 * d_p, 1e-2)
+            psnr = (f", PSNR kernels {e_k[name]['psnr_db']:.2f} dB, plain "
+                    f"{e_p[name]['psnr_db']:.2f} dB" if "psnr_db" in e_k[name] else "")
+            log(f"validate_checkpoint {name}: rel L2 kernels (bf16) vs mirror (f32) {d_k:.4g}, "
+                f"max abs {e_k[name]['max_abs']:.4g}; plain bf16 vs mirror f32 {d_p:.4g}{psnr}; "
+                f"finite {finite}; tol max(2x plain bf16-vs-f32, 1e-2)"
+                + (" ok" if ok else " FAIL"))
+            val[name] = {"kernels": e_k[name], "plain": e_p[name]}
+            if not ok:
+                raise AssertionError(f"validate_checkpoint {name}: the kernel route is off "
+                                     "the mirror")
+        out["validate"] = val
+        out["validate_s"] = time.perf_counter() - t0
+
+        # the encoder's kernels: one 512x512 encode with the counts zeroed
+        # just before and read just after, against the counts derived from
+        # its recorded calls and the plans, and against its plain version
+        img = torch.from_numpy(inputs["img"]).cuda().to(torch.bfloat16)
+        enc = pipe.params["vae_encoder"]
+        with torch.inference_mode():
+            calls = record_calls(torch, lambda: vae_encoder(img, enc, cfg.vae))
+            slab = calls["conv3x3_slab"]
+            expected = dict.fromkeys(launch_counts, 0)
+            expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4])
+            expected["conv3x3_slab_upsample"] = sum(n for c, n in slab.items() if c[4])
+            expected["flash_attention"] = sum(calls["flash_attention_packed"].values())
+            expected.update(conv_sub_counts(slab), **flash_sub_counts(calls))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            moments = vae_encoder(img, enc, cfg.vae)
+            counts = dict(launch_counts)
+            torch.cuda.synchronize()
+        log(f"encoder 512x512 launches: {counts}; expected from its recorded calls and the "
+            f"plans: {expected}" + (" ok" if counts == expected else " FAIL"))
+        if counts != expected or counts["conv3x3_slab"] == 0 or counts["flash_attention"] == 0:
+            raise AssertionError("the VAE encoder's launch counts are off")
+        d_kp = rel_l2(torch, moments, got_plain["vae_encode"])
+        d_pf = e_p["vae_encode"]["rel_l2"]
+        ok = bool(torch.isfinite(moments.float()).all()) and d_kp <= max(2.0 * d_pf, 1e-2)
+        log(f"encoder kernels vs plain (bf16): rel L2 {d_kp:.4g}; plain bf16 vs mirror f32 "
+            f"{d_pf:.4g}; tol max(2x, 1e-2)" + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError("the VAE encoder's kernels disagree with their plain versions")
+        # the encoder's kernel time per encode: each recorded call shape by
+        # CUDA events and by the profiler's device time, beside its bound
+        enc_ms = {"conv3x3_slab": [0.0, 0.0, 0.0], "flash_attention": [0.0, 0.0, 0.0]}
+        configs = []
+
+        def add_enc(name, n, t_k, d_k, cost):
+            tot = enc_ms[name]
+            tot[0] += n * t_k
+            tot[1] = None if d_k is None or tot[1] is None else tot[1] + n * d_k
+            tot[2] += n * bound_ms(cost, PEAK_BF16_FLOPS, exp_rate)[0]
+
+        for cfg6, n in sorted(slab.items()):
+            x_shape, co, pro, res, up, stats, _ = cfg6
+            x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=pro, res=res, up=up)
+            run = functools.partial(sys.modules["sdtpu_torch.kernels.conv2d"].conv3x3_slab,
+                                    x, k, bias, emit_stats=stats, **kw)
+            t_k, d_k = event_ms(run, 10), device_ms(run, 5)
+            configs.append({"x": list(x_shape), "co": co, "pro": pro, "res": res,
+                            "stats": stats, "per_encode": n, "ms": t_k, "device_ms": d_k})
+            add_enc("conv3x3_slab", n, t_k, d_k,
+                    conv_cost(x_shape, co, pro=pro, res=res, up=up, stats=stats))
+            del x, k, kw
+        for (q_shape, lk), n in sorted(calls["flash_attention_packed"].items()):
+            from sdtpu_torch.kernels.flash_attention import flash_attention_packed
+
+            q, k, v = flash_qkv(torch, gen, q_shape, lk)
+            run = functools.partial(flash_attention_packed, q, k, v)
+            t_k, d_k = event_ms(run, 10), device_ms(run, 5)
+            configs.append({"q": list(q_shape), "lk": lk, "per_encode": n, "ms": t_k,
+                            "device_ms": d_k})
+            add_enc("flash_attention", n, t_k, d_k, flash_cost(q_shape, lk))
+        log("encoder kernel time per 512x512 encode (CUDA events; profiler device time; "
+            "bound): " + ", ".join(
+                f"{k} {v[0]:.3f} ms; " + ("dev not measured" if v[1] is None
+                                          else f"dev {v[1]:.3f} ms") + f"; bound {v[2]:.3f} ms"
+                for k, v in enc_ms.items()))
+        out["encoder"] = {"launches": counts, "kernels_vs_plain": d_kp, "configs": configs,
+                          "ms_per_encode": enc_ms}
+
+        # one 512x512, STEPS-step, CFG 7.5 image per sampler: a float run
+        # (finite), then a uint8 run timed with the counts zeroed just before
+        # it, which must equal the first bitwise
+        kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
+                  cfg_scale=7.5)
+        runs = {}
+        for name in SAMPLER_RUNS:
+            first = pipe.generate(sampler=name, output="float", **kw)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            img = pipe.generate(sampler=name, **kw)
+            sec = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            finite = bool(np.isfinite(first).all())
+            same = bool(np.array_equal(to_uint8(first), img))
+            problems = [p for p, bad in (("not finite", not finite),
+                                         ("not bitwise equal", not same),
+                                         ("constant", float(img.std()) == 0.0),
+                                         (f"launches {counts}", counts != e2e_expected)) if bad]
+            log(f"sampler {name}: {sec:.4f} s/image, pixel std {float(img.std()):.3f}, finite "
+                f"{finite}, two runs bitwise equal {same}, launches == the bf16 image's "
+                f"{counts == e2e_expected}" + (" ok" if not problems else f" FAIL {problems}"))
+            if problems:
+                raise AssertionError(f"sampler {name}: {problems}")
+            runs[name] = {"s_per_image": sec, "launches": counts}
+        out["samplers"] = runs
+        del pipe
+    finally:
+        shutil.rmtree(os.path.dirname(root), ignore_errors=True)
+
+    # the bench with a sampler: its line, and its launches held to its images
+    images = BENCH_REPEATS + 2
+    reset_launch_counts()
+    line = bench.main(["--sampler", "dpm++-karras", "--repeats", str(BENCH_REPEATS)])
+    counts = dict(launch_counts)
+    ok = (line["value"] > 0 and line["device"] == kind and "dpm++-karras" in line["metric"]
+          and counts == {k: images * v for k, v in e2e_expected.items()})
+    log(f"bench --sampler dpm++-karras: {json.dumps(line)}; launches ({images} images) "
+        f"{counts}" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("bench --sampler dpm++-karras")
+    out["bench"] = {"line": line, "launches": counts}
+    return out
 
 
 @functools.lru_cache(maxsize=1)

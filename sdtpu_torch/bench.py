@@ -8,8 +8,9 @@ batch 1 on one NVIDIA card, the counterpart of the JAX package's
 It adds ``--device`` (default ``cuda``; ``cpu`` for the tests, which then
 report no MFU).  Flags that need a feature the port does not have yet raise
 ``NotImplementedError`` naming the slice that brings it: ``--img2img``,
-``--controlnet``, ``--pag-scale``, ``--encoder-cache``, ``--serving``,
-``--batch`` > 1 and a ``--sampler`` other than ddpm.
+``--controlnet``, ``--pag-scale``, ``--encoder-cache``, ``--serving`` and
+``--batch`` > 1.  ``--sampler`` takes any of the 13 names of
+``sdtpu_torch.samplers.SAMPLERS``; another name raises ``ValueError``.
 
 The parameters are zeros of the init shapes (speed does not depend on the
 weight values), quantized with ``--int8``; ``SDTPU_PACKED_OUT_PROJ=1`` in
@@ -79,7 +80,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def refuse_unported(args, sampler: str) -> None:
+def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming its slice, for a flag whose feature
     the port does not have yet."""
     later = [
@@ -89,7 +90,6 @@ def refuse_unported(args, sampler: str) -> None:
         (args.encoder_cache != 1, "--encoder-cache", "features slice"),
         (args.serving, "--serving", "batching/serving slice"),
         (args.batch != 1, "--batch > 1", "batching/serving slice"),
-        (sampler != "ddpm", f"--sampler {sampler}", "samplers slice"),
     ]
     for used, flag, where in later:
         if used:
@@ -105,6 +105,7 @@ def main(argv=None) -> dict:
 
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.config import get_preset
+    from sdtpu_torch.samplers import get_sampler
     from sdtpu_torch.utils.flops import pipeline_flops
     from sdtpu_torch.utils.runtime import device_sync
     from sdtpu_torch.utils.weights import zero_pipeline_params
@@ -119,7 +120,8 @@ def main(argv=None) -> dict:
         args.image_size = config.default_image_size
     if config.unet.in_channels != config.vae.latent_channels:
         args.img2img = True  # inpaint / edit checkpoints take an init image
-    refuse_unported(args, sampler)
+    refuse_unported(args)
+    get_sampler(sampler)  # an unknown name raises before any parameter is made
     device = torch.device(args.device)
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else str(device))

@@ -2,9 +2,9 @@
 
 Every architecture is a frozen dataclass, field for field the same as the
 JAX package's ``sdtpu/config.py``, so one parameterized implementation covers
-Tiny-SD, SD 1.5, SD 2.1 and SDXL.  Dtypes are torch dtypes.  Reading a
-diffusers checkpoint's JSON configs (``config_from_checkpoint``) belongs to
-the weights slice and is not here yet.
+Tiny-SD, SD 1.5, SD 2.1 and SDXL.  Dtypes are torch dtypes.
+``config_from_checkpoint`` reads a diffusers checkpoint directory's own JSON
+configs into the same fields as the JAX package's.
 """
 
 from __future__ import annotations
@@ -323,3 +323,177 @@ def get_preset(name: str) -> PipelineConfig:
         raise ValueError(
             f"unknown preset {name!r}; available: {sorted(PRESETS)}"
         ) from None
+
+
+# ---------------------------------------------------------------------------
+# Config inference from a diffusers checkpoint directory (its JSON configs).
+# ---------------------------------------------------------------------------
+
+
+def _read_json(path):
+    import json
+
+    with open(path) as f:
+        return json.load(f)
+
+
+def _clip_from_json(cfg: dict, *, penultimate: bool) -> CLIPConfig:
+    """HF CLIPText(Model|ModelWithProjection) config.json -> CLIPConfig."""
+    with_proj = "CLIPTextModelWithProjection" in tuple(cfg.get("architectures") or ())
+    return CLIPConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        max_length=cfg.get("max_position_embeddings", 77),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+        use_final_layer_norm_output=not penultimate,
+        projection_dim=cfg.get("projection_dim") if with_proj else None,
+    )
+
+
+def _unet_from_json(cfg: dict) -> UNetConfig:
+    """diffusers UNet2DConditionModel config.json -> UNetConfig."""
+    bocs = tuple(cfg["block_out_channels"])
+    n = len(bocs)
+    down = cfg.get("down_block_types", ["CrossAttnDownBlock2D"] * n)
+    attention_levels = tuple("CrossAttn" in t for t in down)
+
+    # diffusers' ``attention_head_dim`` is the head COUNT for SD 1.x (an int,
+    # 8) and a per-level list of head counts giving head_dim 64 for SD 2.x /
+    # SDXL (the num_attention_heads == 0 sentinel); ``num_attention_heads``,
+    # when present, wins.
+    heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
+    if isinstance(heads, (list, tuple)):
+        dims = {bocs[i] // heads[i] for i in range(n) if attention_levels[i]}
+        if dims == {64}:
+            num_heads = 0
+        elif len({heads[i] for i in range(n) if attention_levels[i]}) == 1:
+            num_heads = next(heads[i] for i in range(n) if attention_levels[i])
+        else:
+            raise ValueError(
+                f"unsupported per-level attention heads {heads!r} "
+                f"(neither head_dim=64 nor a constant head count)"
+            )
+    else:
+        num_heads = int(heads)
+
+    tl = cfg.get("transformer_layers_per_block", 1)
+    if not isinstance(tl, (list, tuple)):
+        tl = [tl] * n
+
+    lpb = cfg.get("layers_per_block", 2)
+    if isinstance(lpb, (list, tuple)):
+        if len(set(lpb)) != 1:
+            raise ValueError(f"unsupported per-level layers_per_block {lpb!r}")
+        lpb = lpb[0]
+
+    addition_embed_dim = None
+    if cfg.get("addition_embed_type") == "text_time":
+        addition_embed_dim = cfg["projection_class_embeddings_input_dim"]
+
+    return UNetConfig(
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        block_out_channels=bocs,
+        layers_per_block=lpb,
+        attention_levels=attention_levels,
+        transformer_layers_per_block=tuple(tl),
+        num_attention_heads=num_heads,
+        cross_attention_dim=cfg.get("cross_attention_dim", 768),
+        mid_block=cfg.get("mid_block_type", "UNetMidBlock2DCrossAttn") is not None,
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        freq_shift=cfg.get("freq_shift", 0),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        addition_embed_dim=addition_embed_dim,
+        addition_time_embed_dim=(cfg.get("addition_time_embed_dim")
+                                 if addition_embed_dim is not None else None),
+        time_cond_proj_dim=cfg.get("time_cond_proj_dim"),
+    )
+
+
+def _vae_from_json(cfg: dict) -> VAEConfig:
+    return VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+    )
+
+
+def _scheduler_from_json(cfg: dict) -> SchedulerConfig:
+    return SchedulerConfig(
+        num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+        beta_start=cfg.get("beta_start", 0.00085),
+        beta_end=cfg.get("beta_end", 0.012),
+        beta_schedule=cfg.get("beta_schedule", "scaled_linear"),
+        prediction_type=cfg.get("prediction_type", "epsilon"),
+        steps_offset=cfg.get("steps_offset", 0),
+        timestep_spacing=cfg.get("timestep_spacing", "leading"),
+        rescale_betas_zero_snr=cfg.get("rescale_betas_zero_snr", False),
+    )
+
+
+def config_from_checkpoint(model_dir: str) -> PipelineConfig:
+    """A :class:`PipelineConfig` from a diffusers-layout checkpoint
+    directory's own JSON configs (``unet/config.json``, ``vae/config.json``,
+    ``text_encoder[_2]/config.json``, ``scheduler/scheduler_config.json``),
+    so a checkpoint loads without a matching preset.
+
+    The SDXL refiner's aesthetic-score conditioning is detected from the
+    UNet's addition-embedding width: ``pooled + 5 * 256`` (5 time ids)
+    against the base's 6."""
+    import os
+
+    unet_path = os.path.join(model_dir, "unet", "config.json")
+    if not os.path.isfile(unet_path):
+        raise ValueError(
+            f"{model_dir!r} is not a diffusers checkpoint directory "
+            "(missing unet/config.json)"
+        )
+    unet_json = _read_json(unet_path)
+    unet = _unet_from_json(unet_json)
+    vae = _vae_from_json(_read_json(os.path.join(model_dir, "vae", "config.json")))
+
+    te2_path = os.path.join(model_dir, "text_encoder_2", "config.json")
+    clip_2 = (_clip_from_json(_read_json(te2_path), penultimate=True)
+              if os.path.isfile(te2_path) else None)
+    te_path = os.path.join(model_dir, "text_encoder", "config.json")
+    # SDXL-family pipelines read the penultimate hidden state of the first
+    # encoder too (signalled by the presence of a second encoder)
+    clip = (_clip_from_json(_read_json(te_path), penultimate=clip_2 is not None)
+            if os.path.isfile(te_path) else None)
+    if clip is None and clip_2 is None:
+        raise ValueError(f"{model_dir!r} has no text_encoder config")
+
+    sched_path = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+    scheduler = (_scheduler_from_json(_read_json(sched_path))
+                 if os.path.isfile(sched_path) else SchedulerConfig())
+
+    requires_aesthetics = False
+    if unet.addition_embed_dim is not None and clip_2 is not None:
+        pooled = clip_2.projection_dim or clip_2.hidden_size
+        n_ids = (unet.addition_embed_dim - pooled) // (unet.addition_time_embed_dim or 256)
+        requires_aesthetics = n_ids == 5
+
+    sample = unet_json.get("sample_size", 64)
+    downscale = 2 ** (len(vae.block_out_channels) - 1)
+    lcm = unet.time_cond_proj_dim is not None
+    return PipelineConfig(
+        name=os.path.basename(model_dir.rstrip("/")) or model_dir,
+        clip=clip,
+        unet=unet,
+        vae=vae,
+        scheduler=scheduler,
+        clip_2=clip_2,
+        requires_aesthetics_score=requires_aesthetics,
+        default_image_size=sample * downscale,
+        default_cfg=not lcm,
+        default_sampler="lcm" if lcm else "ddpm",
+        default_steps=4 if lcm else 25,
+    )

@@ -1,13 +1,16 @@
-"""VAE decoder (AutoencoderKL).
+"""VAE (AutoencoderKL): the encoder and the decoder.
 
-Counterpart of the decoder half of ``sdtpu/models/vae.py``: /scaling ->
-1x1 post-quant conv -> conv_in -> mid (resnet, single-head attention,
-resnet) -> up blocks (resnets + fused nearest-2x upsample conv) ->
-GN/SiLU/conv_out.  Resnets and upsamples that pass the JAX package's
-routing rule take the slab-kernel path, and the GroupNorm statistics chain
-through the up blocks from each producing kernel's moments, as in the JAX
-package's TPU program (``vae.py:245-264``); the others take the op path.  The
-encoder belongs to the img2img slice.
+Counterpart of ``sdtpu/models/vae.py``.  The encoder: conv_in -> down
+blocks (resnets, then an asymmetric-pad ``((0, 1), (0, 1))`` stride-2
+conv) -> mid (resnet, single-head attention, resnet) -> GN/SiLU/conv_out ->
+1x1 quant conv, giving the posterior's mean and logvar; ``vae_encode``
+samples (or takes the mode) and scales.  The decoder: /scaling -> 1x1
+post-quant conv -> conv_in -> mid -> up blocks (resnets + fused nearest-2x
+upsample conv) -> GN/SiLU/conv_out.  Resnets and upsamples that pass the
+JAX package's routing rule take the slab-kernel path, and the GroupNorm
+statistics chain from each producing kernel's moments, as in the JAX
+package's TPU program (``vae.py:174-183, 245-264``): through a down block's
+resnets, and through the decoder's up blocks; the others take the op path.
 """
 
 from __future__ import annotations
@@ -92,6 +95,49 @@ def _mid(x: torch.Tensor, params: dict, *, num_groups: int,
     return vae_resnet(x, params["resnets"][1], num_groups=num_groups, conv_impl=conv_impl)
 
 
+def vae_encoder(
+    x: torch.Tensor, params: dict, config: VAEConfig, *,
+    attention_impl: str = "flash", conv_impl: str = "gemm",
+) -> torch.Tensor:
+    """(B, H, W, 3) image in [-1, 1] -> (B, H/8, W/8, 2 * latent) moments
+    (mean, then logvar)."""
+    ng = config.norm_num_groups
+    h = conv2d(x, params["conv_in"]["kernel"], params["conv_in"]["bias"], padding=1)
+    for block in params["down_blocks"]:
+        st = None  # the plain downsample conv breaks the chain
+        for res in block["resnets"]:
+            h, st = vae_resnet(h, res, num_groups=ng, stats=st, emit_stats=True,
+                               conv_impl=conv_impl)
+        if "downsample" in block:
+            h = conv2d(h, block["downsample"]["kernel"], block["downsample"]["bias"],
+                       stride=2, padding=((0, 1), (0, 1)))
+    h = _mid(h, params["mid_block"], num_groups=ng, implementation=attention_impl,
+             conv_impl=conv_impl)
+    h = silu(group_norm(h, params["norm_out"], num_groups=ng, eps=1e-6))
+    h = conv2d(h, params["conv_out"]["kernel"], params["conv_out"]["bias"], padding=1)
+    return conv2d(h, params["quant_conv"]["kernel"], params["quant_conv"]["bias"])
+
+
+def vae_encode(
+    image: torch.Tensor, noise, params: dict, config: VAEConfig, *,
+    attention_impl: str = "flash", conv_impl: str = "gemm", apply_scaling: bool = True,
+) -> torch.Tensor:
+    """Image -> latents: the moments, logvar clamped to [-30, 20] in
+    float32, mean + noise * std, times ``scaling_factor``.  ``noise=None``
+    takes the posterior's mode (the mean, no draw); ``apply_scaling=False``
+    skips the scaling (InstructPix2Pix's image-conditioning latents)."""
+    moments = vae_encoder(image, params, config, attention_impl=attention_impl,
+                          conv_impl=conv_impl)
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    if noise is None:
+        latents = mean
+    else:
+        logvar = torch.clamp(logvar.float(), -30.0, 20.0)
+        std = torch.exp(0.5 * logvar).to(mean.dtype)
+        latents = mean + noise.to(mean.dtype) * std
+    return latents * config.scaling_factor if apply_scaling else latents
+
+
 def vae_decode(
     latents: torch.Tensor, params: dict, config: VAEConfig, *,
     attention_impl: str = "flash", conv_impl: str = "gemm",
@@ -141,6 +187,33 @@ def _init_mid(key, ch, *, dtype):
             "attn": init_attention(k3, ch, qkv_bias=True, dtype=dtype),
         },
     }
+
+
+def init_vae_encoder(key, config: VAEConfig, *, dtype=torch.float32) -> dict:
+    """Random encoder parameters with the JAX package's tree and bounds, on
+    the CPU, drawn on the host from ``key`` (an int seed or a ``HostKey``)
+    in the JAX package's key order: 64 children taken in turn."""
+    keys = iter(hostrng.split(hostrng.ensure_key(key), 64))
+    nk = lambda: next(keys)  # noqa: E731
+    chs = config.block_out_channels
+    params = {"conv_in": init_conv2d(nk(), config.in_channels, chs[0], 3, dtype=dtype)}
+    down_blocks, in_ch = [], chs[0]
+    for level, ch in enumerate(chs):
+        block = {"resnets": [
+            _init_vae_resnet(nk(), in_ch if i == 0 else ch, ch, dtype=dtype)
+            for i in range(config.layers_per_block)
+        ]}
+        in_ch = ch
+        if level < len(chs) - 1:
+            block["downsample"] = init_conv2d(nk(), ch, ch, 3, dtype=dtype)
+        down_blocks.append(block)
+    params["down_blocks"] = down_blocks
+    params["mid_block"] = _init_mid(nk(), chs[-1], dtype=dtype)
+    params["norm_out"] = init_norm(chs[-1], dtype=dtype)
+    z2 = 2 * config.latent_channels
+    params["conv_out"] = init_conv2d(nk(), chs[-1], z2, 3, dtype=dtype)
+    params["quant_conv"] = init_conv2d(nk(), z2, z2, 1, dtype=dtype)
+    return params
 
 
 def init_vae_decoder(key, config: VAEConfig, *, dtype=torch.float32) -> dict:

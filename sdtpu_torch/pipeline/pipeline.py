@@ -1,23 +1,31 @@
 """Text-to-image pipeline.
 
-Counterpart of ``sdtpu/pipeline/pipeline.py`` for txt2img with DDPM and
-classifier-free guidance.  The JAX package compiles the whole request into
-one program; here it runs eagerly, in the same order:
+Counterpart of ``sdtpu/pipeline/pipeline.py`` for txt2img with classifier-
+free guidance and any of the JAX package's 13 samplers
+(``samplers/__init__.py``).  The JAX package compiles the whole request
+into one program; here it runs eagerly, in the same order:
 
 1. CLIP on the token rows, ordered ``[cond..., uncond...]`` under CFG;
 2. the cross-attention K/V of every transformer block and every time
    projection of every step, computed once before the loop;
-3. per step: the latents doubled for CFG -> ``unet_forward`` -> CFG
-   combine -> ``ddpm_step`` with that step's noise;
+3. per step: the latents doubled for CFG -> the sampler's
+   ``scale_model_input`` -> ``unet_forward`` -> CFG combine -> the
+   sampler's step (a stochastic one with that step's noise, a multistep
+   one with its state);
 4. ``vae_decode`` and the uint8 conversion, on the device.
 
 ``generate(seed=)`` draws the initial latents and the per-step noise as
-the JAX package does (``sdtpu/pipeline/pipeline.py:1902-1915, 2062-2066,
-1777-1778``): ``key(uint32(seed))``, one split for the latents, then one
-split per step, each draw a ``normal`` (``utils/prng.py``).  All of a
-request's draws run in one batched call before the loop, on the device
-(on a card as one replayed CUDA graph).
-``txt2img`` takes both as explicit tensors.
+the JAX package does (``sdtpu/pipeline/pipeline.py:1763-1780, 2062-2069``):
+``key(uint32(seed))``, one split for the latents, then one split per step
+for a stochastic sampler only, each draw a ``normal``
+(``utils/prng.py``).  All of a request's draws run in one batched call
+before the loop, on the device (on a card as one replayed CUDA graph).
+``rng="torch"`` draws the initial latents from a CPU ``torch.Generator``
+instead.  ``txt2img`` takes both as explicit tensors and scales the
+initial latents by the schedule's ``init_sigma`` (sigma-space samplers).
+
+``from_pretrained`` loads a local diffusers checkpoint directory
+(``utils/weights.py:load_pipeline_params``).
 
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
 ``clip``, ``precompute``, ``unet_step`` (once per step), ``vae_decode``,
@@ -130,6 +138,47 @@ class StableDiffusionPipeline:
                    tokenizer, device=device)
 
     @classmethod
+    def from_pretrained(cls, model_dir: str, *, preset: Optional[str] = None, dtype=None,
+                        device="cuda") -> "StableDiffusionPipeline":
+        """Load a local diffusers-layout checkpoint directory.  The config: an
+        explicit ``preset`` wins; else the directory's basename is looked up
+        among the presets; else the checkpoint's own JSON configs give it
+        (``config.config_from_checkpoint``).  ``dtype`` sets the param and
+        compute dtypes.  The tokenizer comes from ``tokenizer/``, then
+        ``tokenizer_2/``, then the repository's default assets.  A config
+        the port cannot run yet (an SDXL add-embedding, an LCM guidance
+        embedding, a second text encoder) raises NotImplementedError before
+        any weight file is read."""
+        import os
+
+        from sdtpu_torch.config import PRESETS, config_from_checkpoint
+        from sdtpu_torch.tokenizer.bpe import CLIPTokenizer
+        from sdtpu_torch.utils.weights import load_pipeline_params
+
+        if preset is not None:
+            config = get_preset(preset)
+        else:
+            base = os.path.basename(model_dir.rstrip("/"))
+            config = get_preset(base) if base in PRESETS else config_from_checkpoint(model_dir)
+        unet = config.unet
+        if unet.addition_embed_dim is not None or config.clip is None or config.clip_2 is not None:
+            raise NotImplementedError(
+                f"{config.name}: SDXL-family checkpoints (add-embedding, second text "
+                "encoder) belong to the model-family slice")
+        if unet.time_cond_proj_dim is not None:
+            raise NotImplementedError(
+                f"{config.name}: LCM guidance-embedding UNets belong to the model-family slice")
+        if dtype is not None:
+            config = config.replace(param_dtype=dtype, compute_dtype=dtype)
+        params = load_pipeline_params(model_dir, config, device=device)
+        tok_dir = os.path.join(model_dir, "tokenizer")
+        if not os.path.isdir(tok_dir):
+            tok_dir = os.path.join(model_dir, "tokenizer_2")
+        tokenizer = (CLIPTokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir)
+                     else CLIPTokenizer.from_default_assets())
+        return cls(config, params, tokenizer, device=device)
+
+    @classmethod
     def from_params(cls, config: PipelineConfig, numpy_tree: dict, *, device="cuda",
                     tokenizer=None) -> "StableDiffusionPipeline":
         """The JAX package's parameter tree, as numpy arrays."""
@@ -184,11 +233,17 @@ class StableDiffusionPipeline:
         pag_scale: float = 0.0,
         freeu=None,
         encoder_cache_interval: int = 1,
+        rng: str = "jax",
     ):
         """Text -> image.  ``token_ids`` bypasses the tokenizer (one cond row,
         or cond and uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the
-        drawn initial noise.  ``seed`` in [0, 2^32) draws the JAX package's
-        latents and per-step noise (``utils/prng.py``).  ``output``:
+        drawn initial noise (scaled by the sampler's ``init_sigma`` as a
+        drawn one is).  ``seed`` in [0, 2^32) draws the JAX package's
+        latents and, for a stochastic sampler, per-step noise
+        (``utils/prng.py``); ``rng="torch"`` draws the initial latents from
+        ``torch.Generator().manual_seed(seed)`` (NCHW, then NHWC; txt2img
+        only).  ``sampler``: a name of ``samplers.SAMPLERS`` (default the
+        preset's).  ``output``:
         "uint8" (B, H, W, 3) numpy, "float" ([-1, 1] numpy), "latents", or
         "device": the uint8 images as a tensor on the device, returned
         without waiting for it (see :meth:`generate_async`)."""
@@ -208,7 +263,8 @@ class StableDiffusionPipeline:
         cfg = self.config.default_cfg if cfg is None else cfg
         cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
         steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
-        get_sampler(sampler or self.config.default_sampler)  # raises if not ported
+        sampler = sampler or self.config.default_sampler
+        sdef = get_sampler(sampler)
         if steps < 1:
             raise ValueError("num_inference_steps must be >= 1")
         size = image_size or self.config.default_image_size
@@ -218,23 +274,37 @@ class StableDiffusionPipeline:
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         key = prng.key(seed)
+        lat_hw = size // f
+        if rng == "torch":
+            if latents is not None:
+                raise ValueError("rng='torch' is txt2img-only")
+            g = torch.Generator().manual_seed(seed)
+            latents = torch.randn((1, self.config.vae.latent_channels, lat_hw, lat_hw),
+                                  generator=g).numpy().transpose(0, 2, 3, 1)
+        elif rng != "jax":
+            raise ValueError(f"unknown rng {rng!r} (expected 'jax' or 'torch')")
+        schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
+        # per-step variance noise only for a stochastic sampler, as the JAX
+        # program splits its key per step only then
+        n_noise = schedule.num_steps if sdef.stochastic else 0
 
         with stage("tokenize"):
             ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
         batch = ids.shape[0] // 2 if cfg else ids.shape[0]
-        shape = (batch, size // f, size // f, self.config.vae.latent_channels)
+        shape = (batch, lat_hw, lat_hw, self.config.vae.latent_channels)
         with stage("noise"):
             if latents is None:
-                draws = request_noise(key, steps, shape, self.device, graphs=self._draws)
+                draws = request_noise(key, n_noise, shape, self.device, graphs=self._draws)
                 lat0, noise = draws[0], draws[1:]
             else:
                 lat0 = to_device(np.asarray(latents, np.float32), self.device)
                 if lat0.ndim == 3:
                     lat0 = lat0[None]
-                noise = request_noise(key, steps, tuple(lat0.shape), self.device,
-                                      init=False, graphs=self._draws)
-        return self.txt2img(ids, lat0, noise, cfg=cfg, cfg_scale=cfg_scale,
-                            output=output, clip_skip=clip_skip)
+                noise = (request_noise(key, n_noise, tuple(lat0.shape), self.device,
+                                       init=False, graphs=self._draws) if n_noise else None)
+        return self.txt2img(ids, lat0, noise if n_noise else None, cfg=cfg, cfg_scale=cfg_scale,
+                            output=output, clip_skip=clip_skip, sampler=sampler,
+                            schedule=schedule)
 
     def generate_async(self, prompt: str = "", negative_prompt: str = "",
                        **kwargs) -> "PendingImages":
@@ -258,24 +328,38 @@ class StableDiffusionPipeline:
         raise NotImplementedError("generate_batch belongs to the batching/serving slice")
 
     @torch.inference_mode()
-    def txt2img(self, ids, latents: torch.Tensor, noise: torch.Tensor, *, cfg: bool,
-                cfg_scale: float, output: str = "uint8", clip_skip: int = 0):
+    def txt2img(self, ids, latents: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
+                cfg_scale: float, output: str = "uint8", clip_skip: int = 0,
+                sampler: str = "ddpm", steps: Optional[int] = None, schedule=None):
         """The whole request with its noise given: ``ids`` (rows, L) token
         ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
-        float32 initial noise, ``noise`` (steps, B, h, w, 4) float32 DDPM
-        variance noise, one slice per step.  ``generate`` draws both as the
-        JAX package does; a caller may pass any."""
+        float32 N(0, 1) initial noise (scaled here by the schedule's
+        ``init_sigma``), ``noise`` (steps, B, h, w, 4) float32 variance
+        noise, one slice per step, for a stochastic sampler (None for a
+        deterministic one).  ``steps`` defaults to ``noise``'s length;
+        ``schedule`` to ``sampler``'s for ``steps``.  ``generate`` draws
+        both as the JAX package does; a caller may pass any."""
         cdt = self.config.compute_dtype
+        sdef = get_sampler(sampler)
+        if schedule is None:
+            if steps is None:
+                if noise is None:
+                    raise ValueError("txt2img: pass steps= or the per-step noise")
+                steps = noise.shape[0]
+            schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
+        if sdef.stochastic and (noise is None or noise.shape[0] != schedule.num_steps):
+            raise ValueError(f"sampler {sampler!r} takes one noise slice per step "
+                             f"({schedule.num_steps})")
         with stage("clip"):
             ids = to_device(np.asarray(ids, np.int64), self.device)
             hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
                                             clip_skip=clip_skip)
             context = hidden.to(cdt)
-        steps = noise.shape[0]
-        schedule = get_sampler("ddpm").make_schedule(
-            self.config.scheduler, steps, device=self.device)
-        lat = self.denoise(context, latents.float(), noise, schedule, cfg=cfg,
-                           cfg_scale=cfg_scale)
+        lat = latents.float()
+        if hasattr(schedule, "init_sigma"):  # sigma-space samplers start at sigma_max
+            lat = lat * schedule.init_sigma
+        lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
+                           sampler=sampler)
         if output == "latents":
             return lat.float().cpu().numpy()
         with stage("vae_decode"):
@@ -288,8 +372,11 @@ class StableDiffusionPipeline:
             img = to_uint8(img)
         return img if output == "device" else img.cpu().numpy()
 
-    def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float):
-        """The DDPM loop; ``context`` is (2B, L, D) under CFG, else (B, L, D)."""
+    def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float,
+                sampler: str = "ddpm"):
+        """The sampler's loop; ``context`` is (2B, L, D) under CFG, else
+        (B, L, D); ``noise`` (steps, B, h, w, 4) for a stochastic sampler,
+        else None."""
         ucfg = self.config.unet
         unet = self.params["unet"]
         cdt = self.config.compute_dtype
@@ -299,11 +386,14 @@ class StableDiffusionPipeline:
             cross_kv = precompute_cross_kv(context, unet, ucfg)
             time_cache = precompute_time_projections(
                 schedule.timesteps, unet, ucfg, batch=model_batch, dtype=cdt)
-        sampler = get_sampler("ddpm")
+        sdef = get_sampler(sampler)
+        state = sdef.state_init(latents) if sdef.multistep else None
         lat = latents
         for i in range(schedule.num_steps):
             with stage("unet_step"):
                 lat_in = torch.cat([lat, lat]) if cfg else lat
+                if sdef.scale_model_input is not None:
+                    lat_in = sdef.scale_model_input(schedule, i, lat_in)
                 eps = unet_forward(
                     lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
                     attention_impl=self.attention_impl, conv_impl=self.conv_impl,
@@ -312,7 +402,11 @@ class StableDiffusionPipeline:
                 if cfg:
                     cond, uncond = eps[:batch], eps[batch:]
                     eps = uncond + cfg_scale * (cond - uncond)
-                lat = sampler.step(schedule, i, lat, eps, noise[i])
+                z = noise[i] if sdef.stochastic else None
+                if sdef.multistep:
+                    lat, state = sdef.step(schedule, i, lat, eps, z, state)
+                else:
+                    lat = sdef.step(schedule, i, lat, eps, z)
         return lat
 
     def _uncond_row(self) -> np.ndarray:

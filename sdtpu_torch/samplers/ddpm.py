@@ -3,7 +3,9 @@
 Counterpart of ``sdtpu/samplers/ddpm.py``: the schedule tables are built
 with numpy in float64 exactly as the JAX package builds them, then held as
 float32 tensors, copied to the device without a host sync;
-``ddpm_step`` takes its noise as an argument.
+``ddpm_step`` takes its noise as an argument.  The sigma-space helpers the
+other samplers share live here too, as there: ``ve_sigmas``,
+``karras_sigma_grid`` and ``f32_table``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,14 @@ def make_alphas_cumprod(config: SchedulerConfig) -> np.ndarray:
     return np.cumprod(1.0 - make_betas(config))
 
 
+def ve_sigmas(alphas_cumprod: np.ndarray) -> np.ndarray:
+    """alpha_bar -> VE sigma = sqrt((1-abar)/abar), the terminal zero-SNR
+    entry (abar == 0) floored at 2**-24 as diffusers' Euler scheduler does,
+    so that sigma-space samplers get a finite sigma_max."""
+    ac = np.maximum(alphas_cumprod, 2.0**-24)
+    return np.sqrt((1.0 - ac) / ac)
+
+
 def inference_timesteps(
     config: SchedulerConfig, num_inference_steps: int, strength: float = 1.0
 ) -> np.ndarray:
@@ -64,6 +74,32 @@ def inference_timesteps(
         raise ValueError(f"unknown timestep_spacing {config.timestep_spacing!r}")
     start = min(max(n - int(n * strength), 0), n - 1)
     return ts[start:]
+
+
+def karras_sigma_grid(
+    config: SchedulerConfig, num_inference_steps: int, strength: float = 1.0,
+    rho: float = 7.0,
+):
+    """Karras et al. (2022) rho-7 sigma spacing over the (strength-
+    truncated) inference window, VE convention.  Returns (sigmas,
+    timesteps): descending (S,) float64 arrays; the timesteps are
+    fractional (log-sigma interpolation against the training grid, as
+    diffusers' ``use_karras_sigmas=True``)."""
+    ac = make_alphas_cumprod(config)
+    full = ve_sigmas(ac)
+    ts = inference_timesteps(config, num_inference_steps, strength)
+    smax, smin = full[ts[0]], full[ts[-1]]
+    ramp = np.linspace(0.0, 1.0, len(ts))
+    inv = 1.0 / rho
+    sig = (smax**inv + ramp * (smin**inv - smax**inv)) ** rho
+    t = np.interp(np.log(sig), np.log(full), np.arange(len(full)))
+    return sig, t
+
+
+def f32_table(a, device) -> torch.Tensor:
+    """A float64 host table -> float32 on ``device``, cast once on the host
+    and copied without a host sync."""
+    return to_device(np.asarray(a, np.float32), device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +137,7 @@ def make_schedule(
     sigma = np.where(ts > 0, np.sqrt(variance), 0.0)
 
     def f32(a):
-        return to_device(np.asarray(a, np.float32), device)
+        return f32_table(a, device)
 
     return DDPMSchedule(
         timesteps=to_device(ts.astype(np.int64), device),

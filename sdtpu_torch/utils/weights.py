@@ -1,19 +1,378 @@
-"""Parameter trees for the port: conversion from the JAX package's tree,
-and seeded random initialization.
+"""Parameter trees for the port: diffusers checkpoints, conversion from the
+JAX package's tree, and seeded random initialization.
 
 The port's parameters are the JAX package's tree with the same keys and
 layouts (NHWC/HWIO/(in, out)), as nested dicts and lists of tensors, so a
-JAX tree converts leaf by leaf with no transposes.  Loading diffusers
-checkpoints belongs to the weights slice.
+JAX tree converts leaf by leaf with no transposes.
+
+Counterpart of ``sdtpu/utils/weights.py`` for checkpoints: a diffusers /
+HF state dict (``.safetensors`` read by ``utils/native_safetensors.py``, or
+any mapping of names to tensors or numpy arrays) maps onto the tree with
+the layout changes done on the host, each result contiguous:
+
+* conv ``(O, I, kh, kw)`` -> HWIO ``(kh, kw, I, O)``;
+* linear ``(O, I)`` -> ``(I, O)``;
+* a 1x1 conv used as a projection (Transformer2D proj_in/out, the VAE mid
+  attention of older checkpoints) -> a linear ``(I, O)``.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Dict, Mapping
+
 import numpy as np
 import torch
 
-from sdtpu_torch.config import PipelineConfig
+from sdtpu_torch.config import CLIPConfig, PipelineConfig, UNetConfig, VAEConfig
 from sdtpu_torch.utils import hostrng
+
+# ---------------------------------------------------------------------------
+# Tensor-level transforms
+# ---------------------------------------------------------------------------
+
+
+def _t(x) -> torch.Tensor:
+    return x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+
+def conv_kernel(t) -> torch.Tensor:
+    """(O, I, kh, kw) -> (kh, kw, I, O), contiguous."""
+    return _t(t).permute(2, 3, 1, 0).contiguous()
+
+
+def linear_kernel(t) -> torch.Tensor:
+    """(O, I) -> (I, O), contiguous."""
+    return _t(t).t().contiguous()
+
+
+def proj_kernel(t) -> torch.Tensor:
+    """A 1x1 conv (O, I, 1, 1) or a linear (O, I) -> a linear (I, O)."""
+    a = _t(t)
+    if a.ndim == 4:
+        a = a[:, :, 0, 0]
+    return a.t().contiguous()
+
+
+def _norm(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _t(sd[prefix + ".weight"]), "bias": _t(sd[prefix + ".bias"])}
+
+
+def _lin(sd: Mapping, prefix: str) -> dict:
+    p = {"kernel": linear_kernel(sd[prefix + ".weight"])}
+    if prefix + ".bias" in sd:
+        p["bias"] = _t(sd[prefix + ".bias"])
+    return p
+
+
+def _conv(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": conv_kernel(sd[prefix + ".weight"]), "bias": _t(sd[prefix + ".bias"])}
+
+
+def _proj(sd: Mapping, prefix: str) -> dict:
+    p = {"kernel": proj_kernel(sd[prefix + ".weight"])}
+    if prefix + ".bias" in sd:
+        p["bias"] = _t(sd[prefix + ".bias"])
+    return p
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# CLIP text encoder (HF transformers CLIPTextModel state dict)
+# ---------------------------------------------------------------------------
+
+
+def clip_params_from_state_dict(sd: Mapping, config: CLIPConfig) -> dict:
+    """``text_model.*`` keys -> the :func:`sdtpu_torch.models.clip` tree
+    (layers stacked); keys without the ``text_model.`` prefix are accepted."""
+    if not any(k.startswith("text_model.") for k in sd):
+        sd = {(k if k == "text_projection.weight" else f"text_model.{k}"): v
+              for k, v in sd.items()}
+
+    def layer(i: int) -> dict:
+        p = f"text_model.encoder.layers.{i}"
+        return {
+            "norm1": _norm(sd, f"{p}.layer_norm1"),
+            "attn": {
+                "q": _lin(sd, f"{p}.self_attn.q_proj"),
+                "k": _lin(sd, f"{p}.self_attn.k_proj"),
+                "v": _lin(sd, f"{p}.self_attn.v_proj"),
+                "out": _lin(sd, f"{p}.self_attn.out_proj"),
+            },
+            "norm2": _norm(sd, f"{p}.layer_norm2"),
+            "mlp": {"fc1": _lin(sd, f"{p}.mlp.fc1"), "fc2": _lin(sd, f"{p}.mlp.fc2")},
+        }
+
+    params = {
+        "token_embedding": {"weight": _t(sd["text_model.embeddings.token_embedding.weight"])},
+        "position_embedding": _t(sd["text_model.embeddings.position_embedding.weight"]),
+        "layers": _stack([layer(i) for i in range(config.num_layers)]),
+        "final_norm": _norm(sd, "text_model.final_layer_norm"),
+    }
+    if config.projection_dim is not None:
+        params["text_projection"] = {"kernel": linear_kernel(sd["text_projection.weight"])}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# UNet (diffusers UNet2DConditionModel state dict)
+# ---------------------------------------------------------------------------
+
+
+def _resnet_from_sd(sd: Mapping, p: str) -> dict:
+    params = {
+        "norm1": _norm(sd, f"{p}.norm1"),
+        "conv1": _conv(sd, f"{p}.conv1"),
+        "time_emb_proj": _lin(sd, f"{p}.time_emb_proj"),
+        "norm2": _norm(sd, f"{p}.norm2"),
+        "conv2": _conv(sd, f"{p}.conv2"),
+    }
+    if f"{p}.conv_shortcut.weight" in sd:
+        params["conv_shortcut"] = _conv(sd, f"{p}.conv_shortcut")
+    return params
+
+
+def _vae_resnet_from_sd(sd: Mapping, p: str) -> dict:
+    params = {
+        "norm1": _norm(sd, f"{p}.norm1"),
+        "conv1": _conv(sd, f"{p}.conv1"),
+        "norm2": _norm(sd, f"{p}.norm2"),
+        "conv2": _conv(sd, f"{p}.conv2"),
+    }
+    if f"{p}.conv_shortcut.weight" in sd:
+        params["conv_shortcut"] = _conv(sd, f"{p}.conv_shortcut")
+    return params
+
+
+def _transformer_block_from_sd(sd: Mapping, p: str) -> dict:
+    def attn(ap: str) -> dict:
+        return {"q": _lin(sd, f"{ap}.to_q"), "k": _lin(sd, f"{ap}.to_k"),
+                "v": _lin(sd, f"{ap}.to_v"), "out": _lin(sd, f"{ap}.to_out.0")}
+
+    return {
+        "norm1": _norm(sd, f"{p}.norm1"),
+        "attn1": attn(f"{p}.attn1"),
+        "norm2": _norm(sd, f"{p}.norm2"),
+        "attn2": attn(f"{p}.attn2"),
+        "norm3": _norm(sd, f"{p}.norm3"),
+        "ff": {"proj": _lin(sd, f"{p}.ff.net.0.proj"), "out": _lin(sd, f"{p}.ff.net.2")},
+    }
+
+
+def _attn_block_from_sd(sd: Mapping, p: str) -> dict:
+    blocks = []
+    i = 0
+    while f"{p}.transformer_blocks.{i}.norm1.weight" in sd:
+        blocks.append(_transformer_block_from_sd(sd, f"{p}.transformer_blocks.{i}"))
+        i += 1
+    return {
+        "norm": _norm(sd, f"{p}.norm"),
+        "proj_in": _proj(sd, f"{p}.proj_in"),
+        "blocks": blocks,
+        "proj_out": _proj(sd, f"{p}.proj_out"),
+    }
+
+
+def unet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
+    params = {
+        "conv_in": _conv(sd, "conv_in"),
+        "time_embedding": {
+            "linear_1": _lin(sd, "time_embedding.linear_1"),
+            "linear_2": _lin(sd, "time_embedding.linear_2"),
+        },
+    }
+    if "time_embedding.cond_proj.weight" in sd:
+        params["time_embedding"]["cond_proj"] = _lin(sd, "time_embedding.cond_proj")
+    if config.addition_embed_dim is not None and "add_embedding.linear_1.weight" in sd:
+        params["add_embedding"] = {"linear_1": _lin(sd, "add_embedding.linear_1"),
+                                   "linear_2": _lin(sd, "add_embedding.linear_2")}
+
+    down_blocks = []
+    for level in range(config.num_levels):
+        p = f"down_blocks.{level}"
+        block = {"resnets": [_resnet_from_sd(sd, f"{p}.resnets.{j}")
+                             for j in range(config.layers_per_block)]}
+        if config.attention_levels[level]:
+            block["attentions"] = [_attn_block_from_sd(sd, f"{p}.attentions.{j}")
+                                   for j in range(config.layers_per_block)]
+        if f"{p}.downsamplers.0.conv.weight" in sd:
+            block["downsample"] = _conv(sd, f"{p}.downsamplers.0.conv")
+        down_blocks.append(block)
+    params["down_blocks"] = down_blocks
+
+    if config.mid_block:
+        params["mid_block"] = {
+            "resnets": [_resnet_from_sd(sd, "mid_block.resnets.0"),
+                        _resnet_from_sd(sd, "mid_block.resnets.1")],
+            "attentions": [_attn_block_from_sd(sd, "mid_block.attentions.0")],
+        }
+
+    up_blocks = []
+    for rev in range(config.num_levels):
+        level = config.num_levels - 1 - rev
+        p = f"up_blocks.{rev}"
+        block = {"resnets": [_resnet_from_sd(sd, f"{p}.resnets.{j}")
+                             for j in range(config.layers_per_block + 1)]}
+        if config.attention_levels[level]:
+            block["attentions"] = [_attn_block_from_sd(sd, f"{p}.attentions.{j}")
+                                   for j in range(config.layers_per_block + 1)]
+        if f"{p}.upsamplers.0.conv.weight" in sd:
+            block["upsample"] = _conv(sd, f"{p}.upsamplers.0.conv")
+        up_blocks.append(block)
+    params["up_blocks"] = up_blocks
+    params["norm_out"] = _norm(sd, "conv_norm_out")
+    params["conv_out"] = _conv(sd, "conv_out")
+    return params
+
+
+# ---------------------------------------------------------------------------
+# VAE (diffusers AutoencoderKL state dict)
+# ---------------------------------------------------------------------------
+
+
+def _vae_mid_from_sd(sd: Mapping, p: str) -> dict:
+    # newer diffusers: attentions.0.{to_q,to_k,to_v,to_out.0,group_norm};
+    # older: {query,key,value,proj_attn,norm}
+    ap = f"{p}.attentions.0"
+    if f"{ap}.to_q.weight" in sd:
+        attn = {"q": _proj(sd, f"{ap}.to_q"), "k": _proj(sd, f"{ap}.to_k"),
+                "v": _proj(sd, f"{ap}.to_v"), "out": _proj(sd, f"{ap}.to_out.0")}
+        norm = _norm(sd, f"{ap}.group_norm")
+    else:
+        attn = {"q": _proj(sd, f"{ap}.query"), "k": _proj(sd, f"{ap}.key"),
+                "v": _proj(sd, f"{ap}.value"), "out": _proj(sd, f"{ap}.proj_attn")}
+        norm = _norm(sd, f"{ap}.norm")
+    return {
+        "resnets": [_vae_resnet_from_sd(sd, f"{p}.resnets.0"),
+                    _vae_resnet_from_sd(sd, f"{p}.resnets.1")],
+        "attention": {"norm": norm, "attn": attn},
+    }
+
+
+def vae_encoder_params_from_state_dict(sd: Mapping, config: VAEConfig) -> dict:
+    params = {"conv_in": _conv(sd, "encoder.conv_in")}
+    down_blocks = []
+    for level in range(len(config.block_out_channels)):
+        p = f"encoder.down_blocks.{level}"
+        block = {"resnets": [_vae_resnet_from_sd(sd, f"{p}.resnets.{j}")
+                             for j in range(config.layers_per_block)]}
+        if f"{p}.downsamplers.0.conv.weight" in sd:
+            block["downsample"] = _conv(sd, f"{p}.downsamplers.0.conv")
+        down_blocks.append(block)
+    params["down_blocks"] = down_blocks
+    params["mid_block"] = _vae_mid_from_sd(sd, "encoder.mid_block")
+    params["norm_out"] = _norm(sd, "encoder.conv_norm_out")
+    params["conv_out"] = _conv(sd, "encoder.conv_out")
+    params["quant_conv"] = _conv(sd, "quant_conv")
+    return params
+
+
+def vae_decoder_params_from_state_dict(sd: Mapping, config: VAEConfig) -> dict:
+    params = {
+        "post_quant_conv": _conv(sd, "post_quant_conv"),
+        "conv_in": _conv(sd, "decoder.conv_in"),
+        "mid_block": _vae_mid_from_sd(sd, "decoder.mid_block"),
+    }
+    up_blocks = []
+    for rev in range(len(config.block_out_channels)):
+        p = f"decoder.up_blocks.{rev}"
+        block = {"resnets": [_vae_resnet_from_sd(sd, f"{p}.resnets.{j}")
+                             for j in range(config.layers_per_block + 1)]}
+        if f"{p}.upsamplers.0.conv.weight" in sd:
+            block["upsample"] = _conv(sd, f"{p}.upsamplers.0.conv")
+        up_blocks.append(block)
+    params["up_blocks"] = up_blocks
+    params["norm_out"] = _norm(sd, "decoder.conv_norm_out")
+    params["conv_out"] = _conv(sd, "decoder.conv_out")
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Safetensors / directory loading
+# ---------------------------------------------------------------------------
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file as an owned CPU tensor, by
+    the native reader (built on first use; a failed build raises)."""
+    from sdtpu_torch.utils import native_safetensors
+
+    return native_safetensors.load(path)
+
+
+def _find_weight_file(dirpath: str) -> str:
+    for n in ("diffusion_pytorch_model.safetensors", "model.safetensors"):
+        p = os.path.join(dirpath, n)
+        if os.path.exists(p):
+            return p
+    cands = [f for f in os.listdir(dirpath) if f.endswith(".safetensors")]
+    if len(cands) == 1:
+        return os.path.join(dirpath, cands[0])
+    raise FileNotFoundError(f"no safetensors weight file found in {dirpath}")
+
+
+def cast_tree(tree, dtype, device):
+    """Each floating leaf cast to ``dtype`` (through float32, round to
+    nearest even, as the JAX package's ``cast_pytree``), the others kept;
+    one owned copy per leaf on ``device``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_tree(v, dtype, device) for v in tree]
+    if tree.is_floating_point() and tree.dtype != dtype:
+        return tree.float().to(dtype).to(device)
+    # the leaf may be a view of a mapped file: always a copy
+    return tree.to(device, copy=True)
+
+
+def load_subfolder(model_dir: str, sub: str, convert, dtype, device):
+    """``convert(state_dict)`` of the weight file in ``model_dir/sub``, its
+    tensors read in place from the native reader's mapping, then
+    :func:`cast_tree` to ``dtype`` on ``device``."""
+    from sdtpu_torch.utils.native_safetensors import NativeSafetensors
+
+    with NativeSafetensors(_find_weight_file(os.path.join(model_dir, sub))) as f:
+        sd = f.state_dict()
+        out = cast_tree(convert(sd), dtype, device)
+        del sd
+    return out
+
+
+def load_pipeline_params(model_dir: str, config: PipelineConfig, *, dtype=None,
+                         device="cuda") -> dict:
+    """A diffusers-layout local directory
+    (``model_dir/{text_encoder,unet,vae}/...safetensors``, and
+    ``text_encoder_2`` for SDXL) -> ``{"clip", "unet", "vae_encoder",
+    "vae_decoder"[, "clip_2"]}``, every floating leaf in ``dtype or
+    config.param_dtype``, on ``device``.  Each file is mapped by the native
+    reader and its tensors read in place."""
+    dtype = dtype or config.param_dtype
+    params = {}
+    if config.clip is not None:  # bigG-only models (SDXL refiner) have none
+        params["clip"] = load_subfolder(
+            model_dir, "text_encoder", lambda sd: clip_params_from_state_dict(sd, config.clip),
+            dtype, device)
+    params["unet"] = load_subfolder(
+        model_dir, "unet", lambda sd: unet_params_from_state_dict(sd, config.unet),
+        dtype, device)
+    params.update(load_subfolder(model_dir, "vae", lambda sd: {
+        "vae_encoder": vae_encoder_params_from_state_dict(sd, config.vae),
+        "vae_decoder": vae_decoder_params_from_state_dict(sd, config.vae)}, dtype, device))
+    if config.clip_2 is not None:
+        params["clip_2"] = load_subfolder(
+            model_dir, "text_encoder_2",
+            lambda sd: clip_params_from_state_dict(sd, config.clip_2), dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's trees, and seeded random initialization
+# ---------------------------------------------------------------------------
 
 
 def _leaf_to_torch(leaf, device) -> torch.Tensor:
@@ -47,24 +406,25 @@ def _to(tree, device):
 
 def init_pipeline_params(key, config: PipelineConfig, *, device="cuda") -> dict:
     """Seeded random parameters for ``from_random``: the text encoder, the
-    UNet and the VAE decoder, equal to the JAX package's
+    UNet, the VAE encoder and decoder, equal to the JAX package's
     ``init_pipeline_params(key, config)`` leaf by leaf.  ``key`` (an int
     seed or a ``hostrng.HostKey``) splits five ways as there: CLIP, UNet,
-    the VAE encoder (drawn by the img2img slice), the decoder, a second
-    text encoder.  Every leaf is drawn on the host with numpy's Philox,
-    rounded to ``config.param_dtype`` (the CLIP embeddings stay float32)
-    and moved to ``device`` once."""
+    the VAE encoder, the decoder, a second text encoder.  Every leaf is
+    drawn on the host with numpy's Philox, rounded to
+    ``config.param_dtype`` (the CLIP embeddings stay float32) and moved to
+    ``device`` once."""
     from sdtpu_torch.models.clip import init_clip
     from sdtpu_torch.models.unet import init_unet
-    from sdtpu_torch.models.vae import init_vae_decoder
+    from sdtpu_torch.models.vae import init_vae_decoder, init_vae_encoder
 
     if config.clip is None or config.clip_2 is not None:
         raise NotImplementedError("dual / bigG-only text encoders: model-family slice")
-    k1, k2, _k3, k4, _k5 = hostrng.split(hostrng.ensure_key(key), 5)
+    k1, k2, k3, k4, _k5 = hostrng.split(hostrng.ensure_key(key), 5)
     dtype = config.param_dtype
     return _to({
         "clip": init_clip(k1, config.clip, dtype=dtype),
         "unet": init_unet(k2, config.unet, dtype=dtype),
+        "vae_encoder": init_vae_encoder(k3, config.vae, dtype=dtype),
         "vae_decoder": init_vae_decoder(k4, config.vae, dtype=dtype),
     }, device)
 

@@ -74,10 +74,13 @@ def test_bench_prints_the_reference_json_line(tiny_preset, capsys, extra, mode):
     (["--encoder-cache", "2"], "features"),
     (["--serving"], "serving"),
     (["--batch", "2"], "serving"),
-    (["--sampler", "euler"], "samplers"),
+    (["--sampler", "heun"], "unknown sampler"),
 ])
 def test_bench_refuses_unported_flags(tiny_preset, flags, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+    """A flag of a later slice raises NotImplementedError naming it; an
+    unknown ``--sampler`` raises ValueError, before any parameter is made."""
+    error = ValueError if "--sampler" in flags else NotImplementedError
+    with pytest.raises(error, match=slice_name):
         bench.main(["--preset", tiny_preset, "--device", "cpu", *flags])
 
 

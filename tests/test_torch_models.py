@@ -185,9 +185,12 @@ def test_ddpm_step_and_add_noise(prediction_type, zero_snr):
 
 
 def test_only_ddpm_is_ported():
+    """Every sampler of the JAX package is ported now
+    (``test_torch_samplers.py``); an unknown name raises its ValueError."""
     assert tsamplers.get_sampler("ddpm").stochastic
-    with pytest.raises(NotImplementedError, match="samplers slice"):
-        tsamplers.get_sampler("euler")
+    assert not tsamplers.get_sampler("euler").stochastic
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tsamplers.get_sampler("heun")
 
 
 # --------------------------------------------------------------- weights --
@@ -217,12 +220,10 @@ def test_init_pipeline_params_matches_jax_tree():
     """``init_pipeline_params(seed)`` is the JAX package's
     ``init_pipeline_params(seed)`` bitwise, leaf by leaf (keys, shapes,
     dtypes and values), under a float32 and a bf16 param dtype (the CLIP
-    embeddings stay float32 there too).  The VAE encoder belongs to the
-    img2img slice."""
+    embeddings stay float32 there too), the VAE encoder included."""
     for dt in (jnp.float32, jnp.bfloat16):
         cfg = TINY.replace(param_dtype=dt)
         want = jax.tree.map(np.asarray, jax_init(0, cfg))
-        del want["vae_encoder"]
         got = init_pipeline_params(0, port_config(cfg), device="cpu")
         want_leaves, got_leaves = list(_leaves(want)), list(_leaves(got))
         assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
@@ -240,6 +241,7 @@ def test_init_pipeline_params_matches_jax_tree():
     ("clip", tclip.init_clip, jclip.init_clip, TINY.clip),
     ("unet", tunet.init_unet, junet.init_unet, TINY.unet),
     ("vae_decoder", tvae.init_vae_decoder, jvae.init_vae_decoder, TINY.vae),
+    ("vae_encoder", tvae.init_vae_encoder, jvae.init_vae_encoder, TINY.vae),
 ])
 def test_model_init_from_a_seed_matches_jax(name, init, jinit, cfg):
     """Each model's ``init_*`` from an int seed (a ``HostKey`` underneath)
