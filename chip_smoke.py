@@ -126,6 +126,29 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               bitwise equal, the bf16 image's launch counts; ``bench
               --sampler dpm++-karras``.  The directory is deleted at the
               end.
+15. conditioned -- on the seed-0 tiny-sd tree again: (a) img2img and
+              latent-blend inpainting at 512x512, 25 DDPM steps at strength
+              0.75 (18 steps), CFG 7.5: exact launches (recorded calls,
+              and A/B/C predicted from a UNet step's, the decode's and the
+              encode's), the final latents through the kernels against the
+              plain route in bf16, beside its bf16-vs-f32 difference;
+              (b) ``generate_batch`` of 4 rows with per-request seeds (the
+              bf16 image's A/B/C launches, s, peak memory) and the ported
+              ``tools/check_batch_invariance`` at its defaults, on its own
+              weights (0.04 x normals, the JAX tool's); (c) on those
+              weights a ``ServingEngine`` answering 8 requests (a txt2img
+              bucket with two negative prompts and an img2img bucket, at
+              most 4 rows a batch), each image held to its solo row within
+              the gate's envelope at its 4 Euler steps; then, measured
+              beside a yardstick (the solo image through the kernels
+              against the plain versions), the same at 25 DDPM steps and
+              4 requests on the seed-0 tree; (d)
+              ``sd15-inpaint`` and ``ip2p`` at full width on seeded random
+              weights: ``from_random`` seconds, one 512x512 request each with
+              exact launches, one UNet forward at its inputs (batch 2 and
+              3) through the kernels against the plain route; (e) the
+              bench's ``--img2img``, ``--batch 4`` and ``--serving`` lines
+              with their launches held to their requests.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -749,6 +772,20 @@ def record_main_path_calls(torch, pipe, ids):
         return STEPS if shape[0] == 2 else 1  # UNet runs at batch 2, the VAE at 1
 
     return {key: {c: n * per_image(c[0]) for c, n in cs.items()} for key, cs in calls.items()}
+
+
+def expected_launches(calls, keys):
+    """The launches of every kernel that a bf16 run's recorded calls
+    (:func:`record_calls`) make: one A, B or C a call, the pre-passes,
+    split-K reductions and merges from the plans, 0 for the rest of
+    ``keys``."""
+    slab = calls["conv3x3_slab"]
+    expected = dict.fromkeys(keys, 0)
+    expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4])
+    expected["conv3x3_slab_upsample"] = sum(n for c, n in slab.items() if c[4])
+    expected["flash_attention"] = sum(calls["flash_attention_packed"].values())
+    expected.update(conv_sub_counts(slab), **flash_sub_counts(calls))
+    return expected
 
 
 def conv_sub_counts(conv_calls):
@@ -1458,7 +1495,6 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe_q.params = None
     pipe.params = tree_to(host_params, "cuda")
-    del host_params
     details["seeds"] = seeds_phase(torch, np, pipe, ids)
     details["seeds"]["from_random_s"] = from_random_s
     t1 = time.perf_counter()
@@ -1472,16 +1508,23 @@ def main() -> int:
     t4 = time.perf_counter()
 
     # phase 14: a diffusers checkpoint, the VAE encoder, the samplers
-    clip_tree = tree_to(pipe.params["clip"], "cpu")
     pipe.params = None
     torch.cuda.empty_cache()
-    details["checkpoint"] = checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree,
+    details["checkpoint"] = checkpoint_phase(torch, np, gen, exp_rate, ids, host_params["clip"],
                                              launch_counts, reset_launch_counts, e2e_expected,
                                              kind)
     t5 = time.perf_counter()
+
+    # phase 15: image-conditioned requests and batched serving, on the
+    # seed-0 tree again
+    pipe.params = tree_to(host_params, "cuda")
+    del host_params
+    details["conditioned"] = conditioned_phase(torch, np, gen, pipe, ids, launch_counts,
+                                               reset_launch_counts, kind, e2e_expected)
+    t6 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
-                          "stages": t4 - t3, "checkpoint": t5 - t4}
-    log("phases 10-14 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5}
+    log("phases 10-15 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -2225,11 +2268,7 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
         with torch.inference_mode():
             calls = record_calls(torch, lambda: vae_encoder(img, enc, cfg.vae))
             slab = calls["conv3x3_slab"]
-            expected = dict.fromkeys(launch_counts, 0)
-            expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4])
-            expected["conv3x3_slab_upsample"] = sum(n for c, n in slab.items() if c[4])
-            expected["flash_attention"] = sum(calls["flash_attention_packed"].values())
-            expected.update(conv_sub_counts(slab), **flash_sub_counts(calls))
+            expected = expected_launches(calls, launch_counts)
             torch.cuda.synchronize()
             reset_launch_counts()
             moments = vae_encoder(img, enc, cfg.vae)
@@ -2328,6 +2367,300 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
     if not ok:
         raise AssertionError("bench --sampler dpm++-karras")
     out["bench"] = {"line": line, "launches": counts}
+    return out
+
+
+# ------------------------------------------- conditioned requests, serving --
+
+STRENGTH = 0.75            # phase 15's img2img strength (the bench's default)
+INV_LEVEL, INV_FRAC = 1, 0.03  # the batch-invariance envelope (tools/check_batch_invariance.py)
+# tiny-sd's launches of A, B and C: one UNet step (CFG batch), one VAE
+# decode, one 512x512 VAE encode (E2E_COUNTS = 25 steps + one decode)
+UNET_STEP = {"conv3x3_slab": 18, "conv3x3_slab_upsample": 2, "flash_attention": 9}
+VAE_DECODE = {"conv3x3_slab": 28, "conv3x3_slab_upsample": 3, "flash_attention": 1}
+VAE_ENCODE = {"conv3x3_slab": 20, "conv3x3_slab_upsample": 0, "flash_attention": 1}
+
+
+def byte_tokenizer():
+    """A CLIP tokenizer over the 256 byte symbols and their word-final
+    forms, with no merges (its ids lie below tiny-sd's vocabulary size):
+    the serving requests' negative prompts need a tokenizer, and no CLIP
+    vocabulary ships in the repository."""
+    from sdtpu_torch.tokenizer.bpe import BOS_TOKEN, EOS_TOKEN, CLIPTokenizer, bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(symbols + [c + "</w>" for c in symbols]
+                                        + [BOS_TOKEN, EOS_TOKEN])}
+    return CLIPTokenizer(vocab, [])
+
+
+def counted(torch, run, launch_counts, reset_launch_counts):
+    """``run()`` once through the recording shims, then once more with the
+    launch counts zeroed just before it and read just after: (its result,
+    seconds, counts, the counts expected from the recorded calls, the
+    calls)."""
+    calls = record_calls(torch, run)
+    expected = expected_launches(calls, launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return out, sec, dict(launch_counts), expected, calls
+
+
+def hold_counts(label, counts, expected, predicted=None):
+    """Fail unless the run's launches equal those of its recorded calls and,
+    where given, the predicted A/B/C counts."""
+    main = {k: counts[k] for k in ("conv3x3_slab", "conv3x3_slab_upsample", "flash_attention")}
+    ok = counts == expected and (predicted is None or main == predicted)
+    log(f"{label} launches: {counts}; expected from its recorded calls and the plans: "
+        f"{expected}" + ("" if predicted is None else f"; A/B/C predicted {predicted}")
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"{label}: the launch counts are off")
+
+
+def judge_rel(torch, label, k_out, p_out, f_out):
+    """kernels vs plain (bf16) <= max(2 x the plain route's bf16-vs-f32, 1e-2)."""
+    finite = bool(torch.isfinite(k_out).all())
+    d_kp, d_pf = rel_l2(torch, k_out, p_out), rel_l2(torch, p_out, f_out)
+    ok = finite and d_kp <= max(2.0 * d_pf, 1e-2)
+    log(f"{label}: rel L2 kernels-vs-plain (bf16) {d_kp:.4g}; plain bf16-vs-f32 {d_pf:.4g}; "
+        f"finite {finite}; tol max(2x bf16-vs-f32, 1e-2)" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"{label}: the kernels disagree with the plain route")
+    return {"kernels_vs_plain": d_kp, "plain_bf16_vs_f32": d_pf}
+
+
+def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_counts, kind,
+                      e2e_expected):
+    """Phase 15: tiny-sd img2img and latent-blend inpainting (kernels vs
+    plain on the final latents, exact launches), ``generate_batch`` at B =
+    4 with the ported invariance gate, a ``ServingEngine`` answering 8
+    requests, the SD-1.5 widths of ``sd15-inpaint`` and ``ip2p``, and the
+    bench's image-conditioned, batch and serving lines."""
+    from sdtpu_torch import StableDiffusionPipeline, bench
+    from sdtpu_torch.models.unet import unet_forward
+    from sdtpu_torch.pipeline.serving import ServingEngine
+    from sdtpu_torch.samplers import get_sampler
+    from sdtpu_torch.tools import check_batch_invariance
+
+    out = {}
+    t_phase = time.perf_counter()
+    pcfg = pipe.config
+    rng = np.random.default_rng(15)
+    init = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    mask = np.zeros((512, 512), np.uint8)
+    mask[:, 256:] = 255
+    s_eff = get_sampler("ddpm").make_schedule(pcfg.scheduler, STEPS, STRENGTH).num_steps
+    if {k: STEPS * v + VAE_DECODE[k] for k, v in UNET_STEP.items()} != {
+            k: E2E_COUNTS[k] for k in UNET_STEP}:
+        raise AssertionError("UNET_STEP and VAE_DECODE do not add up to the bf16 image's counts")
+    predicted = {k: s_eff * v + VAE_DECODE[k] + VAE_ENCODE[k] for k, v in UNET_STEP.items()}
+
+    # (a) img2img and latent-blend inpainting
+    pipe32 = StableDiffusionPipeline(
+        pcfg.replace(compute_dtype=torch.float32, param_dtype=torch.float32),
+        to_dtype(pipe.params, torch.float32), device="cuda")
+    base = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
+                cfg_scale=7.5, strength=STRENGTH, init_image=init)
+    for label, extra in (("img2img", {}), ("inpaint", {"mask_image": mask})):
+        kw = dict(base, **extra)
+        img, sec, counts, expected, _ = counted(torch, lambda: pipe.generate(**kw),
+                                                launch_counts, reset_launch_counts)
+        log(f"{label} (tiny-sd 512x512, {STEPS} DDPM steps at strength {STRENGTH} = {s_eff} "
+            f"steps, CFG 7.5): image {img.shape} {img.dtype}, pixel std {float(img.std()):.3f}, "
+            f"{sec:.4f} s/image")
+        if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or float(img.std()) == 0.0:
+            raise AssertionError(f"{label}: not a non-constant (1, 512, 512, 3) uint8 image")
+        hold_counts(label, counts, expected, predicted)
+        with torch.inference_mode():
+            k_lat = torch.from_numpy(pipe.generate(output="latents", **kw))
+            with routed(**plain_routes()):
+                p_lat = torch.from_numpy(pipe.generate(output="latents", **kw))
+                f_lat = torch.from_numpy(pipe32.generate(output="latents", **kw))
+        out[label] = {"s_per_image": sec, "launches": counts,
+                      **judge_rel(torch, f"{label} final latents", k_lat, p_lat, f_lat)}
+    del pipe32
+    torch.cuda.empty_cache()
+
+    # (b) generate_batch at B = 4: one request of 4 rows, per-request seeds
+    bids = np.random.default_rng(4).integers(1, 49408, (4, 77))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bkw = dict(token_ids=bids, num_inference_steps=STEPS, seeds=[10, 11, 12, 13],
+               image_size=512)
+    imgs, sec, counts, expected, _ = counted(
+        torch, lambda: pipe.generate_batch(["x"] * 4, **bkw), launch_counts, reset_launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"generate_batch B=4 (512x512, {STEPS} steps, CFG, UNet batch 8): {imgs.shape}, "
+        f"{sec:.4f} s for 4 images ({4 / sec:.4f} images/s), peak memory above what was "
+        f"allocated before it {peak / 2**30:.3f} GiB")
+    if imgs.shape != (4, 512, 512, 3) or min(float(i.std()) for i in imgs) == 0.0:
+        raise AssertionError("generate_batch: not four non-constant images")
+    hold_counts("generate_batch B=4", counts, expected,
+                {k: e2e_expected[k] for k in UNET_STEP})
+    out["batch4"] = {"s_per_batch": sec, "images_per_s": 4 / sec, "peak_bytes": peak,
+                     "launches": counts}
+    # the gate's own weights (0.04 x normals, the JAX tool's): on them the
+    # envelope was set, while the seed-0 tree's image moves by several
+    # levels for any rounding change (see (c))
+    t0 = time.perf_counter()
+    inv_pipe = check_batch_invariance.gate_pipeline("tiny-sd", "cuda")
+    log(f"check_batch_invariance weights in {time.perf_counter() - t0:.1f} s")
+    inv = check_batch_invariance.run_gate(inv_pipe, check_batch_invariance.parse_args([]))
+    if not inv["pass"]:
+        raise AssertionError(f"check_batch_invariance: {inv['rows']}")
+    out["batch_invariance"] = inv
+
+    # (c) a ServingEngine answering 8 requests on the gate's weights: a
+    # txt2img bucket with two negative prompts and an img2img bucket, at
+    # most 4 rows a batch; each image held to its solo generate_batch row
+    # within the gate's envelope at its own settings (4 Euler steps); then
+    # the same requests at STEPS DDPM steps, and request 0 at 4 Euler steps
+    # on the seed-0 tree, their gaps measured beside a yardstick: the solo
+    # image through the kernels against the plain versions
+    tok = byte_tokenizer()
+    sids = np.random.default_rng(8).integers(1, 49408, (8, 77))
+    out["serving"] = {}
+    for label, serve_pipe, sampler, steps, n_req in (
+            ("gate weights, 4-step euler", inv_pipe, "euler", 4, 8),
+            (f"gate weights, {STEPS}-step ddpm", inv_pipe, "ddpm", STEPS, 8),
+            ("seed-0 tree, 4-step euler", pipe, "euler", 4, 4)):
+        gated = serve_pipe is inv_pipe and steps == 4
+        serve_pipe.tokenizer = tok
+        reqs = []
+        for i in range(n_req):
+            r = dict(token_ids=sids[i], seed=100 + i, num_inference_steps=steps,
+                     sampler=sampler, image_size=512,
+                     negative_prompt=("" if i % 2 else "blurry, low quality"))
+            if i in (1, 4, 6):
+                r.update(init_image=init[::-1] if i == 4 else init, strength=STRENGTH)
+            reqs.append(r)
+        engine = ServingEngine(serve_pipe, max_batch_size=4, max_wait_ms=20.0)
+        try:
+            t0 = time.perf_counter()
+            futs = [engine.submit("x", **r) for r in reqs]
+            served = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            stats = engine.stats()
+        finally:
+            engine.shutdown()
+        log(f"serving ({label}): {n_req} requests in {wall:.3f} s; stats {stats}")
+        if stats["requests"] != n_req or stats["failures"] or stats["batches"] < 2:
+            raise AssertionError(f"serving ({label}): stats {stats}")
+        gaps = []
+        for i, r in enumerate(reqs):
+            kw = dict(token_ids=r["token_ids"][None], seeds=[r["seed"]], sampler=sampler,
+                      negative_prompt=[r["negative_prompt"]], num_inference_steps=steps,
+                      image_size=512)
+            if "init_image" in r:
+                kw.update(init_images=[r["init_image"]], strength=r["strength"])
+            solo = serve_pipe.generate_batch(["x"], **kw)[0]
+            gap = check_batch_invariance.row_gap(served[i], solo)
+            level, frac = gap["max_level_diff"], gap["mismatched_frac"]
+            gaps.append({"request": i, "max_level_diff": level, "mismatched_frac": frac})
+            ok = served[i].shape == (512, 512, 3) and (
+                not gated or (level <= INV_LEVEL and frac <= INV_FRAC))
+            log(f"serving ({label}) request {i} ({'img2img' if 'init_image' in r else 'txt2img'}"
+                f", negative {r['negative_prompt']!r}): against its solo image max {level} "
+                f"level(s), {frac:.4%} of values differ"
+                + (f" (envelope {INV_LEVEL}, {INV_FRAC:.0%})" if gated else " (measured)")
+                + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"serving ({label}) request {i} is off its solo image")
+            if i == 0:
+                with routed(**plain_routes()):
+                    plain = serve_pipe.generate_batch(["x"], **kw)[0]
+                y_gap = check_batch_invariance.row_gap(plain, solo)
+                y_level, y_frac = y_gap["max_level_diff"], y_gap["mismatched_frac"]
+                log(f"serving ({label}) request 0 yardstick: its solo image through the "
+                    f"kernels vs through the plain versions: max {y_level} level(s), "
+                    f"{y_frac:.4%} of values differ")
+                gaps[-1].update(yardstick_max_level=y_level, yardstick_frac=y_frac)
+        serve_pipe.tokenizer = None
+        out["serving"][label] = {"wall_s": wall, "stats": stats, "gaps": gaps}
+    del inv_pipe
+    torch.cuda.empty_cache()
+
+    # (d) the SD-1.5 widths: sd15-inpaint (9-channel UNet, its mid block)
+    # and ip2p (8 channels, three guidance branches), one 512x512 request
+    # each on seeded random weights
+    sd_ids = np.random.default_rng(40).integers(1, 49408, (2, 77))
+    for preset, extra, rows in (("sd15-inpaint", {"mask_image": mask, "strength": 1.0}, 2),
+                                ("ip2p", {"image_guidance_scale": 1.5}, 3)):
+        t0 = time.perf_counter()
+        sd = StableDiffusionPipeline.from_random(preset, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        fr_s = time.perf_counter() - t0
+        kw = dict(token_ids=sd_ids, num_inference_steps=STEPS, seed=40, image_size=512,
+                  init_image=init, **extra)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        img, sec, counts, expected, calls = counted(torch, lambda: sd.generate(**kw),
+                                                    launch_counts, reset_launch_counts)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"{preset}: from_random(seed=0) {fr_s:.3f} s on the host; 512x512, {STEPS} DDPM "
+            f"steps, CFG 7.5, UNet batch {rows}: image {img.shape}, pixel std "
+            f"{float(img.std()):.3f}, {sec:.4f} s/image, peak memory above the resident "
+            f"trees {peak / 2**30:.3f} GiB")
+        if img.shape != (1, 512, 512, 3) or float(img.std()) == 0.0:
+            raise AssertionError(f"{preset}: not a non-constant (1, 512, 512, 3) image")
+        hold_counts(preset, counts, expected)
+        attn = sorted({(q, lk) for (q, lk) in calls["flash_attention_packed"]})
+        log(f"{preset} attention call shapes (q, Lk): {attn}")
+        # kernels vs plain on one UNet forward at the request's inputs
+        ucfg = sd.config.unet
+        lat = torch.randn((rows, 64, 64, ucfg.in_channels), generator=gen, device="cuda")
+        ctx = torch.randn((rows, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+        ts = torch.full((rows,), 501.0, device="cuda")
+        u32 = to_dtype(sd.params["unet"], torch.float32)
+        with torch.inference_mode():
+            k_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), sd.params["unet"],
+                                 ucfg).float()
+            with routed(**plain_routes()):
+                p_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), sd.params["unet"],
+                                     ucfg).float()
+                f_out = unet_forward(lat, ts, ctx, u32, ucfg).float()
+        del u32
+        out[preset] = {"from_random_s": fr_s, "s_per_image": sec, "peak_bytes": peak,
+                       "launches": counts, "attention_shapes": [list(a) for a in attn],
+                       **judge_rel(torch, f"{preset} unet_forward b{rows}", k_out, p_out, f_out)}
+        del sd, k_out, p_out, f_out
+        torch.cuda.empty_cache()
+
+    # (e) the bench's lines: --img2img, --batch 4, --serving, each with its
+    # launches held to the requests it made (the first run, then 1 + repeats
+    # pipelined; the serving line's warmup, then its 16 requests, which the
+    # engine may coalesce into any batches: A, B and C launch once a call
+    # whatever the batch, the plans' pre-passes and reductions do not)
+    images = BENCH_REPEATS + 2
+    i2i_counts = out["img2img"]["launches"]
+    b4_counts = out["batch4"]["launches"]
+    for label, argv, want, keys in (
+            ("--img2img", ["--img2img"], {k: images * v for k, v in i2i_counts.items()},
+             i2i_counts),
+            ("--batch 4", ["--batch", "4"], {k: images * v for k, v in b4_counts.items()},
+             b4_counts),
+            ("--serving", ["--serving", "--requests", "16", "--batch", "4"], None,
+             [k for k in b4_counts if k in UNET_STEP or b4_counts[k] == 0])):
+        reset_launch_counts()
+        line = bench.main(["--repeats", str(BENCH_REPEATS), *argv])
+        counts = dict(launch_counts)
+        if want is None:  # the warmup's request, then one per batch the engine ran
+            want = {k: (1 + line["batches"]) * v for k, v in b4_counts.items()}
+        ok = (line["value"] > 0 and line["device"] == kind
+              and all(counts[k] == want[k] for k in keys))
+        log(f"bench {label}: {json.dumps(line)}; launches {counts}" + (" ok" if ok else
+                                                                        f" FAIL (want {want})"))
+        if not ok:
+            raise AssertionError(f"bench {label}")
+        out[f"bench {label}"] = {"line": line, "launches": counts}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['phase_s']:.1f} s")
     return out
 
 

@@ -6,11 +6,17 @@ batch 1 on one NVIDIA card, the counterpart of the JAX package's
     {"metric": ..., "value": N, "unit": "images/sec", "vs_baseline": N, ...}
 
 It adds ``--device`` (default ``cuda``; ``cpu`` for the tests, which then
-report no MFU).  Flags that need a feature the port does not have yet raise
-``NotImplementedError`` naming the slice that brings it: ``--img2img``,
-``--controlnet``, ``--pag-scale``, ``--encoder-cache``, ``--serving`` and
-``--batch`` > 1.  ``--sampler`` takes any of the 13 names of
-``sdtpu_torch.samplers.SAMPLERS``; another name raises ``ValueError``.
+report no MFU).  ``--img2img`` VAE-encodes an init image first (at
+``--strength``); a 9-channel inpaint preset also takes a mask (the right
+half) at strength 1, an 8-channel InstructPix2Pix preset an init image.
+``--batch`` > 1 runs ``generate_batch``; ``--serving`` drives ``--requests``
+requests through the ``ServingEngine`` (``--batch`` coalesced,
+``--device-batch`` rows per device request) and prints the serving line.
+Flags that need a feature the port does not have yet raise
+``NotImplementedError`` naming the slice that brings it: ``--controlnet``,
+``--pag-scale`` and ``--encoder-cache``.  ``--sampler`` takes any of the 13
+names of ``sdtpu_torch.samplers.SAMPLERS``; another name raises
+``ValueError``.
 
 The parameters are zeros of the init shapes (speed does not depend on the
 weight values), quantized with ``--int8``; ``SDTPU_PACKED_OUT_PROJ=1`` in
@@ -18,7 +24,10 @@ the environment switches the flash route's out-projections to kernel G.
 The token ids are fixed; timing covers tokens -> uint8 image on the host.
 By default it is pipelined: request N+1 is dispatched (``output="device"``)
 before request N is fetched, and an image's time is the gap between
-successive fetches; ``--no-overlap`` times each request alone.
+successive fetches; ``--no-overlap`` times each request alone.  The
+analytic FLOP count covers no conditioned UNet (9 or 8 input channels),
+whose line then has no ``program_tflops`` and ``mfu_pct``, as in the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -84,12 +93,9 @@ def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming its slice, for a flag whose feature
     the port does not have yet."""
     later = [
-        (args.img2img, "--img2img", "img2img/inpainting slice"),
         (args.controlnet, "--controlnet", "ControlNet slice"),
         (args.pag_scale != 0.0, "--pag-scale", "features slice"),
         (args.encoder_cache != 1, "--encoder-cache", "features slice"),
-        (args.serving, "--serving", "batching/serving slice"),
-        (args.batch != 1, "--batch > 1", "batching/serving slice"),
     ]
     for used, flag, where in later:
         if used:
@@ -118,8 +124,6 @@ def main(argv=None) -> dict:
     cfg = False if args.no_cfg else config.default_cfg
     if args.image_size is None:
         args.image_size = config.default_image_size
-    if config.unet.in_channels != config.vae.latent_channels:
-        args.img2img = True  # inpaint / edit checkpoints take an init image
     refuse_unported(args)
     get_sampler(sampler)  # an unknown name raises before any parameter is made
     device = torch.device(args.device)
@@ -138,13 +142,41 @@ def main(argv=None) -> dict:
     print(f"params materialized in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     rng = np.random.default_rng(40)
-    ids = rng.integers(1, config.text_config.vocab_size,
-                       (2 if cfg else 1, config.text_config.max_length))
+    # conditioned UNets take their inputs: a 9-channel inpaint UNet an init
+    # image and a mask, at strength 1; an 8-channel editing UNet an init image
+    latent_ch = config.vae.latent_channels
+    bench_mask = None
+    if config.unet.in_channels == 2 * latent_ch + 1:
+        args.img2img = True
+        bench_mask = np.zeros((args.image_size, args.image_size), np.uint8)
+        bench_mask[:, args.image_size // 2:] = 255
+        args.strength = 1.0
+    elif config.unet.in_channels == 2 * latent_ch:
+        args.img2img = True
+    if args.serving:
+        return _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg)
+    init_image = (rng.integers(0, 255, (args.image_size, args.image_size, 3), dtype=np.uint8)
+                  if args.img2img else None)
+    if args.batch == 1:
+        ids = rng.integers(1, config.text_config.vocab_size,
+                           (2 if cfg else 1, config.text_config.max_length))
 
-    def run(seed: int, output: str = "uint8"):
-        return pipe.generate("bench", token_ids=ids, num_inference_steps=steps, seed=seed,
-                             image_size=args.image_size, output=output, sampler=sampler,
-                             cfg=cfg)
+        def run(seed: int, output: str = "uint8"):
+            return pipe.generate("bench", token_ids=ids, num_inference_steps=steps, seed=seed,
+                                 image_size=args.image_size, output=output, sampler=sampler,
+                                 cfg=cfg, init_image=init_image, strength=args.strength,
+                                 mask_image=bench_mask)
+    else:
+        ids = rng.integers(1, config.text_config.vocab_size,
+                           (args.batch, config.text_config.max_length))
+
+        def run(seed: int, output: str = "uint8"):
+            return pipe.generate_batch(
+                ["bench"] * args.batch, token_ids=ids, num_inference_steps=steps, seed=seed,
+                image_size=args.image_size, output=output, sampler=sampler, cfg=cfg,
+                init_images=[init_image] * args.batch if init_image is not None else None,
+                mask_images=[bench_mask] * args.batch if bench_mask is not None else None,
+                strength=args.strength)
 
     t0 = time.perf_counter()
     run(0)
@@ -186,7 +218,7 @@ def main(argv=None) -> dict:
 
     p50 = statistics.median(times)
     images_per_sec = args.batch / p50
-    variant = "int8 " if args.int8 else ""
+    variant = ("int8 " if args.int8 else "") + ("img2img " if args.img2img else "")
     guidance = "CFG" if cfg else "no-CFG"
     result = {
         "metric": f"{args.preset} {args.image_size}x{args.image_size} "
@@ -206,11 +238,72 @@ def main(argv=None) -> dict:
     }
     if mode == "pipelined":
         result["p50_request_latency_s"] = round(statistics.median(request_times), 4)
-    flops = pipeline_flops(pipe.config, args.image_size, steps, args.batch, cfg=cfg)
-    result["program_tflops"] = round(flops / 1e12, 2)
-    # a share of the card's peak; a CPU run measures no card
-    result["mfu_pct"] = (round(100.0 * flops / p50 / PEAK_FLOPS, 1) if device.type == "cuda"
-                         else None)
+    if config.unet.in_channels == latent_ch:
+        flops = pipeline_flops(pipe.config, args.image_size, steps, args.batch, cfg=cfg,
+                               img2img=args.img2img, strength=args.strength)
+        result["program_tflops"] = round(flops / 1e12, 2)
+        # a share of the card's peak; a CPU run measures no card
+        result["mfu_pct"] = (round(100.0 * flops / p50 / PEAK_FLOPS, 1)
+                             if device.type == "cuda" else None)
+    print(json.dumps(result))
+    return result
+
+
+def _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg) -> dict:
+    """Requests through the ServingEngine (queueing, coalescing, per-request
+    keys and two batches in flight included), after a warmup of the device
+    request sizes it will run: the serving JSON line."""
+    import numpy as np
+
+    from sdtpu_torch.pipeline.serving import DEFAULT_DEVICE_BATCH, ServingEngine
+
+    n = args.requests - args.requests % args.batch or args.batch
+    ids = rng.integers(1, config.text_config.vocab_size, (n, config.text_config.max_length))
+    init_image = mask_image = None
+    latent_ch = config.vae.latent_channels
+    if config.unet.in_channels != latent_ch:
+        init_image = rng.integers(0, 255, (args.image_size, args.image_size, 3), dtype=np.uint8)
+        if config.unet.in_channels == 2 * latent_ch + 1:
+            mask_image = np.zeros((args.image_size, args.image_size), np.uint8)
+            mask_image[:, args.image_size // 2:] = 255
+    strength = 1.0 if mask_image is not None else args.strength
+    # every request is submitted at once, so the device requests are
+    # min(db, batch) rows and the remainder batch % db: both warmed
+    db = args.device_batch if args.device_batch is not None else DEFAULT_DEVICE_BATCH
+    warm = sorted({min(db, args.batch)} | ({args.batch % db} if args.batch % db else set()))
+    pipe.warmup(image_sizes=(args.image_size,), step_counts=(steps,), batch_sizes=tuple(warm),
+                cfg=cfg, sampler=sampler, img2img=init_image is not None,
+                inpaint=mask_image is not None, strength=strength)
+    engine = ServingEngine(pipe, max_batch_size=args.batch, max_wait_ms=5.0,
+                           device_batch_size=db)
+    try:
+        t0 = time.perf_counter()
+        futs = [engine.submit("bench", token_ids=ids[i], seed=i, num_inference_steps=steps,
+                              sampler=sampler, cfg=cfg, image_size=args.image_size,
+                              init_image=init_image, mask_image=mask_image, strength=strength)
+                for i in range(n)]
+        for f in futs:
+            f.result(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    finally:
+        engine.shutdown()
+    result = {
+        "metric": f"{args.preset} {args.image_size}x{args.image_size} {steps}-step {sampler} "
+                  f"{'CFG' if cfg else 'no-CFG'} serving images/sec/chip",
+        "value": round(n / wall, 4),
+        "unit": "images/sec",
+        "vs_baseline": round(n / wall / 1.0, 4),
+        "baseline_definition": "north-star target 1.0 img/s (reference publishes none)",
+        "requests": n,
+        "mean_batch_size": round(stats["mean_batch_size"], 2),
+        "batches": stats["batches"],
+        "wall_s": round(wall, 3),
+        "device": dev_name,
+    }
+    for k in ("request_latency_p50_s", "request_latency_p95_s"):
+        if k in stats:
+            result[k] = round(stats[k], 4)
     print(json.dumps(result))
     return result
 

@@ -1,0 +1,139 @@
+"""Command-line demo of the port, the counterpart of the JAX package's
+``demo.py``::
+
+    python -m sdtpu_torch.demo [--prompt "a cat flying a spaceship"] [--model-dir DIR]
+        [--preset tiny-sd] [--image-size N] [--steps N] [--seed 40] [--sampler NAME]
+        [--cfg-scale S | --no-cfg] [--init-image PNG [--mask-image PNG] [--strength S]]
+        [--image-guidance-scale S] [--int8] [--out out.png] [--device cuda]
+
+Without ``--model-dir`` it runs seeded random weights (the structured
+noise is the expected output); ``--model-dir`` loads a local diffusers
+checkpoint directory.  Without a tokenizer the prompt hashes to fixed
+token ids, as in the JAX demo.  Images are read and written as PNG by
+``utils/image.py`` (8-bit grey, RGB or RGBA in).  The JAX demo's flags for
+features the port does not have yet raise NotImplementedError naming the
+slice that brings them.  On the card by default; ``--device cpu`` is for
+the tests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+# the JAX demo's flags of later slices: (flag, its default, the slice)
+LATER = (
+    ("freeu", None, "features slice"),
+    ("guidance_rescale", 0.0, "features slice"),
+    ("pag_scale", 0.0, "features slice"),
+    ("hires_base", None, "features slice (generate_hires)"),
+    ("controlnet", [], "ControlNet slice"),
+    ("control_image", [], "ControlNet slice"),
+    ("controlnet_scale", [], "ControlNet slice"),
+    ("lora", [], "features slice"),
+    ("textual_inversion", [], "features slice"),
+    ("prompt_weighting", False, "features slice"),
+    ("encoder_cache", 1, "features slice"),
+    ("refiner", None, "model-family slice (the SDXL refiner)"),
+)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prompt", default="a cat flying a spaceship")
+    ap.add_argument("--negative-prompt", default="")
+    ap.add_argument("--model-dir", default=None, help="local diffusers-layout checkpoint dir")
+    ap.add_argument("--preset", default="tiny-sd")
+    ap.add_argument("--image-size", type=int, default=None,
+                    help="default: the preset's native size")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="default: the preset's native step count")
+    ap.add_argument("--seed", type=int, default=40)
+    ap.add_argument("--sampler", default=None,
+                    help="a name of sdtpu_torch.samplers.SAMPLERS (default: the preset's)")
+    ap.add_argument("--cfg-scale", type=float, default=None)
+    ap.add_argument("--no-cfg", action="store_true")
+    ap.add_argument("--init-image", default=None, help="img2img input PNG")
+    ap.add_argument("--mask-image", default=None,
+                    help="inpainting mask PNG (white = repaint); requires --init-image")
+    ap.add_argument("--strength", type=float, default=0.9)
+    ap.add_argument("--image-guidance-scale", type=float, default=1.5,
+                    help="InstructPix2Pix checkpoints (--preset ip2p): the image branch's scale")
+    ap.add_argument("--int8", action="store_true",
+                    help="W8A8-quantize the UNet's resnet convs (kernel D)")
+    ap.add_argument("--int8-transformer", nargs="?", const=True, default=False,
+                    choices=["full"],
+                    help="with --int8: also the post-LN transformer matmuls ('full': and "
+                         "the out-projections and GeGLU down-projection)")
+    ap.add_argument("--int8-vae", action=argparse.BooleanOptionalAction, default=None,
+                    help="with --int8: also the VAE decoder's resnet convs")
+    ap.add_argument("--clip-skip", type=int, default=0)
+    ap.add_argument("--out", default="out.png")
+    ap.add_argument("--device", default="cuda")
+    # the JAX demo's flags of later slices: parsed, then refused
+    ap.add_argument("--freeu", default=None, metavar="B1,B2,S1,S2")
+    ap.add_argument("--guidance-rescale", type=float, default=0.0)
+    ap.add_argument("--pag-scale", type=float, default=0.0)
+    ap.add_argument("--hires-base", type=int, default=None, metavar="PX")
+    ap.add_argument("--hires-strength", type=float, default=0.7)
+    ap.add_argument("--controlnet", action="append", default=[], metavar="PATH")
+    ap.add_argument("--control-image", action="append", default=[])
+    ap.add_argument("--controlnet-scale", type=float, action="append", default=[])
+    ap.add_argument("--lora", action="append", default=[], metavar="PATH[:SCALE]")
+    ap.add_argument("--textual-inversion", action="append", default=[],
+                    metavar="PATH[:TOKEN]")
+    ap.add_argument("--prompt-weighting", action="store_true")
+    ap.add_argument("--encoder-cache", type=int, default=1, metavar="K")
+    ap.add_argument("--refiner", default=None, metavar="DIR_OR_PRESET")
+    ap.add_argument("--denoising-split", type=float, default=0.8)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    for name, default, where in LATER:
+        if getattr(args, name) != default:
+            raise NotImplementedError(f"demo --{name.replace('_', '-')} belongs to the {where}")
+
+    import numpy as np
+
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.utils.image import load_image, save_png
+
+    if args.model_dir:
+        pipe = StableDiffusionPipeline.from_pretrained(args.model_dir, preset=args.preset,
+                                                       device=args.device)
+    else:
+        print("no --model-dir: running seeded random weights")
+        pipe = StableDiffusionPipeline.from_random(args.preset, device=args.device)
+    if args.int8:
+        pipe.quantize_int8(transformer=args.int8_transformer, vae=args.int8_vae)
+    token_ids = None
+    if pipe.tokenizer is None:
+        import zlib
+
+        # a stable hash (str.__hash__ is salted per process)
+        print("no tokenizer assets: hashing the prompt to fixed token ids")
+        rng = np.random.default_rng(zlib.crc32(args.prompt.encode()))
+        row = rng.integers(0, pipe.config.text_config.vocab_size,
+                           pipe.config.text_config.max_length)
+        token_ids = np.stack([row, np.zeros_like(row)])
+    t0 = time.perf_counter()
+    image = pipe.generate(
+        args.prompt, args.negative_prompt, strength=args.strength,
+        cfg=False if args.no_cfg else None, cfg_scale=args.cfg_scale,
+        num_inference_steps=args.steps, seed=args.seed,
+        init_image=load_image(args.init_image) if args.init_image else None,
+        mask_image=load_image(args.mask_image) if args.mask_image else None,
+        image_size=args.image_size,
+        token_ids=token_ids,
+        sampler=args.sampler, clip_skip=args.clip_skip,
+        image_guidance_scale=args.image_guidance_scale)
+    dt = time.perf_counter() - t0
+    save_png(image, args.out)
+    print(f"wrote {args.out} ({image.shape[1]}x{image.shape[2]}) in {dt:.2f}s "
+          "(the first call includes the kernels' build)")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,7 @@ from sdtpu_torch.ops.conv import conv1x1_tokens, conv2d, init_conv2d, nearest_up
 from sdtpu_torch.ops.embedding import embedding_lookup, init_embedding, timestep_embedding
 from sdtpu_torch.ops.linear import init_linear, linear
 from sdtpu_torch.ops.norm import group_norm, init_norm, layer_norm
-from sdtpu_torch.ops.resize import nearest_upsample
+from sdtpu_torch.ops.resize import nearest_upsample, resize_image
 
 __all__ = [
     "attention",
@@ -37,6 +37,7 @@ __all__ = [
     "nearest_upsample",
     "precompute_transformer_cross_kv",
     "quick_gelu",
+    "resize_image",
     "silu",
     "timestep_embedding",
     "transformer_block",

@@ -1,36 +1,42 @@
-"""Text-to-image pipeline.
+"""Text-to-image and image-conditioned pipeline.
 
-Counterpart of ``sdtpu/pipeline/pipeline.py`` for txt2img with classifier-
-free guidance and any of the JAX package's 13 samplers
-(``samplers/__init__.py``).  The JAX package compiles the whole request
-into one program; here it runs eagerly, in the same order:
+Counterpart of ``sdtpu/pipeline/pipeline.py`` for txt2img and img2img with
+classifier-free guidance and any of the JAX package's 13 samplers
+(``samplers/__init__.py``), one request (``generate``) or a batch of them
+(``generate_batch``, which the serving engine in ``serving.py`` drives).
+The JAX package compiles the whole request into one program; here it runs
+eagerly, in the same order:
 
 1. CLIP on the token rows, ordered ``[cond..., uncond...]`` under CFG;
-2. the cross-attention K/V of every transformer block and every time
+2. for an init image, the VAE encoder: img2img forward-noises the encoded
+   latents to the schedule's first step, latent-blend inpainting also
+   keeps them to paste back after each step, a 9-channel inpaint UNet
+   takes the mask and the masked image's latents as extra channels, and an
+   InstructPix2Pix (8-channel) UNet the image's unscaled posterior mode;
+3. the cross-attention K/V of every transformer block and every time
    projection of every step, computed once before the loop;
-3. per step: the latents doubled for CFG -> the sampler's
-   ``scale_model_input`` -> ``unet_forward`` -> CFG combine -> the
-   sampler's step (a stochastic one with that step's noise, a multistep
-   one with its state);
-4. ``vae_decode`` and the uint8 conversion, on the device.
+4. per step: the latents repeated for the guidance branches -> the
+   sampler's ``scale_model_input`` -> the extra channels -> ``unet_forward``
+   -> the guidance combine -> the sampler's step (a stochastic one with
+   that step's noise, a multistep one with its state) -> the inpaint blend;
+5. ``vae_decode`` and the uint8 conversion, on the device.
 
-``generate(seed=)`` draws the initial latents and the per-step noise as
-the JAX package does (``sdtpu/pipeline/pipeline.py:1763-1780, 2062-2069``):
-``key(uint32(seed))``, one split for the latents, then one split per step
-for a stochastic sampler only, each draw a ``normal``
-(``utils/prng.py``).  All of a request's draws run in one batched call
-before the loop, on the device (on a card as one replayed CUDA graph).
-``rng="torch"`` draws the initial latents from a CPU ``torch.Generator``
-instead.  ``txt2img`` takes both as explicit tensors and scales the
-initial latents by the schedule's ``init_sigma`` (sigma-space samplers).
+A request's draws are the JAX program's (``request_keys``): a scalar key
+``key(uint32(seed))`` splits once per draw, in the program's order; per-
+request keys (``generate_batch(seeds=...)``, one per row) fold in a salt
+per draw instead, so a row's image does not depend on its batch.  All of
+a request's draws run in one batched call before the loop, on the device
+(on a card as one replayed CUDA graph).  ``rng="torch"`` draws the initial
+latents from a CPU ``torch.Generator`` instead.  ``txt2img`` and
+``img2img`` take the draws as explicit tensors.
 
 ``from_pretrained`` loads a local diffusers checkpoint directory
 (``utils/weights.py:load_pipeline_params``).
 
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
-``clip``, ``precompute``, ``unet_step`` (once per step), ``vae_decode``,
-``to_uint8``.  With ``output="device"`` a request makes no host sync
-between its tokens and the returned tensor.
+``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
+``vae_decode``, ``to_uint8``.  With ``output="device"`` a request makes no
+host sync between its tokens and the returned tensor.
 """
 
 from __future__ import annotations
@@ -48,43 +54,92 @@ from sdtpu_torch.models.unet import (
     time_cache_step,
     unet_forward,
 )
-from sdtpu_torch.models.vae import vae_decode
+from sdtpu_torch.models.vae import vae_decode, vae_encode
+from sdtpu_torch.ops.resize import resize_image
 from sdtpu_torch.samplers import get_sampler
 from sdtpu_torch.utils import prng
-from sdtpu_torch.utils.image import to_uint8
+from sdtpu_torch.utils.image import from_uint8, to_uint8
 from sdtpu_torch.utils.profiling import stage
 from sdtpu_torch.utils.runtime import to_device
 
 OUTPUTS = ("uint8", "float", "latents", "device")
 
+# The draws a program makes before its steps' noise
+# (sdtpu/pipeline/pipeline.py:1919-1934, 1972-1978, 2051-2067): none when
+# the caller injects the initial latents, the initial latents for txt2img,
+# the encoder's posterior noise and the forward noise for img2img (and
+# InstructPix2Pix, which draws both and starts from the forward noise),
+# and the masked image's encoder noise after them for a 9-channel inpaint
+# UNet.
+PROGRAMS = {
+    "latents": (),
+    "txt2img": ("init",),
+    "img2img": ("enc", "fwd"),
+    "inpaint": ("enc", "fwd", "masked"),
+}
+# Under per-request keys each draw folds a salt into the row's key: these,
+# and 2 + i for step i's noise (:1769).  The JAX program's comment calls
+# the salts disjoint; they are not: step 1's noise (salt 3) equals the
+# masked image's encoder noise of a 9-channel inpaint UNet (same salt,
+# same shape), and the port reproduces it.
+SALTS = {"init": 0, "enc": 0, "fwd": 1, "masked": 3}
+STEP_SALT = 2
 
-def request_keys(key, steps: int, *, init: bool = True) -> np.ndarray:
-    """One request's keys, as the JAX program derives them from its key:
-    with ``init``, ``key, k_init = split(key)`` for the initial latents;
-    then each step's ``key, sub = split(key)`` for its variance noise.
-    (init + steps, 2) uint32."""
+
+def request_keys(key, steps: int, *, program: str = "txt2img") -> np.ndarray:
+    """The keys of a request's draws, in the JAX program's order: first
+    ``PROGRAMS[program]``'s, then one per step (variance noise).
+
+    A scalar key ((2,) uint32) splits as the program does: txt2img
+    ``key, k_init = split(key)``; img2img ``key, k_enc, k_fwd =
+    split(key, 3)``, then for a 9-channel inpaint UNet ``key, k_m =
+    split(key)``; then each step's ``key, sub = split(key)``.  Returns
+    (n, 2).  Per-request keys ((B, 2), one per row) fold in ``SALTS`` and
+    ``STEP_SALT + i``.  Returns (n, B, 2)."""
+    heads = PROGRAMS[program]
+    key = np.asarray(key, np.uint32)
+    if key.ndim == 2:
+        salts = [SALTS[h] for h in heads] + [STEP_SALT + i for i in range(steps)]
+        return np.asarray([[prng.fold_in(k, s) for k in key] for s in salts],
+                          np.uint32).reshape(len(salts), key.shape[0], 2)
     keys = []
-    if init:
+    if heads == ("init",):
         key, k_init = prng.split(key)
         keys.append(k_init)
+    elif heads:
+        key, k_enc, k_fwd = prng.split(key, 3)
+        keys += [k_enc, k_fwd]
+        if "masked" in heads:
+            key, k_m = prng.split(key)
+            keys.append(k_m)
     for _ in range(steps):
         key, sub = prng.split(key)
         keys.append(sub)
-    return np.stack(keys)
+    return np.asarray(keys, np.uint32).reshape(len(keys), 2)
 
 
-def request_noise(key, steps: int, shape, device, *, init: bool = True,
+def request_noise(key, steps: int, shape, device, *, program: str = "txt2img",
                   graphs: Optional[prng.NormalGraphs] = None) -> torch.Tensor:
-    """The normals of :func:`request_keys`, (init + steps, *shape) float32
-    on ``device``, drawn in one batched call: by numpy on the CPU
-    (``prng.normal``), by torch on a card (``prng.normal_torch``), through
-    ``graphs`` (its CUDA graph replayed) where given."""
-    keys = request_keys(key, steps, init=init)
+    """The normals of :func:`request_keys`, (n, *shape) float32 on
+    ``device``, ``shape`` = (B, h, w, c): a scalar key draws each at
+    ``shape``, per-request keys each row at ``shape[1:]``.  One batched
+    call: by numpy on the CPU (``prng.normal``), by torch on a card
+    (``prng.normal_torch``), through ``graphs`` (its CUDA graph replayed)
+    where given."""
+    keys = request_keys(key, steps, program=program)
+    shape = tuple(shape)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0, *shape), device=device)
+    draw = shape[1:] if keys.ndim == 3 else shape
+    flat = keys.reshape(-1, 2)
     if torch.device(device).type == "cpu":
-        return torch.from_numpy(np.stack([prng.normal(k, shape) for k in keys]))
-    if graphs is not None:
-        return graphs(keys, shape, device)
-    return prng.normal_torch(keys, shape, device)
+        out = torch.from_numpy(np.stack([prng.normal(k, draw) for k in flat]))
+    elif graphs is not None:
+        out = graphs(flat, draw, device)
+    else:
+        out = prng.normal_torch(flat, draw, device)
+    return out.reshape(n, *shape)
 
 
 class PendingImages:
@@ -99,6 +154,14 @@ class PendingImages:
 
     def result(self) -> np.ndarray:
         return self.device_images.cpu().numpy()
+
+
+def later(checks) -> None:
+    """Raise NotImplementedError for the first used feature of a later
+    slice: ``checks`` is [(name, used, slice)]."""
+    for name, used, where in checks:
+        if used:
+            raise NotImplementedError(f"{name} belongs to the {where}")
 
 
 class StableDiffusionPipeline:
@@ -210,101 +273,128 @@ class StableDiffusionPipeline:
         self.params = quantize_pipeline_int8(self.params, vae=vae, **kw)
         return self
 
+    # -- public API -----------------------------------------------------------
+
     def generate(
         self,
         prompt: str = "",
         negative_prompt: str = "",
         *,
+        strength: float = 0.9,
         cfg: Optional[bool] = None,
         cfg_scale: Optional[float] = None,
         num_inference_steps: Optional[int] = None,
         seed: int = 0,
+        init_image: Optional[np.ndarray] = None,
+        mask_image: Optional[np.ndarray] = None,
         image_size: Optional[int] = None,
         token_ids: Optional[np.ndarray] = None,
         sampler: Optional[str] = None,
         num_images: int = 1,
         latents: Optional[np.ndarray] = None,
+        rng: str = "jax",
         output: str = "uint8",
         clip_skip: int = 0,
-        init_image=None,
-        mask_image=None,
-        control_image=None,
         prompt_weighting: bool = False,
+        token_weights: Optional[np.ndarray] = None,
+        control_image=None,
+        image_guidance_scale: float = 1.5,
+        guidance_rescale: float = 0.0,
         pag_scale: float = 0.0,
         freeu=None,
         encoder_cache_interval: int = 1,
-        rng: str = "jax",
     ):
-        """Text -> image.  ``token_ids`` bypasses the tokenizer (one cond row,
-        or cond and uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the
-        drawn initial noise (scaled by the sampler's ``init_sigma`` as a
-        drawn one is).  ``seed`` in [0, 2^32) draws the JAX package's
-        latents and, for a stochastic sampler, per-step noise
-        (``utils/prng.py``); ``rng="torch"`` draws the initial latents from
-        ``torch.Generator().manual_seed(seed)`` (NCHW, then NHWC; txt2img
-        only).  ``sampler``: a name of ``samplers.SAMPLERS`` (default the
-        preset's).  ``output``:
-        "uint8" (B, H, W, 3) numpy, "float" ([-1, 1] numpy), "latents", or
+        """Text -> image, or image -> image when ``init_image`` is given.
+
+        ``init_image`` ((H, W, 3) uint8, or floats in [-1, 1]; resized to
+        the request's size by nearest neighbour) is VAE-encoded and
+        forward-noised to ``strength`` in (0, 1] of the schedule.
+        ``mask_image`` (with ``init_image``; (H, W[, C]), white / 1.0 =
+        repaint) inpaints: with a 4-channel UNet the preserved region is
+        pasted back after each step (forward-noised to the step the carry is
+        at, the clean latents after the last), with a 9-channel inpaint
+        UNet the mask and the masked image's latents ride as extra input
+        channels (a pure-noise start at ``strength`` 1).  An 8-channel
+        InstructPix2Pix UNet edits ``init_image`` with three guidance
+        branches [text+image, image, unconditional] steered by
+        ``cfg_scale`` and ``image_guidance_scale``; it ignores
+        ``strength``.  ``num_images > 1`` runs :meth:`generate_batch` with
+        seeds ``seed + i`` (``latents`` and ``rng`` are ignored there, as
+        the JAX package ignores them).
+
+        ``token_ids`` bypasses the tokenizer (one cond row, or cond and
+        uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the drawn
+        initial noise (scaled by the sampler's ``init_sigma`` as a drawn
+        one is; txt2img only).  ``seed`` in [0, 2^32) draws the JAX
+        package's latents and noise (``utils/prng.py``); ``rng="torch"``
+        draws the initial latents from ``torch.Generator().manual_seed(
+        seed)`` (NCHW, then NHWC; txt2img only).  ``sampler``: a name of
+        ``samplers.SAMPLERS`` (default the preset's).  ``output``: "uint8"
+        (B, H, W, 3) numpy, "float" ([-1, 1] numpy), "latents", or
         "device": the uint8 images as a tensor on the device, returned
         without waiting for it (see :meth:`generate_async`)."""
-        later = {
-            "init_image": (init_image is not None, "img2img/inpainting slice"),
-            "mask_image": (mask_image is not None, "img2img/inpainting slice"),
-            "control_image": (control_image is not None, "ControlNet slice"),
-            "prompt_weighting": (bool(prompt_weighting), "features slice"),
-            "pag_scale": (pag_scale != 0.0, "features slice"),
-            "freeu": (freeu is not None, "features slice"),
-            "encoder_cache_interval": (encoder_cache_interval != 1, "features slice"),
-            "num_images": (num_images != 1, "batching/serving slice (generate_batch)"),
-        }
-        for name, (used, where) in later.items():
-            if used:
-                raise NotImplementedError(f"generate({name}=...) belongs to the {where}")
         cfg = self.config.default_cfg if cfg is None else cfg
         cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
         steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
         sampler = sampler or self.config.default_sampler
-        sdef = get_sampler(sampler)
+        if not 0.0 < strength <= 1.0:
+            raise ValueError("strength must be in (0, 1]")
         if steps < 1:
             raise ValueError("num_inference_steps must be >= 1")
-        size = image_size or self.config.default_image_size
-        f = self.config.vae.downscale_factor
-        if size <= 0 or size % f:
-            raise ValueError(f"image_size must be a positive multiple of {f}")
-        if output not in OUTPUTS:
-            raise ValueError(f"unknown output {output!r}")
-        key = prng.key(seed)
-        lat_hw = size // f
+        size = self._size(image_size)
+        if num_images > 1:
+            return self.generate_batch(
+                [prompt] * num_images, negative_prompt, cfg=cfg, cfg_scale=cfg_scale,
+                num_inference_steps=steps, seeds=[seed + i for i in range(num_images)],
+                image_size=image_size,
+                token_ids=(np.tile(np.asarray(token_ids)[:1], (num_images, 1))
+                           if token_ids is not None else None),
+                sampler=sampler,
+                init_images=[init_image] * num_images if init_image is not None else None,
+                mask_images=[mask_image] * num_images if mask_image is not None else None,
+                strength=strength, output=output, clip_skip=clip_skip,
+                prompt_weighting=prompt_weighting,
+                token_weights=(np.tile(np.asarray(token_weights, np.float32).reshape(1, -1),
+                                       (num_images, 1)) if token_weights is not None else None),
+                control_images=([control_image] * num_images
+                                if control_image is not None else None),
+                image_guidance_scale=image_guidance_scale, guidance_rescale=guidance_rescale,
+                pag_scale=pag_scale, freeu=freeu,
+                encoder_cache_interval=encoder_cache_interval)
+        later([("generate(control_image=...)", control_image is not None, "ControlNet slice"),
+                ("generate(prompt_weighting=...)", bool(prompt_weighting), "features slice"),
+                ("generate(token_weights=...)", token_weights is not None, "features slice")])
+        with stage("tokenize"):
+            ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
+        is_img2img = init_image is not None
+        if mask_image is not None and not is_img2img:
+            raise ValueError("mask_image requires init_image (inpainting)")
+        is_edit = is_img2img and self._is_edit()
+        if is_edit and mask_image is not None:
+            raise ValueError("editing checkpoints (InstructPix2Pix) take no mask")
         if rng == "torch":
-            if latents is not None:
+            if is_img2img or latents is not None:
                 raise ValueError("rng='torch' is txt2img-only")
             g = torch.Generator().manual_seed(seed)
+            lat_hw = size // self.config.vae.downscale_factor
             latents = torch.randn((1, self.config.vae.latent_channels, lat_hw, lat_hw),
                                   generator=g).numpy().transpose(0, 2, 3, 1)
         elif rng != "jax":
             raise ValueError(f"unknown rng {rng!r} (expected 'jax' or 'torch')")
-        schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
-        # per-step variance noise only for a stochastic sampler, as the JAX
-        # program splits its key per step only then
-        n_noise = schedule.num_steps if sdef.stochastic else 0
-
-        with stage("tokenize"):
-            ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
-        batch = ids.shape[0] // 2 if cfg else ids.shape[0]
-        shape = (batch, lat_hw, lat_hw, self.config.vae.latent_channels)
-        with stage("noise"):
-            if latents is None:
-                draws = request_noise(key, n_noise, shape, self.device, graphs=self._draws)
-                lat0, noise = draws[0], draws[1:]
-            else:
-                lat0 = to_device(np.asarray(latents, np.float32), self.device)
-                if lat0.ndim == 3:
-                    lat0 = lat0[None]
-                noise = (request_noise(key, n_noise, tuple(lat0.shape), self.device,
-                                       init=False, graphs=self._draws) if n_noise else None)
-        return self.txt2img(ids, lat0, noise if n_noise else None, cfg=cfg, cfg_scale=cfg_scale,
-                            output=output, clip_skip=clip_skip, sampler=sampler,
-                            schedule=schedule)
+        if latents is not None and is_img2img:
+            raise ValueError("latents injection is txt2img-only")
+        self._check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
+                             is_edit)
+        if latents is not None:
+            latents = np.asarray(latents, np.float32)
+            if latents.ndim == 3:
+                latents = latents[None]
+        return self._request(
+            ids, prng.key(seed), size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
+            sampler=sampler, strength=strength, image_guidance_scale=image_guidance_scale,
+            images=self._prep_image(init_image, size) if is_img2img else None,
+            masks=self._prep_mask(mask_image, size) if mask_image is not None else None,
+            latents=latents, output=output, clip_skip=clip_skip)
 
     def generate_async(self, prompt: str = "", negative_prompt: str = "",
                        **kwargs) -> "PendingImages":
@@ -324,8 +414,151 @@ class StableDiffusionPipeline:
         kwargs["output"] = "device"
         return PendingImages(self.generate(prompt, negative_prompt, **kwargs))
 
-    def generate_batch(self, *args, **kwargs):
-        raise NotImplementedError("generate_batch belongs to the batching/serving slice")
+    def generate_batch(
+        self,
+        prompts,
+        negative_prompt="",
+        *,
+        cfg: Optional[bool] = None,
+        cfg_scale: Optional[float] = None,
+        num_inference_steps: Optional[int] = None,
+        seed: int = 0,
+        seeds=None,
+        image_size: Optional[int] = None,
+        token_ids: Optional[np.ndarray] = None,
+        sampler: Optional[str] = None,
+        init_images=None,
+        mask_images=None,
+        strength: float = 0.9,
+        mesh=None,
+        output: str = "uint8",
+        clip_skip: int = 0,
+        prompt_weighting: bool = False,
+        token_weights: Optional[np.ndarray] = None,
+        control_images=None,
+        controlnet_scale: float = 1.0,
+        image_guidance_scale: float = 1.5,
+        guidance_rescale: float = 0.0,
+        pag_scale: float = 0.0,
+        freeu=None,
+        encoder_cache_interval: int = 1,
+    ):
+        """B prompts -> (B, H, W, 3) in one CFG-batched (2B; 3B for
+        InstructPix2Pix) request.  ``negative_prompt``: one string for the
+        batch or one per prompt (each row gets its own uncond row; cond and
+        uncond rows tokenize together to one window count).  ``seeds`` (one
+        per prompt) switches to per-request keys: each row's image depends
+        only on its own seed, not on its batch (the serving engine relies on
+        it); without them ``seed`` keys the whole batch.  ``init_images``
+        and ``mask_images`` hold one image per prompt (see
+        :meth:`generate`).  ``output`` as in :meth:`generate`.  ``mesh``
+        and the arguments of later slices raise NotImplementedError."""
+        later([
+            ("generate_batch(mesh=...)", mesh is not None,
+             "multi-card slice (dp/tp meshes, global_mesh)"),
+            ("generate_batch(control_images=...)", control_images is not None,
+             "ControlNet slice"),
+            ("generate_batch(prompt_weighting=...)", bool(prompt_weighting), "features slice"),
+            ("generate_batch(token_weights=...)", token_weights is not None, "features slice"),
+        ])
+        cfg = self.config.default_cfg if cfg is None else cfg
+        cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
+        steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
+        sampler = sampler or self.config.default_sampler
+        if steps < 1:
+            raise ValueError("num_inference_steps must be >= 1")
+        size = self._size(image_size)
+        max_len = self.config.text_config.max_length
+        prompts = list(prompts)
+        negs = None
+        if cfg:
+            negs = (list(negative_prompt) if isinstance(negative_prompt, (list, tuple))
+                    else [negative_prompt] * len(prompts))
+        uncond = None
+        with stage("tokenize"):
+            if token_ids is not None:
+                cond = np.asarray(token_ids)
+            else:
+                if self.tokenizer is None:
+                    raise ValueError("no tokenizer installed: pass token_ids")
+                ids_all = self._encode_rows(prompts + (negs or []), max_len)
+                cond = ids_all[:len(prompts)]
+                if negs is not None:
+                    uncond = ids_all[len(prompts):]
+            if cfg:
+                if len(negs) != cond.shape[0]:
+                    raise ValueError("negative_prompt list must match the number of prompts")
+                if uncond is None:  # pre-tokenized cond: match its window count
+                    n_win = cond.shape[1] // max_len
+                    if self.tokenizer is not None:
+                        uncond = np.asarray([
+                            self.tokenizer.encode_long(t, window=max_len, num_windows=n_win)
+                            for t in negs])
+                    else:
+                        if any(n for n in negs):
+                            raise ValueError(
+                                "no tokenizer installed — non-empty negative prompts "
+                                "require a tokenizer (or pre-tokenize 2B token_ids)")
+                        uncond = np.tile(np.tile(self._uncond_row(), n_win)[None],
+                                         (cond.shape[0], 1))
+                ids = np.concatenate([cond, uncond])  # [cond..., uncond...]
+            else:
+                ids = cond
+            ids = np.asarray(ids, dtype=np.int32)
+        is_img2img = init_images is not None
+        if is_img2img and not 0.0 < strength <= 1.0:
+            raise ValueError("strength must be in (0, 1]")
+        if mask_images is not None and not is_img2img:
+            raise ValueError("mask_images requires init_images (inpainting)")
+        is_edit = is_img2img and self._is_edit()
+        if is_edit and mask_images is not None:
+            raise ValueError("editing checkpoints (InstructPix2Pix) take no mask")
+        self._check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
+                             is_edit)
+        if seeds is not None:
+            if len(seeds) != cond.shape[0]:
+                raise ValueError("seeds must match the number of prompts")
+            key = np.stack([prng.key(s) for s in seeds])  # per-request keys
+        else:
+            key = prng.key(seed)
+        images = masks = None
+        if is_img2img:
+            images = np.concatenate([self._prep_image(im, size) for im in init_images])
+            if mask_images is not None:
+                if len(mask_images) != len(init_images):
+                    raise ValueError("mask_images must match init_images in length")
+                masks = np.concatenate([self._prep_mask(m, size) for m in mask_images])
+        return self._request(ids, key, size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
+                             sampler=sampler, strength=strength,
+                             image_guidance_scale=image_guidance_scale, images=images,
+                             masks=masks, output=output, clip_skip=clip_skip)
+
+    def warmup(self, *, image_sizes=(512,), step_counts=(25,), batch_sizes=(1,),
+               cfg: bool = True, sampler: str = "ddpm", img2img: bool = False,
+               inpaint: bool = False, strength: float = 0.9, pag_scale: float = 0.0) -> int:
+        """Run one request of each program a serving deployment will use
+        (per-request seeds, as the engine sends them), so that none of its
+        requests pays a first use: the kernels' build, the draws' CUDA graph
+        capture for each (draws, shape), the libraries' first calls.
+        Returns the number of programs run."""
+        n = 0
+        max_len = self.config.text_config.max_length
+        for size in image_sizes:
+            for steps in step_counts:
+                for batch in batch_sizes:
+                    ids = np.ones((batch, max_len), dtype=np.int64)
+                    kw = dict(token_ids=ids, cfg=cfg, num_inference_steps=steps,
+                              image_size=size, sampler=sampler, seeds=list(range(batch)),
+                              pag_scale=pag_scale)
+                    if img2img or inpaint:
+                        kw.update(
+                            init_images=[np.zeros((size, size, 3), dtype=np.uint8)] * batch,
+                            mask_images=([np.full((size, size), 255, dtype=np.uint8)] * batch
+                                         if inpaint else None),
+                            strength=strength)
+                    self.generate_batch(["warmup"] * batch, **kw)
+                    n += 1
+        return n
 
     @torch.inference_mode()
     def txt2img(self, ids, latents: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
@@ -339,7 +572,6 @@ class StableDiffusionPipeline:
         deterministic one).  ``steps`` defaults to ``noise``'s length;
         ``schedule`` to ``sampler``'s for ``steps``.  ``generate`` draws
         both as the JAX package does; a caller may pass any."""
-        cdt = self.config.compute_dtype
         sdef = get_sampler(sampler)
         if schedule is None:
             if steps is None:
@@ -347,59 +579,124 @@ class StableDiffusionPipeline:
                     raise ValueError("txt2img: pass steps= or the per-step noise")
                 steps = noise.shape[0]
             schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
-        if sdef.stochastic and (noise is None or noise.shape[0] != schedule.num_steps):
-            raise ValueError(f"sampler {sampler!r} takes one noise slice per step "
-                             f"({schedule.num_steps})")
-        with stage("clip"):
-            ids = to_device(np.asarray(ids, np.int64), self.device)
-            hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
-                                            clip_skip=clip_skip)
-            context = hidden.to(cdt)
+        self._check_noise(sdef, sampler, noise, schedule)
+        context = self._encode(ids, clip_skip)
         lat = latents.float()
         if hasattr(schedule, "init_sigma"):  # sigma-space samplers start at sigma_max
             lat = lat * schedule.init_sigma
         lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
                            sampler=sampler)
-        if output == "latents":
-            return lat.float().cpu().numpy()
-        with stage("vae_decode"):
-            img = vae_decode(lat.to(cdt), self.params["vae_decoder"], self.config.vae,
-                             attention_impl=self.attention_impl,
-                             conv_impl=self.conv_impl).float()
-        if output == "float":
-            return img.cpu().numpy()
-        with stage("to_uint8"):
-            img = to_uint8(img)
-        return img if output == "device" else img.cpu().numpy()
+        return self._finish(lat, output)
+
+    @torch.inference_mode()
+    def img2img(self, ids, images: torch.Tensor, enc_noise: torch.Tensor,
+                fwd_noise: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
+                cfg_scale: float, schedule, strength: float, sampler: str = "ddpm", masks=None,
+                masked_noise: Optional[torch.Tensor] = None,
+                image_guidance_scale: float = 1.5, output: str = "uint8", clip_skip: int = 0):
+        """The image-conditioned request with its draws given (the JAX
+        program's img2img branch, ``sdtpu/pipeline/pipeline.py:1911-2017``):
+        ``images`` (B, H, W, 3) float32 in [-1, 1] at the request's size,
+        ``enc_noise`` / ``fwd_noise`` (B, h, w, 4) the encoder's posterior
+        noise and the forward noise, ``noise`` the per-step noise of a
+        stochastic sampler, ``schedule`` made with the request's
+        ``strength`` (1 for an editing UNet; a 9-channel inpaint UNet at 1
+        starts from pure noise).  ``masks``: (B, h, w, 1) on the latent
+        grid for the latent blend, (B, H, W, 1) on the pixel grid for a
+        9-channel inpaint UNet, which also takes ``masked_noise``."""
+        sdef = get_sampler(sampler)
+        self._check_noise(sdef, sampler, noise, schedule)
+        cdt = self.config.compute_dtype
+        vae = dict(attention_impl=self.attention_impl, conv_impl=self.conv_impl)
+        init_sigma = getattr(schedule, "init_sigma", 1.0)
+        context = self._encode(ids, clip_skip)
+        images = images.float()
+        extra = inpaint = None
+        guidance = None
+        with stage("vae_encode"):
+            enc = self.params["vae_encoder"]
+            if self._is_edit():
+                # the image rides extra channels as its posterior mode,
+                # unscaled; rows [image, image, zeros] across the branches;
+                # the latents start as pure noise
+                img_lat = vae_encode(images.to(cdt), None, enc, self.config.vae,
+                                     apply_scaling=False, **vae).float()
+                extra = torch.cat([img_lat, img_lat, torch.zeros_like(img_lat)]) if cfg \
+                    else img_lat
+                guidance = image_guidance_scale if cfg else None
+                lat = fwd_noise.float() * init_sigma
+            else:
+                lat0 = vae_encode(images.to(cdt), enc_noise, enc, self.config.vae,
+                                  **vae).float()
+                if masks is not None and self._is_inpaint_unet():
+                    # the UNet takes [latents, mask, masked-image latents]
+                    mask_pix = masks.float()
+                    masked = images * (mask_pix < 0.5).to(images.dtype)
+                    masked_lat = vae_encode(masked.to(cdt), masked_noise, enc,
+                                            self.config.vae, **vae).float()
+                    f = self.config.vae.downscale_factor
+                    mask_lat = mask_pix[:, ::f, ::f, :].expand(*masked_lat.shape[:3], 1)
+                    extra = torch.cat([mask_lat, masked_lat], dim=-1)
+                    if cfg:
+                        extra = torch.cat([extra, extra])
+                    if round(strength, 6) >= 1.0:  # diffusers' is_strength_max
+                        lat = fwd_noise.float() * init_sigma
+                    else:
+                        lat = sdef.add_noise(schedule, lat0, fwd_noise.float(), 0)
+                else:
+                    lat = sdef.add_noise(schedule, lat0, fwd_noise.float(), 0)
+                    if masks is not None:
+                        inpaint = (masks.float(), lat0, fwd_noise.float())
+        lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
+                           sampler=sampler, extra=extra, inpaint=inpaint,
+                           image_guidance_scale=guidance)
+        return self._finish(lat, output)
 
     def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float,
-                sampler: str = "ddpm"):
+                sampler: str = "ddpm", extra=None, inpaint=None,
+                image_guidance_scale: Optional[float] = None):
         """The sampler's loop; ``context`` is (2B, L, D) under CFG, else
         (B, L, D); ``noise`` (steps, B, h, w, 4) for a stochastic sampler,
-        else None."""
+        else None.  ``extra``: channels concatenated to the UNet's input
+        after ``scale_model_input``, already at the model batch.
+        ``inpaint``: (mask, clean latents, forward noise) of the latent
+        blend.  ``image_guidance_scale``: InstructPix2Pix's third branch
+        under CFG (rows [text+image, image, uncond]; the context's uncond
+        rows serve the image-only branch too)."""
         ucfg = self.config.unet
         unet = self.params["unet"]
         cdt = self.config.compute_dtype
         batch = latents.shape[0]
-        model_batch = 2 * batch if cfg else batch
+        if image_guidance_scale is not None:
+            context = torch.cat([context[:batch], context[batch:], context[batch:]])
+        n_rep = 3 if image_guidance_scale is not None else 2 if cfg else 1
         with stage("precompute"):
             cross_kv = precompute_cross_kv(context, unet, ucfg)
             time_cache = precompute_time_projections(
-                schedule.timesteps, unet, ucfg, batch=model_batch, dtype=cdt)
+                schedule.timesteps, unet, ucfg, batch=n_rep * batch, dtype=cdt)
+            if extra is not None:
+                extra = extra.to(cdt)
         sdef = get_sampler(sampler)
         state = sdef.state_init(latents) if sdef.multistep else None
         lat = latents
-        for i in range(schedule.num_steps):
+        n_steps = schedule.num_steps
+        for i in range(n_steps):
             with stage("unet_step"):
-                lat_in = torch.cat([lat, lat]) if cfg else lat
+                lat_in = torch.cat([lat] * n_rep) if n_rep > 1 else lat
                 if sdef.scale_model_input is not None:
                     lat_in = sdef.scale_model_input(schedule, i, lat_in)
+                lat_in = lat_in.to(cdt)
+                if extra is not None:
+                    lat_in = torch.cat([lat_in, extra], dim=-1)
                 eps = unet_forward(
-                    lat_in.to(cdt), schedule.timesteps[i], context, unet, ucfg,
+                    lat_in, schedule.timesteps[i], context, unet, ucfg,
                     attention_impl=self.attention_impl, conv_impl=self.conv_impl,
                     cross_kv=cross_kv, time_cache=time_cache_step(time_cache, i),
                 ).float()
-                if cfg:
+                if image_guidance_scale is not None:
+                    e_t, e_i, e_u = eps[:batch], eps[batch:2 * batch], eps[2 * batch:]
+                    eps = e_u + cfg_scale * (e_t - e_i) + image_guidance_scale * (e_i - e_u)
+                elif cfg:
                     cond, uncond = eps[:batch], eps[batch:]
                     eps = uncond + cfg_scale * (cond - uncond)
                 z = noise[i] if sdef.stochastic else None
@@ -407,7 +704,136 @@ class StableDiffusionPipeline:
                     lat, state = sdef.step(schedule, i, lat, eps, z, state)
                 else:
                     lat = sdef.step(schedule, i, lat, eps, z)
+                if inpaint is not None:
+                    # the preserved region takes the init latents noised to
+                    # the step the carry is now at; after the last step, the
+                    # clean latents
+                    mask_l, ref0, ref_noise = inpaint
+                    ref = (ref0 if i == n_steps - 1 else
+                           sdef.add_noise(schedule, ref0, ref_noise, min(i + 1, n_steps - 1)))
+                    lat = mask_l * lat + (1.0 - mask_l) * ref
         return lat
+
+    # -- internals ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def _request(self, ids, key, *, size, steps, cfg, cfg_scale, sampler, strength,
+                 image_guidance_scale, images=None, masks=None, latents=None,
+                 output="uint8", clip_skip=0):
+        """Draw a request's noise from ``key`` (scalar or per-request) as the
+        JAX program does, then run :meth:`txt2img` or :meth:`img2img`."""
+        if output not in OUTPUTS:
+            raise ValueError(f"unknown output {output!r}")
+        sdef = get_sampler(sampler)
+        is_img2img = images is not None
+        # editing checkpoints denoise from pure noise: strength never truncates
+        strength_key = 1.0 if (self._is_edit() or not is_img2img) else round(strength, 6)
+        schedule = sdef.make_schedule(self.config.scheduler, steps, strength_key,
+                                      device=self.device)
+        n_noise = schedule.num_steps if sdef.stochastic else 0
+        f = self.config.vae.downscale_factor
+        lat_shape = (size // f, size // f, self.config.vae.latent_channels)
+        if latents is not None:
+            program, shape = "latents", tuple(latents.shape)
+        elif is_img2img:
+            program = ("inpaint" if masks is not None and self._is_inpaint_unet()
+                       else "img2img")
+            shape = (images.shape[0], *lat_shape)
+        else:
+            program = "txt2img"
+            shape = (ids.shape[0] // 2 if cfg else ids.shape[0], *lat_shape)
+        with stage("noise"):
+            draws = request_noise(key, n_noise, shape, self.device, program=program,
+                                  graphs=self._draws)
+        n_head = len(PROGRAMS[program])
+        heads = draws[:n_head]
+        noise = draws[n_head:] if sdef.stochastic else None
+        run = dict(cfg=cfg, cfg_scale=cfg_scale, sampler=sampler, schedule=schedule,
+                   output=output, clip_skip=clip_skip)
+        if not is_img2img:
+            lat0 = heads[0] if latents is None else to_device(latents, self.device)
+            return self.txt2img(ids, lat0, noise, **run)
+        images = to_device(images, self.device)
+        masks = None if masks is None else to_device(masks, self.device)
+        return self.img2img(ids, images, heads[0], heads[1], noise, strength=strength_key,
+                            masks=masks,
+                            masked_noise=heads[2] if program == "inpaint" else None,
+                            image_guidance_scale=image_guidance_scale, **run)
+
+    def _encode(self, ids, clip_skip: int) -> torch.Tensor:
+        with stage("clip"):
+            ids = to_device(np.asarray(ids, np.int64), self.device)
+            hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
+                                            clip_skip=clip_skip)
+            return hidden.to(self.config.compute_dtype)
+
+    def _finish(self, lat: torch.Tensor, output: str):
+        if output == "latents":
+            return lat.float().cpu().numpy()
+        with stage("vae_decode"):
+            img = vae_decode(lat.to(self.config.compute_dtype), self.params["vae_decoder"],
+                             self.config.vae, attention_impl=self.attention_impl,
+                             conv_impl=self.conv_impl).float()
+        if output == "float":
+            return img.cpu().numpy()
+        with stage("to_uint8"):
+            img = to_uint8(img)
+        return img if output == "device" else img.cpu().numpy()
+
+    @staticmethod
+    def _check_noise(sdef, sampler, noise, schedule) -> None:
+        if sdef.stochastic and (noise is None or noise.shape[0] != schedule.num_steps):
+            raise ValueError(f"sampler {sampler!r} takes one noise slice per step "
+                             f"({schedule.num_steps})")
+
+    def _is_edit(self) -> bool:
+        """An InstructPix2Pix-style editing UNet: latents ++ image latents."""
+        return self.config.unet.in_channels == 2 * self.config.vae.latent_channels
+
+    def _is_inpaint_unet(self) -> bool:
+        """A dedicated inpainting UNet: latents ++ mask ++ masked-image latents."""
+        return self.config.unet.in_channels == 2 * self.config.vae.latent_channels + 1
+
+    def _size(self, image_size) -> int:
+        size = image_size or self.config.default_image_size
+        f = self.config.vae.downscale_factor
+        if size <= 0 or size % f:
+            raise ValueError(f"image_size must be a positive multiple of {f}")
+        return size
+
+    @staticmethod
+    def _check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
+                        is_edit) -> None:
+        """The JAX package's checks of the later slices' guidance and UNet
+        knobs (with its messages), then NotImplementedError for a valid one
+        that is used."""
+        if encoder_cache_interval < 1:
+            raise ValueError("encoder_cache_interval must be >= 1")
+        if guidance_rescale != 0.0:
+            if not 0.0 < guidance_rescale <= 1.0:
+                raise ValueError("guidance_rescale must be in [0, 1]")
+            if not cfg:
+                raise ValueError(
+                    "guidance_rescale rescales the CFG combine — it needs cfg=True")
+            if is_edit:
+                raise ValueError("guidance_rescale is not defined for editing checkpoints "
+                                 "(InstructPix2Pix uses 3-branch guidance)")
+        if pag_scale != 0.0:
+            if pag_scale < 0.0:
+                raise ValueError("pag_scale must be >= 0")
+            if is_edit:
+                raise ValueError("pag_scale is incompatible with editing checkpoints "
+                                 "(InstructPix2Pix's 3-branch guidance owns the extra rows)")
+        if freeu is not None:
+            try:
+                _b1, _b2, _s1, _s2 = (float(v) for v in freeu)
+            except (TypeError, ValueError):
+                raise ValueError("freeu must be (b1, b2, s1, s2) — e.g. (1.5, 1.6, 0.9, 0.2) "
+                                 "for SD 1.x, (1.3, 1.4, 0.9, 0.2) for SDXL") from None
+        later([("pag_scale", pag_scale != 0.0, "features slice"),
+                ("freeu", freeu is not None, "features slice"),
+                ("guidance_rescale", guidance_rescale != 0.0, "features slice"),
+                ("encoder_cache_interval", encoder_cache_interval != 1, "features slice")])
 
     def _uncond_row(self) -> np.ndarray:
         """BOS then EOS padding: the empty prompt's row for CFG's
@@ -416,6 +842,16 @@ class StableDiffusionPipeline:
         row = np.full((self.config.text_config.max_length,), vocab - 1, dtype=np.int64)
         row[0] = vocab - 2
         return row
+
+    def _encode_rows(self, texts, max_len: int) -> np.ndarray:
+        """Tokenize texts to one window count (the most any row needs):
+        (B, n * max_len) int32."""
+        tok = self.tokenizer
+        enc = [tok.encode_long(t, window=max_len) for t in texts]
+        n = max(len(e) // max_len for e in enc)
+        enc = [e if len(e) == n * max_len else tok.encode_long(t, window=max_len, num_windows=n)
+               for e, t in zip(enc, texts)]
+        return np.asarray(enc, np.int32)
 
     def _tokenize(self, prompt, negative_prompt, cfg, token_ids) -> np.ndarray:
         max_len = self.config.text_config.max_length
@@ -426,14 +862,7 @@ class StableDiffusionPipeline:
         else:
             if self.tokenizer is None:
                 raise ValueError("no tokenizer installed: pass token_ids")
-            texts = [prompt] + ([negative_prompt] if cfg else [])
-            enc = [self.tokenizer.encode_long(t, window=max_len) for t in texts]
-            n = max(len(e) // max_len for e in enc)
-            ids = np.asarray([
-                e if len(e) == n * max_len
-                else self.tokenizer.encode_long(t, window=max_len, num_windows=n)
-                for e, t in zip(enc, texts)
-            ])
+            ids = self._encode_rows([prompt] + ([negative_prompt] if cfg else []), max_len)
         if cfg and ids.shape[0] == 1:
             n = ids.shape[1] // max_len
             if self.tokenizer is not None:
@@ -443,3 +872,49 @@ class StableDiffusionPipeline:
             else:
                 ids = np.concatenate([ids, np.tile(self._uncond_row(), n)[None]], axis=0)
         return np.asarray(ids, dtype=np.int32)
+
+    @staticmethod
+    def _prep_image(init_image, size) -> np.ndarray:
+        """Init image -> (1, size, size, 3) float32 in [-1, 1] on the host:
+        uint8 rescaled, then a nearest resize to the request's size."""
+        arr = np.asarray(init_image)
+        if arr.dtype == np.uint8:
+            arr = from_uint8(arr)
+        if arr.ndim == 3:
+            arr = arr[None]
+        img = np.asarray(arr, dtype=np.float32)
+        if img.shape[1] != size or img.shape[2] != size:
+            img = resize_image(torch.from_numpy(img), size, size).numpy()
+        return img
+
+    @staticmethod
+    def _nearest_resize(arr: np.ndarray, size: int) -> np.ndarray:
+        """Nearest-neighbour resize to (size, size) over the two leading
+        axes, on the host."""
+        if arr.shape[:2] == (size, size):
+            return arr
+        ri = (np.arange(size) * arr.shape[0] // size).clip(0, arr.shape[0] - 1)
+        ci = (np.arange(size) * arr.shape[1] // size).clip(0, arr.shape[1] - 1)
+        return arr[ri[:, None], ci[None, :]]
+
+    def _prep_mask(self, mask_image, size) -> np.ndarray:
+        """Inpainting mask -> (1, h, w, 1) float32 in [0, 1] (1 = repaint,
+        0 = preserve).  Accepts (H, W), (H, W, 1) or (H, W, 3) uint8 (255 =
+        repaint) or floats; nearest-resized to the image grid, then
+        area-averaged to the latent grid, except for a 9-channel inpaint
+        UNet, which takes the pixel-grid mask."""
+        arr = np.asarray(mask_image)
+        if arr.dtype == np.uint8:
+            arr = arr.astype(np.float32) / 255.0
+        arr = arr.astype(np.float32)
+        if arr.ndim == 3:
+            arr = arr.mean(axis=-1)
+        if arr.ndim != 2:
+            raise ValueError(f"mask must be (H, W[, C]); got {arr.shape}")
+        arr = self._nearest_resize(arr, size)
+        if self._is_inpaint_unet():
+            return np.clip(arr, 0.0, 1.0)[None, :, :, None].astype(np.float32)
+        f = self.config.vae.downscale_factor
+        lat = size // f
+        m = arr.reshape(lat, f, lat, f).mean(axis=(1, 3))
+        return np.clip(m, 0.0, 1.0)[None, :, :, None].astype(np.float32)

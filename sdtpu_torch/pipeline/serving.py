@@ -1,0 +1,329 @@
+"""Micro-batching serving engine: the counterpart of
+``sdtpu/pipeline/serving.py``.
+
+:class:`ServingEngine` runs a background worker thread: requests that share
+a bucket (image size, steps, sampler, CFG and its scale, img2img with its
+strength and mask flag, CLIP skip, window count) are coalesced up to
+``max_batch_size`` or until one global ``max_wait_ms`` window passes, run
+as ``generate_batch`` requests of at most ``device_batch_size`` rows, and
+resolved to per-request futures.  Per-request keys and per-row negative
+prompts make each row's math independent of its batch; on a card the
+kernels' split-K plans depend on the batch (``plan_conv3x3_split``), so a
+row may differ from its solo image by rounding, which
+``tools/check_batch_invariance.py`` bounds (at most one uint8 level on at
+most 3% of values).
+
+The worker keeps two batches in flight: it dispatches batch N+1
+(``output="device"``) before it fetches batch N.  A transient error
+retries a batch once; a ValueError or TypeError fails its futures at once.
+A request field of a later slice (ControlNet, PAG, FreeU, CFG rescale,
+encoder caching, prompt weighting) raises at ``submit``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import List, Optional
+
+import numpy as np
+
+from sdtpu_torch.pipeline.pipeline import later
+
+_FAILED = object()  # dispatch sentinel: the batch is already resolved with an error
+
+# Rows per device request (ServingEngine.device_batch_size); the bench's
+# warmup reads it.
+DEFAULT_DEVICE_BATCH = 4
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt: str
+    negative_prompt: str
+    seed: int
+    token_ids: Optional[np.ndarray]
+    future: Future
+    image_size: int
+    steps: int
+    sampler: str
+    cfg: bool
+    cfg_scale: float
+    init_image: Optional[np.ndarray] = None
+    mask_image: Optional[np.ndarray] = None
+    strength: float = 0.9
+    image_guidance_scale: float = 1.5
+    clip_skip: int = 0
+    # rows with different CLIP window counts do not coalesce: padded empty
+    # windows would make a row's context depend on its batch
+    n_windows: int = 1
+    t_submit: float = 0.0  # monotonic enqueue time (latency percentiles)
+
+    @property
+    def bucket(self):
+        # the negative prompt and the image and mask contents are per row;
+        # the mask flag, strength and image guidance pick the request's
+        # program
+        img2img = self.init_image is not None
+        return (self.image_size, self.steps, self.sampler, self.cfg,
+                round(self.cfg_scale, 6), img2img, self.mask_image is not None,
+                round(self.strength, 6) if img2img else None,
+                round(self.image_guidance_scale, 6) if img2img else None,
+                self.clip_skip, self.n_windows)
+
+
+class ServingEngine:
+    """Threaded micro-batcher over a :class:`StableDiffusionPipeline`."""
+
+    def __init__(self, pipeline, *, max_batch_size: int = 8, max_wait_ms: float = 20.0,
+                 max_retries: int = 1, device_batch_size: Optional[int] = DEFAULT_DEVICE_BATCH,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine(mesh=...) belongs to the multi-card slice (dp/tp meshes)")
+        if device_batch_size is not None and device_batch_size < 1:
+            raise ValueError("device_batch_size must be >= 1")
+        self.pipeline = pipeline
+        self.max_batch_size = max_batch_size
+        # rows per device request: a collected batch larger than this runs
+        # as several pipelined requests (None: one per collected batch)
+        self.device_batch_size = device_batch_size
+        self.max_wait_ms = max_wait_ms
+        self.max_retries = max_retries
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._pending: "collections.deque[_Request]" = collections.deque()
+        self._shutdown = threading.Event()
+        self._lock = threading.Lock()
+        self._stats = {"requests": 0, "batches": 0, "failures": 0, "retries": 0,
+                       "batch_seconds": 0.0}
+        # rolling submit -> resolve latencies (p50/p95 in stats())
+        self._latencies: "collections.deque[float]" = collections.deque(maxlen=1024)
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def stats(self) -> dict:
+        """Requests served, batches run, failures, retries, mean batch size
+        and seconds, and the p50/p95 request latency."""
+        with self._lock:
+            s = dict(self._stats)
+            lat = sorted(self._latencies)
+        s["mean_batch_size"] = s["requests"] / s["batches"] if s["batches"] else 0.0
+        s["mean_batch_latency_s"] = s["batch_seconds"] / s["batches"] if s["batches"] else 0.0
+        if lat:
+            s["request_latency_p50_s"] = lat[len(lat) // 2]
+            s["request_latency_p95_s"] = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+        return s
+
+    # -- client API -----------------------------------------------------------
+
+    def submit(self, prompt: str, *, negative_prompt: str = "", seed: int = 0,
+               token_ids: Optional[np.ndarray] = None, image_size: Optional[int] = None,
+               num_inference_steps: Optional[int] = None, sampler: Optional[str] = None,
+               cfg: Optional[bool] = None, cfg_scale: Optional[float] = None,
+               init_image: Optional[np.ndarray] = None,
+               mask_image: Optional[np.ndarray] = None, strength: float = 0.9,
+               clip_skip: int = 0, prompt_weighting: bool = False,
+               token_weights: Optional[np.ndarray] = None,
+               control_image: Optional[np.ndarray] = None, controlnet_scale: float = 1.0,
+               image_guidance_scale: float = 1.5, guidance_rescale: float = 0.0,
+               pag_scale: float = 0.0, freeu: Optional[tuple] = None,
+               encoder_cache_interval: int = 1) -> Future:
+        """Enqueue one txt2img request (img2img with ``init_image``,
+        inpainting with ``mask_image`` too); the future resolves to an (H, W,
+        3) uint8 image.  Unset knobs resolve to the preset's defaults here,
+        so that the bucket is well defined."""
+        if self._shutdown.is_set():
+            raise RuntimeError("engine is shut down")
+        later([(f"ServingEngine.submit({name}=...)", used, where) for name, used, where in (
+            ("control_image", control_image is not None, "ControlNet slice"),
+            ("prompt_weighting", bool(prompt_weighting), "features slice"),
+            ("token_weights", token_weights is not None, "features slice"),
+            ("guidance_rescale", guidance_rescale != 0.0, "features slice"),
+            ("pag_scale", pag_scale != 0.0, "features slice"),
+            ("freeu", freeu is not None, "features slice"),
+            ("encoder_cache_interval", encoder_cache_interval != 1, "features slice"))])
+        if mask_image is not None and init_image is None:
+            raise ValueError("mask_image requires init_image (inpainting)")
+        config = self.pipeline.config
+        tok = getattr(self.pipeline, "tokenizer", None)
+        w = config.text_config.max_length
+        use_cfg = config.default_cfg if cfg is None else cfg
+        if token_ids is not None:
+            n_windows = max(1, np.asarray(token_ids).shape[-1] // w)
+        elif tok is None:
+            n_windows = 1
+        else:
+            texts = [prompt] + ([negative_prompt] if use_cfg else [])
+            n_windows = max(tok.num_windows(t, window=w) for t in texts)
+        req = _Request(
+            prompt=prompt, negative_prompt=negative_prompt, seed=seed, token_ids=token_ids,
+            future=Future(), image_size=image_size or config.default_image_size,
+            steps=config.default_steps if num_inference_steps is None else num_inference_steps,
+            sampler=sampler or config.default_sampler, cfg=use_cfg,
+            cfg_scale=config.default_cfg_scale if cfg_scale is None else cfg_scale,
+            init_image=init_image, mask_image=mask_image, strength=strength,
+            image_guidance_scale=image_guidance_scale, clip_skip=clip_skip,
+            n_windows=n_windows, t_submit=time.monotonic())
+        self._queue.put(req)
+        return req.future
+
+    def generate(self, prompt: str, **kw) -> np.ndarray:
+        return self.submit(prompt, **kw).result()
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._shutdown.set()
+        if wait:
+            self._worker.join(timeout=60)
+
+    # -- worker ---------------------------------------------------------------
+
+    def _collect_batch(self, initial_timeout: float = 0.1) -> List[_Request]:
+        # _pending holds requests dequeued but not served yet (another
+        # bucket than an earlier batch's): they keep their arrival order and
+        # come before new queue items
+        if self._pending:
+            first = self._pending.popleft()
+        else:
+            try:
+                if initial_timeout <= 0:
+                    first = self._queue.get_nowait()
+                else:
+                    first = self._queue.get(timeout=initial_timeout)
+            except queue.Empty:
+                return []
+        batch = [first]
+        remaining = collections.deque()
+        for req in self._pending:
+            if len(batch) < self.max_batch_size and req.bucket == first.bucket:
+                batch.append(req)
+            else:
+                remaining.append(req)
+        self._pending = remaining
+        # one deadline for the whole window, not re-armed per request
+        deadline = time.monotonic() + self.max_wait_ms / 1000.0
+        while len(batch) < self.max_batch_size:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                req = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if req.bucket == first.bucket:
+                batch.append(req)
+            else:
+                self._pending.append(req)
+        return batch
+
+    def _gen_kwargs(self, batch: List[_Request]) -> tuple:
+        first = batch[0]
+        token_ids = (None if any(r.token_ids is None for r in batch)
+                     else np.stack([np.asarray(r.token_ids) for r in batch]))
+        kw = dict(negative_prompt=[r.negative_prompt for r in batch], cfg=first.cfg,
+                  cfg_scale=first.cfg_scale, num_inference_steps=first.steps,
+                  seeds=[r.seed for r in batch], image_size=first.image_size,
+                  token_ids=token_ids, sampler=first.sampler, clip_skip=first.clip_skip)
+        if first.init_image is not None:
+            kw["init_images"] = [r.init_image for r in batch]
+            kw["strength"] = first.strength
+            kw["image_guidance_scale"] = first.image_guidance_scale
+            if first.mask_image is not None:
+                kw["mask_images"] = [r.mask_image for r in batch]
+        return [r.prompt for r in batch], kw
+
+    def _dispatch(self, batch: List[_Request]):
+        """Queue a batch without waiting for it (``output="device"``): the
+        device tensor in flight; None defers to a synchronous retry at
+        resolve time (a transient error); ``_FAILED`` when a ValueError or
+        TypeError has failed the batch's futures."""
+        try:
+            prompts, kw = self._gen_kwargs(batch)
+            return self.pipeline.generate_batch(prompts, output="device", **kw)
+        except (ValueError, TypeError) as exc:  # deterministic: no retry
+            with self._lock:
+                self._stats["failures"] += len(batch)
+            for req in batch:
+                if not req.future.done():
+                    req.future.set_exception(exc)
+            return _FAILED
+        except Exception:
+            with self._lock:
+                self._stats["retries"] += 1
+            return None
+
+    def _record(self, batch: List[_Request], images, t0) -> None:
+        now = time.monotonic()
+        for i, req in enumerate(batch):
+            if not req.future.done():  # the client may have cancelled
+                req.future.set_result(images[i])
+        with self._lock:
+            self._latencies.extend(now - r.t_submit for r in batch)
+            self._stats["requests"] += len(batch)
+            self._stats["batches"] += 1
+            self._stats["batch_seconds"] += time.perf_counter() - t0
+
+    def _resolve(self, batch: List[_Request], dev, t0) -> None:
+        if dev is not None:
+            try:
+                images = dev.cpu().numpy()
+            except Exception:
+                with self._lock:
+                    self._stats["retries"] += 1
+            else:
+                self._record(batch, images, t0)
+                return
+        self._execute_sync(batch, t0)
+
+    def _execute_sync(self, batch: List[_Request], t0) -> None:
+        """Run a batch and wait for it: a transient error retries it up to
+        ``max_retries`` times, a ValueError or TypeError fails it at once."""
+        prompts, kw = self._gen_kwargs(batch)
+        for attempt in range(self.max_retries + 1):
+            try:
+                images = self.pipeline.generate_batch(prompts, **kw)
+            except Exception as exc:  # resolve the futures; the worker lives on
+                if not isinstance(exc, (ValueError, TypeError)) and attempt < self.max_retries:
+                    with self._lock:
+                        self._stats["retries"] += 1
+                    continue
+                with self._lock:
+                    self._stats["failures"] += len(batch)
+                for req in batch:
+                    if not req.future.done():
+                        req.future.set_exception(exc)
+                return
+            self._record(batch, images, t0)
+            return
+
+    def _run(self) -> None:
+        # Up to two device requests in flight: while one computes, the
+        # worker collects and dispatches the next, then fetches the oldest.
+        # A collected batch larger than device_batch_size runs as several
+        # requests in arrival order (per-request keys make the rows
+        # independent of the chunking).
+        inflight = collections.deque()  # (chunk, device images or None, t0)
+        while True:
+            drained = self._shutdown.is_set() and self._queue.empty() and not self._pending
+            if drained and not inflight:
+                break
+            batch = [] if drained else self._collect_batch(
+                initial_timeout=0.0 if inflight else 0.1)
+            if not batch:
+                if inflight:
+                    self._resolve(*inflight.popleft())
+                continue
+            db = self.device_batch_size or self.max_batch_size
+            for i in range(0, len(batch), db):
+                t0 = time.perf_counter()
+                chunk = batch[i:i + db]
+                dev = self._dispatch(chunk)
+                if dev is not _FAILED:
+                    inflight.append((chunk, dev, t0))
+                while len(inflight) > 2:
+                    self._resolve(*inflight.popleft())
+            while len(inflight) > 1:
+                self._resolve(*inflight.popleft())

@@ -68,20 +68,66 @@ def test_bench_prints_the_reference_json_line(tiny_preset, capsys, extra, mode):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--img2img"], "img2img"),
+    (["--img2img", "--controlnet"], "ControlNet"),
     (["--controlnet"], "ControlNet"),
     (["--pag-scale", "3"], "features"),
     (["--encoder-cache", "2"], "features"),
-    (["--serving"], "serving"),
-    (["--batch", "2"], "serving"),
+    (["--serving", "--pag-scale", "3"], "features"),
+    (["--batch", "2", "--encoder-cache", "2"], "features"),
     (["--sampler", "heun"], "unknown sampler"),
 ])
 def test_bench_refuses_unported_flags(tiny_preset, flags, slice_name):
-    """A flag of a later slice raises NotImplementedError naming it; an
-    unknown ``--sampler`` raises ValueError, before any parameter is made."""
+    """A flag of a later slice raises NotImplementedError naming it, also
+    beside ``--img2img``, ``--serving`` and ``--batch`` (which run,
+    ``test_bench_img2img_batch_and_serving_lines``); an unknown
+    ``--sampler`` raises ValueError, before any parameter is made."""
     error = ValueError if "--sampler" in flags else NotImplementedError
     with pytest.raises(error, match=slice_name):
         bench.main(["--preset", tiny_preset, "--device", "cpu", *flags])
+
+
+SERVING_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_definition", "requests",
+                "mean_batch_size", "batches", "wall_s", "device", "request_latency_p50_s",
+                "request_latency_p95_s"}
+
+
+@pytest.mark.parametrize("flags,metric", [
+    (["--img2img", "--strength", "0.5"], "test/tiny 32x32 img2img 2-step ddpm CFG images/sec/chip"),
+    (["--batch", "2"], "test/tiny 32x32 2-step ddpm CFG images/sec/chip"),
+    (["--serving", "--requests", "5", "--batch", "2", "--device-batch", "1"],
+     "test/tiny 32x32 2-step ddpm CFG serving images/sec/chip"),
+])
+def test_bench_img2img_batch_and_serving_lines(tiny_preset, capsys, flags, metric):
+    """``bench.py``'s JSON keys for an img2img request, a ``generate_batch``
+    of 2 and the serving engine (5 requests in batches of 2: 4 served)."""
+    result = bench.main(["--preset", tiny_preset, "--device", "cpu", "--steps", "2",
+                         "--repeats", "2", *flags])
+    line = _json_line(capsys.readouterr().out)
+    assert line == result and line["metric"] == metric and line["value"] > 0
+    if "--serving" in flags:
+        assert set(line) == SERVING_KEYS and line["requests"] == 4
+        assert line["mean_batch_size"] <= 2
+        return
+    assert REFERENCE_KEYS | {"p50_request_latency_s"} == set(line)
+    flops = tflops.pipeline_flops(port_config(TINY), 32, 2, line["batch"],
+                                  img2img="--img2img" in flags, strength=0.5)
+    assert line["program_tflops"] == round(flops / 1e12, 2)
+
+
+def test_bench_conditioned_presets_take_their_inputs(monkeypatch, capsys):
+    """A 9-channel inpaint preset runs img2img with a mask at strength 1, an
+    8-channel editing preset img2img; neither line has a FLOP count, as in
+    the JAX bench."""
+    import dataclasses
+
+    for ch in (9, 8):
+        cfg = port_config(TINY.replace(unet=dataclasses.replace(TINY.unet, in_channels=ch)))
+        monkeypatch.setitem(tcfg.PRESETS, f"test/tiny{ch}", cfg)
+        line = bench.main(["--preset", f"test/tiny{ch}", "--device", "cpu", "--steps", "2",
+                           "--repeats", "1"])
+        assert "img2img" in line["metric"] and line["value"] > 0
+        assert "program_tflops" not in line and "mfu_pct" not in line
+    assert _json_line(capsys.readouterr().out.splitlines()[-1])["batch"] == 1
 
 
 def test_bench_module_exits_non_zero_naming_the_slice():
@@ -89,10 +135,10 @@ def test_bench_module_exits_non_zero_naming_the_slice():
     and the slice in the error, before any parameter is made."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-m", "sdtpu_torch.bench", "--device", "cpu",
-                           "--serving"], cwd=REPO, env=env, capture_output=True, text=True,
+                           "--controlnet"], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0
-    assert "batching/serving slice" in proc.stderr
+    assert "ControlNet slice" in proc.stderr
     assert '"metric"' not in proc.stdout
 
 

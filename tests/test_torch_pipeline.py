@@ -99,8 +99,9 @@ def test_request_noise_is_the_jax_programs_draws():
     for _ in range(2):
         key, sub = jax.random.split(key)
         want.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
-    np.testing.assert_allclose(request_noise(prng.key(40), 2, shape, "cpu", init=False).numpy(),
-                               np.stack(want), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        request_noise(prng.key(40), 2, shape, "cpu", program="latents").numpy(),
+        np.stack(want), rtol=0, atol=1e-6)
 
 
 def test_xla_route_matches_jax_within_one_level(tiny_pipe, port_pipe):
@@ -156,30 +157,33 @@ def test_injected_latents_replace_the_draw(port_pipe):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs,slice_name", [
-    ({"init_image": np.zeros((32, 32, 3), np.uint8)}, "img2img"),
-    ({"mask_image": np.zeros((32, 32), np.uint8)}, "img2img"),
-    ({"control_image": np.zeros((32, 32, 3), np.uint8)}, "ControlNet"),
-    ({"prompt_weighting": True}, "features"),
-    ({"pag_scale": 3.0}, "features"),
-    ({"freeu": (1.5, 1.6, 0.9, 0.2)}, "features"),
-    ({"encoder_cache_interval": 2}, "features"),
-    ({"num_images": 2}, "serving"),
-    ({"sampler": "heun"}, "unknown sampler"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"init_image": np.zeros((32, 32, 3), np.uint8), "latents": np.zeros((8, 8, 4), np.float32)},
+     ValueError, "latents injection is txt2img-only"),
+    ({"mask_image": np.zeros((32, 32), np.uint8)}, ValueError, "mask_image requires init_image"),
+    ({"control_image": np.zeros((32, 32, 3), np.uint8)}, NotImplementedError, "ControlNet"),
+    ({"prompt_weighting": True}, NotImplementedError, "features"),
+    ({"pag_scale": 3.0}, NotImplementedError, "features"),
+    ({"freeu": (1.5, 1.6, 0.9, 0.2)}, NotImplementedError, "features"),
+    ({"encoder_cache_interval": 2}, NotImplementedError, "features"),
+    ({"num_images": 2, "pag_scale": 3.0}, NotImplementedError, "features"),
+    ({"sampler": "heun"}, ValueError, "unknown sampler"),
 ])
-def test_later_slices_raise(port_pipe, kwargs, slice_name):
-    """A feature of a later slice raises NotImplementedError naming it; a
-    sampler name the JAX package does not have raises its ValueError."""
-    error = ValueError if "sampler" in kwargs else NotImplementedError
-    with pytest.raises(error, match=slice_name):
+def test_later_slices_raise(port_pipe, kwargs, error, match):
+    """A feature of a later slice raises NotImplementedError naming it (also
+    through ``num_images``, which runs ``generate_batch``); img2img and
+    inpainting misuse and a sampler name the JAX package does not have
+    raise its ValueError."""
+    with pytest.raises(error, match=match):
         port_pipe.generate(token_ids=TOKENS, num_inference_steps=1, **kwargs)
 
 
 def test_generate_batch_and_other_routes_raise(port_pipe):
     """``"xla"`` is a route now (``test_xla_route_matches_jax_within_one_level``);
-    a name that is no route raises."""
-    with pytest.raises(NotImplementedError, match="serving"):
-        port_pipe.generate_batch(["x"])
+    a name that is no route raises; ``generate_batch`` runs, but a mesh
+    belongs to the multi-card slice."""
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        port_pipe.generate_batch(["x"], token_ids=TOKENS[:1], mesh=object())
     for impl in ("xla", "flash", "ring", "auto"):
         StableDiffusionPipeline(TTINY.replace(attention_impl=impl), port_pipe.params,
                                 device="cpu")
