@@ -149,6 +149,33 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               3) through the kernels against the plain route; (e) the
               bench's ``--img2img``, ``--batch 4`` and ``--serving`` lines
               with their launches held to their requests.
+16. sdxl   -- the SDXL family and LCM's guidance embedding on seeded random
+              weights: (a) ``sdxl`` at 1024x1024 (``from_random`` host
+              seconds, the tree's bytes), one 25-step DDPM CFG 7.5 image
+              with its launches held to its recorded calls (a UNet step's
+              times 25, plus the decode's; the configs' A/B/C printed
+              beside), every A, B and C call shape of it held to its plain
+              version at TOL_REL and timed beside it and the library (per
+              image: kernels, plain, library, bound), one traced image's
+              device-busy time and idle share, one UNet forward at batch 2
+              (128x128 latents, 2048-wide context, the add-embedding)
+              through the kernels against the plain route and float32;
+              (b) ``sdxl-turbo`` at 512x512 on the same tree (4 Euler steps,
+              no CFG) with its launches held, then on the gate's weights
+              (0.04 x normals, drawn on the card)
+              ``generate_batch`` of 4 and a ``ServingEngine`` answering 8
+              requests, each row within 1 level on 3% of values of its
+              solo image; (c) the handoff: ``sdxl`` with
+              ``denoising_end=0.8, output="latents"``, then
+              ``sdxl-refiner`` (the base's clip_2 and VAE leaves, its UNet
+              drawn from ``from_random``'s key) with ``denoising_start=0.8``,
+              launches held; (d) ``lcm-sd15``, one 512x512 4-step request,
+              launches held; in (b)-(d) every A, B and C call shape that
+              sdxl's image did not run (turbo at batch 1 and 4, the
+              refiner's 384/768/1536 channels, LCM) held to its plain
+              version at TOL_REL; (e) the bench's ``--preset sdxl
+              --repeats 3`` and ``--preset sdxl-turbo --batch 4 --repeats
+              3`` lines with their launches held to their requests.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -471,21 +498,23 @@ def check_merge(torch, gen, splits, bh, lq, d):
     return errs[0][0]
 
 
-def time_conv(torch, gen, cfg):
-    """Kernel, plain and cuDNN ms by CUDA events, then the kernel's (every
+def time_conv(torch, gen, cfg, reps=None, device=True):
+    """Kernel, plain and cuDNN ms by CUDA events (``reps`` calls each, by
+    default 20, or 5 where the map times ``co`` passes 2**31; the plain
+    version a quarter as many), then, with ``device``, the kernel's (every
     kernel of the wrapper call) and cuDNN's device ms by the profiler."""
     from sdtpu_torch.kernels.conv2d import conv3x3_slab, conv3x3_slab_plain
 
     x_shape, co, pro, res, up, stats = cfg
     x, k, bias, kw = conv_inputs(torch, gen, x_shape, co, pro=pro, res=res, up=up)
-    big = x.numel() * co > 2**31
-    reps = 5 if big else 20
+    reps = reps or (5 if x.numel() * co > 2**31 else 20)
     run = functools.partial(conv3x3_slab, x, k, bias, emit_stats=stats, **kw)
     lib = cudnn_call(torch, x, k, bias, kw)
-    t_k = event_ms(run, reps)
-    t_p = event_ms(lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
-                   2 if big else 5)
-    return t_k, t_p, event_ms(lib, reps), device_ms(run, 10), device_ms(lib, 10)
+    times = (event_ms(run, reps),
+             event_ms(lambda: conv3x3_slab_plain(x, k, bias, emit_stats=stats, **kw),
+                      max(2, (reps + 2) // 4)),
+             event_ms(lib, reps))
+    return times + ((device_ms(run, 10), device_ms(lib, 10)) if device else ())
 
 
 def cudnn_call(torch, x, k, bias, kw):
@@ -619,11 +648,12 @@ def int8_case(torch, gen, x_shape, co, res, stats):
             "code_err": code_err, "code_share": code_share, "prologue": pro, "reduction": red}
 
 
-def time_flash(torch, gen, q_shape, lk):
+def time_flash(torch, gen, q_shape, lk, reps=10, device=True):
     """Kernel C (with its merge where the plan splits), its plain version
-    and the library by CUDA events, then the kernels' and the library's
-    device ms by the profiler.  Library: SDPA, the memory-efficient one
-    where flash refuses the head dim (D > 256)."""
+    (a quarter as many calls) and the library by CUDA events, then, with
+    ``device``, the kernels' and the library's device ms by the profiler.
+    Library: SDPA, the memory-efficient one where flash refuses the head
+    dim (D > 256)."""
     from sdtpu_torch.kernels.flash_attention import flash_attention_packed, flash_attention_plain
 
     q, k, v = flash_qkv(torch, gen, q_shape, lk)
@@ -632,10 +662,11 @@ def time_flash(torch, gen, q_shape, lk):
         lib = lambda: aten._scaled_dot_product_efficient_attention(q, k, v, None, False)  # noqa: E731
     else:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    t_k = event_ms(lambda: flash_attention_packed(q, k, v), 10)
-    t_p = event_ms(lambda: flash_attention_plain(q, k, v), 3)
-    t_l = event_ms(lib, 10)
-    return t_k, t_p, t_l, device_ms(lambda: flash_attention_packed(q, k, v), 10), device_ms(lib, 10)
+    run = functools.partial(flash_attention_packed, q, k, v)
+    times = (event_ms(run, reps),
+             event_ms(lambda: flash_attention_plain(q, k, v), max(2, (reps + 2) // 4)),
+             event_ms(lib, reps))
+    return times + ((device_ms(run, 10), device_ms(lib, 10)) if device else ())
 
 
 def flash_stats_case(torch, gen, q_shape, lk):
@@ -1522,9 +1553,17 @@ def main() -> int:
     details["conditioned"] = conditioned_phase(torch, np, gen, pipe, ids, launch_counts,
                                                reset_launch_counts, kind, e2e_expected)
     t6 = time.perf_counter()
+
+    # phase 16: the SDXL family and LCM's guidance embedding
+    pipe.params = None
+    torch.cuda.empty_cache()
+    details["sdxl"] = sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind,
+                                 exp_rate)
+    t7 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
-                          "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5}
-    log("phases 10-15 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
+                          "sdxl": t7 - t6}
+    log("phases 10-16 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -2394,20 +2433,24 @@ def byte_tokenizer():
     return CLIPTokenizer(vocab, [])
 
 
-def counted(torch, run, launch_counts, reset_launch_counts):
-    """``run()`` once through the recording shims, then once more with the
-    launch counts zeroed just before it and read just after: (its result,
-    seconds, counts, the counts expected from the recorded calls, the
-    calls)."""
-    calls = record_calls(torch, run)
+def counted(torch, run, launch_counts, reset_launch_counts, calls=None):
+    """``run()`` once through the recording shims (unless its ``calls`` are
+    given), then once more with the launch counts zeroed just before it and
+    read just after: (its result, seconds, counts, the counts expected from
+    the calls, the calls, peak bytes above what was allocated before it)."""
+    if calls is None:
+        calls = record_calls(torch, run)
     expected = expected_launches(calls, launch_counts)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    return out, sec, dict(launch_counts), expected, calls
+    counts = dict(launch_counts)
+    return out, sec, counts, expected, calls, torch.cuda.max_memory_allocated() - base
 
 
 def hold_counts(label, counts, expected, predicted=None):
@@ -2468,8 +2511,8 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
                 cfg_scale=7.5, strength=STRENGTH, init_image=init)
     for label, extra in (("img2img", {}), ("inpaint", {"mask_image": mask})):
         kw = dict(base, **extra)
-        img, sec, counts, expected, _ = counted(torch, lambda: pipe.generate(**kw),
-                                                launch_counts, reset_launch_counts)
+        img, sec, counts, expected, _, _ = counted(torch, lambda: pipe.generate(**kw),
+                                                   launch_counts, reset_launch_counts)
         log(f"{label} (tiny-sd 512x512, {STEPS} DDPM steps at strength {STRENGTH} = {s_eff} "
             f"steps, CFG 7.5): image {img.shape} {img.dtype}, pixel std {float(img.std()):.3f}, "
             f"{sec:.4f} s/image")
@@ -2488,14 +2531,10 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
 
     # (b) generate_batch at B = 4: one request of 4 rows, per-request seeds
     bids = np.random.default_rng(4).integers(1, 49408, (4, 77))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     bkw = dict(token_ids=bids, num_inference_steps=STEPS, seeds=[10, 11, 12, 13],
                image_size=512)
-    imgs, sec, counts, expected, _ = counted(
+    imgs, sec, counts, expected, _, peak = counted(
         torch, lambda: pipe.generate_batch(["x"] * 4, **bkw), launch_counts, reset_launch_counts)
-    peak = torch.cuda.max_memory_allocated() - base
     log(f"generate_batch B=4 (512x512, {STEPS} steps, CFG, UNet batch 8): {imgs.shape}, "
         f"{sec:.4f} s for 4 images ({4 / sec:.4f} images/s), peak memory above what was "
         f"allocated before it {peak / 2**30:.3f} GiB")
@@ -2598,11 +2637,8 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
         fr_s = time.perf_counter() - t0
         kw = dict(token_ids=sd_ids, num_inference_steps=STEPS, seed=40, image_size=512,
                   init_image=init, **extra)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        img, sec, counts, expected, calls = counted(torch, lambda: sd.generate(**kw),
-                                                    launch_counts, reset_launch_counts)
-        peak = torch.cuda.max_memory_allocated() - base
+        img, sec, counts, expected, calls, peak = counted(torch, lambda: sd.generate(**kw),
+                                                          launch_counts, reset_launch_counts)
         log(f"{preset}: from_random(seed=0) {fr_s:.3f} s on the host; 512x512, {STEPS} DDPM "
             f"steps, CFG 7.5, UNet batch {rows}: image {img.shape}, pixel std "
             f"{float(img.std()):.3f}, {sec:.4f} s/image, peak memory above the resident "
@@ -2661,6 +2697,428 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
         out[f"bench {label}"] = {"line": line, "launches": counts}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- the SDXL family --
+
+SDXL_STEPS = 25            # the sdxl preset's default: DDPM, CFG 7.5, 1024x1024
+SPLIT = 0.8                # the base -> refiner handoff (diffusers' default)
+# A/B/C per UNet step, read from the configs (the recorded
+# calls decide): sdxl 17 resnets, 2 upsamplers, 70 transformer blocks;
+# the refiner 22, 3, 44; SD-1.5 (lcm-sd15) 22, 3, 16
+PREDICTED_STEP = {"sdxl": {"conv3x3_slab": 34, "conv3x3_slab_upsample": 2,
+                           "flash_attention": 70},
+                  "sdxl-refiner": {"conv3x3_slab": 44, "conv3x3_slab_upsample": 3,
+                                   "flash_attention": 44},
+                  "lcm-sd15": {"conv3x3_slab": 44, "conv3x3_slab_upsample": 3,
+                               "flash_attention": 16}}
+
+
+def request_calls(torch, pipe, kw, n_steps, decode=True, batch=None):
+    """A request's kernel call configurations (:func:`record_calls`): one
+    UNet step's (a 1-step request that returns its latents; with ``batch``
+    a ``generate_batch`` of that many rows) times ``n_steps``, plus one VAE
+    decode's where ``decode``."""
+    one = dict({k: v for k, v in kw.items() if k not in ("latents", "denoising_start",
+                                                         "denoising_end", "output")},
+               num_inference_steps=1, output="latents")
+    lat = []
+    step = record_calls(torch, lambda: lat.append(
+        pipe.generate(**one) if batch is None else pipe.generate_batch(["x"] * batch, **one)))
+    calls = {key: Counter({c: n * n_steps for c, n in cs.items()}) for key, cs in step.items()}
+    if decode:
+        z = torch.from_numpy(lat[0]).cuda()
+        for key, cs in record_calls(torch, lambda: pipe._finish(z, "uint8")).items():
+            calls[key].update(cs)
+    return calls
+
+
+def held_run(torch, label, run, calls, launch_counts, reset_launch_counts, predicted=None):
+    """:func:`counted` on a request's ``calls``, its launches held to them;
+    the predicted A/B/C counts are printed beside them.  Returns (its
+    result, seconds, counts, peak bytes above what was allocated before
+    it)."""
+    out, sec, counts, expected, _, peak = counted(torch, run, launch_counts,
+                                                  reset_launch_counts, calls)
+    hold_counts(label, counts, expected)
+    if predicted is not None:
+        main = {k: counts[k] for k in predicted}
+        log(f"{label} A/B/C {main}; predicted from the configs {predicted}: "
+            + ("agree" if main == predicted else "DIFFER (the recorded calls decide)"))
+    return out, sec, counts, peak
+
+
+def card_normal_tree(torch, like, seed, scale=0.04):
+    """The batch-invariance gate's weights (``tools/check_batch_invariance``:
+    ``scale`` x standard normals, rounded to each leaf's dtype) for the tree
+    of ``like``, drawn on the card by a seeded torch generator: the JAX
+    tool's numpy draws of SDXL's 3.5 G values cost tens of seconds of host
+    time."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [draw(v) for v in t]
+        return (torch.randn(t.shape, generator=gen, device="cuda") * scale).to(t.dtype)
+
+    return draw(like)
+
+
+def kineto_events(prof):
+    """A profiler run's activities as :func:`trace_split` reads them (name,
+    device type, user-annotation flag, time range in us), taken straight
+    from kineto's results: building the profiler's event tree costs seconds
+    a step at an SDXL step's ~8.5k device activities."""
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(name=e.name(), device_type=e.device_type(),
+                            is_user_annotation=e.is_user_annotation(),
+                            time_range=SimpleNamespace(start=e.start_ns() / 1e3,
+                                                       end=(e.start_ns() + e.duration_ns()) / 1e3))
+            for e in prof.profiler.kineto_results.events()]
+
+
+def check_image(label, img, size, rows=1):
+    if (img.shape != (rows, size, size, 3) or img.dtype.name != "uint8"
+            or min(float(i.std()) for i in img) == 0.0):
+        raise AssertionError(f"{label}: not {rows} non-constant ({size}, {size}, 3) uint8 "
+                             f"image(s): {img.shape} {img.dtype}")
+
+
+def call_keys(calls):
+    """A path's kernel A/B/C call configurations, keyed as
+    :func:`check_conv` and :func:`check_flash` take them."""
+    return ({("conv", cfg[:6]) for cfg in calls["conv3x3_slab"]}
+            | {("flash", key) for key in calls["flash_attention_packed"]})
+
+
+def hold_shapes(torch, gen, label, calls, held):
+    """Kernels A, B and C at each call configuration of ``calls`` not in
+    ``held`` yet, each held to its plain version at TOL_REL; ``held`` gains
+    them.  Returns how many were new."""
+    new = sorted(call_keys(calls) - held)
+    for kind, key in new:
+        if kind == "conv":
+            check_conv(torch, gen, key)
+        else:
+            check_flash(torch, gen, *key)
+    held.update(new)
+    log(f"{label}: {len(new)} kernel call configuration(s) that the earlier requests did not "
+        f"run, each within TOL_REL of its plain version")
+    return len(new)
+
+
+def shape_times(torch, gen, calls, exp_rate):
+    """Kernels A, B and C at every call configuration of a path: each held
+    to its plain version at TOL_REL, then timed by CUDA events beside its
+    plain version and one library call (:func:`time_conv`,
+    :func:`time_flash`, 5 calls each).  Returns the per-image sums over the
+    path's calls with the bound, ``{kernel: totals}``, and the per-call
+    rows."""
+    from sdtpu_torch.kernels.flash_attention import plan_flash
+
+    tot = {n: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "byte_ms": 0.0, "op_ms": 0.0, "max_abs_err": 0.0}
+           for n in ("conv3x3_slab", "conv3x3_slab_upsample", "flash_attention")}
+
+    rows = []
+
+    def add(name, n, times, cost, err, desc):
+        t_k, t_p, t_l = times
+        rows.append({"kernel": name, "call": desc, "per_image": n, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l})
+        t_by, t_ops = bound_terms(cost, PEAK_BF16_FLOPS, exp_rate)
+        row = tot[name]
+        for key, v in (("launches", 1), ("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("byte_ms", t_by), ("op_ms", t_ops), ("bound_ms", max(t_by, t_ops))):
+            row[key] += n * v
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"time {name} {desc} x{n}: kernels {t_k:.4f} ms, plain {t_p:.4f}, library "
+            f"{t_l:.4f} (CUDA events, per call)")
+
+    for cfg, n in sorted(calls["conv3x3_slab"].items()):
+        x_shape, co, pro, res, up, stats, _ = cfg
+        name, err = check_conv(torch, gen, cfg[:6])
+        add(name, n, time_conv(torch, gen, cfg[:6], reps=5, device=False),
+            conv_cost(x_shape, co, pro=pro, res=res, up=up, stats=stats), err,
+            f"x={x_shape} co={co} pro={int(pro)} res={int(res)} st={int(stats)}")
+    for (q_shape, lk), n in sorted(calls["flash_attention_packed"].items()):
+        _, err = check_flash(torch, gen, q_shape, lk)
+        b, h, lq, d = q_shape
+        add("flash_attention", n, time_flash(torch, gen, q_shape, lk, reps=5, device=False),
+            flash_cost(q_shape, lk), err, f"q={q_shape} lk={lk} plan={plan_flash(b * h, lq, lk, d)}")
+    for row in tot.values():
+        row["bound_by"] = "bytes" if row.pop("byte_ms") > row.pop("op_ms") else "operations"
+    return tot, rows
+
+
+def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rate):
+    """Phase 16: ``sdxl`` at 1024x1024 on seeded random weights (one
+    25-step CFG image with its launches held, its kernel shapes held to
+    their plain versions and timed, a traced image, one UNet forward
+    against the plain route and float32), ``sdxl-turbo`` on the same tree
+    (a request, ``generate_batch`` of 4 and the ServingEngine on the gate's
+    weights), the base -> refiner handoff, ``lcm-sd15`` (each later
+    request's new A/B/C call shapes held to their plain versions), and the
+    bench's SDXL lines."""
+    from sdtpu_torch import StableDiffusionPipeline, bench
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.models.unet import init_unet, unet_forward
+    from sdtpu_torch.pipeline.serving import ServingEngine
+    from sdtpu_torch.samplers import get_sampler, slice_schedule
+    from sdtpu_torch.tools import check_batch_invariance
+    from sdtpu_torch.utils import hostrng
+
+    out = {}
+    t_phase = time.perf_counter()
+    ids = np.random.default_rng(16).integers(1, 49408, (2, 77))
+
+    # (a) sdxl at 1024x1024: from_random, one image, its kernel shapes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    base = StableDiffusionPipeline.from_random("sdxl", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    fr_s = time.perf_counter() - t0
+    tree_bytes = torch.cuda.memory_allocated() - before
+    log(f"sdxl: from_random(seed=0) {fr_s:.3f} s on the host, the tree {tree_bytes / 2**30:.3f} "
+        "GiB on the card")
+    kw = dict(token_ids=ids, num_inference_steps=SDXL_STEPS, seed=40, image_size=1024)
+    calls = request_calls(torch, base, kw, SDXL_STEPS)
+    predicted = {k: SDXL_STEPS * v + VAE_DECODE[k] for k, v in PREDICTED_STEP["sdxl"].items()}
+    img, sec, counts, peak = held_run(torch, "sdxl", lambda: base.generate(**kw), calls,
+                                      launch_counts, reset_launch_counts, predicted)
+    check_image("sdxl", img, 1024)
+    log(f"sdxl (1024x1024, {SDXL_STEPS} DDPM steps, CFG 7.5, UNet batch 2): pixel std "
+        f"{float(img.std()):.3f}, {sec:.4f} s/image, peak memory above the tree "
+        f"{peak / 2**30:.3f} GiB")
+    out["sdxl"] = {"from_random_s": fr_s, "tree_bytes": tree_bytes, "s_per_image": sec,
+                   "peak_bytes": peak, "launches": counts,
+                   "attention_shapes": sorted([list(q), lk] for q, lk in
+                                              calls["flash_attention_packed"])}
+    out["sdxl"]["kernels"], out["sdxl"]["kernel_calls"] = shape_times(torch, gen, calls,
+                                                                     exp_rate)
+    for name, row in out["sdxl"]["kernels"].items():
+        log(f"sdxl per image, {name}: {json.dumps(row)}")
+    # every later request's A/B/C call configurations that sdxl's did not
+    # run are held to their plain versions too
+    held = call_keys(calls)
+    out["shapes_held"] = {"sdxl": len(held)}
+    # one traced image: device-busy time and idle share
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        base.generate(**kw)
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = trace_split(torch, kineto_events(prof), wall)
+    del prof
+    log(f"trace of one sdxl image ({SDXL_STEPS} steps, read in {time.perf_counter() - t0:.1f}"
+        f" s): wall {split['wall_ms']:.1f} ms, window {split['window_ms']:.1f} ms, device busy "
+        f"{split['device_busy_ms']:.1f} ms ({split['device_events']} device activities), idle "
+        f"share {split['idle_share']:.4f}")
+    log("trace sdxl device ms by kind: " + ", ".join(
+        f"{k} {v['ms']:.1f} (x{v['count']})" for k, v in split["device_ms_by_kind"].items()))
+    log("trace sdxl host stage ms: " + ", ".join(f"{n} {v:.1f}"
+                                                 for n, v in split["host_stage_ms"].items()))
+    for op in split["top_device_ops"][:5]:
+        log(f"trace sdxl device op {op['total_ms']:9.3f} ms x{op['count']:5d} {op['name'][:100]}")
+    for g in split["longest_idle_gaps"][:3]:
+        log(f"trace sdxl idle gap {g['ms']:8.3f} ms at +{g['at_ms']:.1f} ms, host in "
+            f"{g['stage']}")
+    out["sdxl"]["trace"] = split
+    # one UNet forward at batch 2 (128x128 latents): kernels vs plain vs f32
+    ucfg = base.config.unet
+    lat = torch.randn((2, 128, 128, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+    added = {"text_embeds": torch.randn((2, 1280), generator=gen, device="cuda"),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda")}
+    a16 = {"text_embeds": added["text_embeds"].bfloat16(), "time_ids": added["time_ids"]}
+    with torch.inference_mode():
+        k_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), base.params["unet"], ucfg,
+                             added_cond=a16).float()
+        with routed(**plain_routes()):
+            p_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), base.params["unet"], ucfg,
+                                 added_cond=a16).float()
+            u32 = to_dtype(base.params["unet"], torch.float32)
+            f_out = unet_forward(lat, ts, ctx, u32, ucfg, added_cond=added).float()
+            del u32
+    out["sdxl"]["unet_control"] = judge_rel(torch, "sdxl unet_forward b2 128x128", k_out, p_out,
+                                            f_out)
+    del k_out, p_out, f_out, lat, ctx
+    torch.cuda.empty_cache()
+
+    # (b) sdxl-turbo at 512x512 on the same tree: one request; then, on the
+    # gate's weights, generate_batch of 4 and the ServingEngine, each row
+    # within the gate's envelope of its solo image
+    tcfg = get_preset("sdxl-turbo")
+    turbo = StableDiffusionPipeline(tcfg, base.params, device="cuda")
+    tsteps = tcfg.default_steps
+    tkw = dict(token_ids=ids[:1], seed=40)
+    tcalls = request_calls(torch, turbo, tkw, tsteps)
+    predicted = {k: tsteps * v + VAE_DECODE[k] for k, v in PREDICTED_STEP["sdxl"].items()}
+    img, sec, counts, _ = held_run(torch, "sdxl-turbo", lambda: turbo.generate(**tkw), tcalls,
+                                   launch_counts, reset_launch_counts, predicted)
+    check_image("sdxl-turbo", img, 512)
+    log(f"sdxl-turbo (512x512, {tsteps} Euler steps, no CFG, UNet batch 1): {sec:.4f} s/image")
+    out["shapes_held"]["sdxl-turbo"] = hold_shapes(torch, gen, "sdxl-turbo", tcalls, held)
+    out["sdxl-turbo"] = {"s_per_image": sec, "launches": counts,
+                         "attention_shapes": sorted([list(q), lk] for q, lk in
+                                                    tcalls["flash_attention_packed"])}
+    t0 = time.perf_counter()
+    gate = StableDiffusionPipeline(tcfg, card_normal_tree(torch, base.params, 1234),
+                                   device="cuda")
+    log(f"sdxl-turbo gate weights (0.04 x normals drawn on the card, seed 1234) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    bids = np.random.default_rng(4).integers(1, 49408, (8, 77))
+    bkw = dict(token_ids=bids[:4], seeds=[10, 11, 12, 13])
+    bcalls = request_calls(torch, gate, bkw, tsteps, batch=4)
+    imgs, sec, bcounts, peak = held_run(
+        torch, "sdxl-turbo generate_batch B=4", lambda: gate.generate_batch(["x"] * 4, **bkw),
+        bcalls, launch_counts, reset_launch_counts)
+    check_image("sdxl-turbo generate_batch", imgs, 512, 4)
+    out["shapes_held"]["sdxl-turbo B=4"] = hold_shapes(torch, gen, "sdxl-turbo generate_batch B=4",
+                                                       bcalls, held)
+    log(f"sdxl-turbo generate_batch B=4: {sec:.4f} s ({4 / sec:.4f} images/s), peak memory "
+        f"above what was allocated before it {peak / 2**30:.3f} GiB")
+    out["sdxl-turbo"]["batch4"] = {"s_per_batch": sec, "images_per_s": 4 / sec,
+                                   "peak_bytes": peak, "launches": bcounts}
+
+    def gated(label, served, rows):
+        gaps = []
+        for i, (img, (tok, seed)) in enumerate(zip(served, rows)):
+            solo = gate.generate_batch(["x"], token_ids=tok[None], seeds=[seed])[0]
+            gap = check_batch_invariance.row_gap(img, solo)
+            level, frac = gap["max_level_diff"], gap["mismatched_frac"]
+            ok = level <= INV_LEVEL and frac <= INV_FRAC
+            log(f"sdxl-turbo {label} row {i}: against its solo image max {level} level(s), "
+                f"{frac:.4%} of values differ (envelope {INV_LEVEL}, {INV_FRAC:.0%})"
+                + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"sdxl-turbo {label} row {i} is off its solo image")
+            gaps.append({"row": i, "max_level_diff": level, "mismatched_frac": frac})
+        return gaps
+
+    out["sdxl-turbo"]["batch4"]["gaps"] = gated("generate_batch B=4", imgs,
+                                                list(zip(bids[:4], bkw["seeds"])))
+    reqs = [dict(token_ids=bids[i], seed=100 + i) for i in range(8)]
+    engine = ServingEngine(gate, max_batch_size=4, max_wait_ms=20.0)
+    try:
+        t0 = time.perf_counter()
+        futs = [engine.submit("x", **r) for r in reqs]
+        served = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    finally:
+        engine.shutdown()
+    log(f"sdxl-turbo serving: 8 requests in {wall:.3f} s; stats {stats}")
+    if stats["requests"] != 8 or stats["failures"] or stats["batches"] < 2:
+        raise AssertionError(f"sdxl-turbo serving: stats {stats}")
+    out["sdxl-turbo"]["serving"] = {
+        "wall_s": wall, "stats": stats,
+        "gaps": gated("serving", served, [(r["token_ids"], r["seed"]) for r in reqs])}
+    del gate, turbo, imgs, served
+    torch.cuda.empty_cache()
+
+    # (c) the handoff: the base's head to SPLIT, then the refiner's tail; the
+    # refiner shares the base's clip_2 and VAE configs, so its tree is the
+    # base's leaves there and a UNet drawn from from_random's key
+    # (= from_random("sdxl-refiner", seed=0), leaf for leaf)
+    sched = get_sampler("ddpm").make_schedule(base.config.scheduler, SDXL_STEPS, device="cuda")
+    n_train = base.config.scheduler.num_train_timesteps
+    n_head = slice_schedule(sched, num_train_timesteps=n_train, denoising_end=SPLIT).num_steps
+    n_tail = slice_schedule(sched, num_train_timesteps=n_train,
+                            denoising_start=SPLIT).num_steps
+    hkw = dict(kw, denoising_end=SPLIT, output="latents")
+    hcalls = request_calls(torch, base, hkw, n_head, decode=False)
+    head, sec_h, hcounts, _ = held_run(
+        torch, f"sdxl head ({n_head} steps, no decode)", lambda: base.generate(**hkw), hcalls,
+        launch_counts, reset_launch_counts,
+        {k: n_head * v for k, v in PREDICTED_STEP["sdxl"].items()})
+    out["shapes_held"]["sdxl head"] = hold_shapes(torch, gen, "sdxl head", hcalls, held)
+    if head.shape != (1, 128, 128, 4) or not np.isfinite(head).all():
+        raise AssertionError(f"sdxl head latents: {head.shape}, finite {np.isfinite(head).all()}")
+    rcfg = get_preset("sdxl-refiner")
+    t0 = time.perf_counter()
+    r_unet = tree_to(init_unet(hostrng.split(hostrng.ensure_key(0), 5)[1], rcfg.unet,
+                               dtype=rcfg.param_dtype), "cuda")
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t0
+    refiner = StableDiffusionPipeline(rcfg, {"unet": r_unet, "clip_2": base.params["clip_2"],
+                                             "vae_encoder": base.params["vae_encoder"],
+                                             "vae_decoder": base.params["vae_decoder"]},
+                                      device="cuda")
+    base.params.pop("unet")
+    torch.cuda.empty_cache()
+    log(f"sdxl-refiner: its UNet drawn in {r_s:.3f} s on the host")
+    rkw = dict(kw, latents=head, denoising_start=SPLIT)
+    rcalls = request_calls(torch, refiner, rkw, n_tail)
+    img, sec_r, rcounts, peak = held_run(
+        torch, f"sdxl-refiner tail ({n_tail} steps + decode)", lambda: refiner.generate(**rkw),
+        rcalls, launch_counts, reset_launch_counts,
+        {k: n_tail * v + VAE_DECODE[k] for k, v in PREDICTED_STEP["sdxl-refiner"].items()})
+    check_image("sdxl-refiner", img, 1024)
+    out["shapes_held"]["sdxl-refiner"] = hold_shapes(torch, gen, "sdxl-refiner tail", rcalls,
+                                                     held)
+    log(f"handoff at {SPLIT}: base head {n_head} steps {sec_h:.4f} s, refiner tail {n_tail} "
+        f"steps + decode {sec_r:.4f} s, peak memory above the trees {peak / 2**30:.3f} GiB")
+    out["handoff"] = {"head_steps": n_head, "tail_steps": n_tail, "head_s": sec_h,
+                      "tail_s": sec_r, "refiner_unet_s": r_s, "head_launches": hcounts,
+                      "tail_launches": rcounts, "peak_bytes": peak}
+    del refiner, base, r_unet
+    torch.cuda.empty_cache()
+
+    # (d) lcm-sd15 at 512x512: 4 LCM steps, the guidance as an embedding
+    t0 = time.perf_counter()
+    lcm = StableDiffusionPipeline.from_random("lcm-sd15", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    l_s = time.perf_counter() - t0
+    lsteps = lcm.config.default_steps
+    lkw = dict(token_ids=ids[:1], seed=40)
+    lcalls = request_calls(torch, lcm, lkw, lsteps)
+    img, sec, counts, _ = held_run(
+        torch, "lcm-sd15", lambda: lcm.generate(**lkw), lcalls, launch_counts,
+        reset_launch_counts,
+        {k: lsteps * v + VAE_DECODE[k] for k, v in PREDICTED_STEP["lcm-sd15"].items()})
+    check_image("lcm-sd15", img, 512)
+    out["shapes_held"]["lcm-sd15"] = hold_shapes(torch, gen, "lcm-sd15", lcalls, held)
+    log(f"lcm-sd15: from_random {l_s:.3f} s; 512x512, {lsteps} LCM steps, guidance embedding "
+        f"(8 - 1) x 1000, UNet batch 1: {sec:.4f} s/image")
+    out["lcm-sd15"] = {"from_random_s": l_s, "s_per_image": sec, "launches": counts}
+    del lcm
+    torch.cuda.empty_cache()
+
+    # (e) the bench's lines: the first run, then 1 + repeats pipelined, each
+    # with the launches of the request above.  Three repeats, not two: the
+    # line is the median of the gaps between fetches, and the last gap is
+    # only the card's tail after the host's last enqueue, which two gaps
+    # would average in
+    for label, argv, per_request in (
+            ("--preset sdxl", ["--preset", "sdxl", "--repeats", str(BENCH_REPEATS)],
+             out["sdxl"]["launches"]),
+            ("--preset sdxl-turbo --batch 4",
+             ["--preset", "sdxl-turbo", "--batch", "4", "--repeats", str(BENCH_REPEATS)],
+             bcounts)):
+        reset_launch_counts()
+        line = bench.main(argv)
+        got = dict(launch_counts)
+        want = {k: (BENCH_REPEATS + 2) * v for k, v in per_request.items()}
+        ok = line["value"] > 0 and line["device"] == kind and got == want
+        log(f"bench {label}: {json.dumps(line)}; launches {got}"
+            + (" ok" if ok else f" FAIL (want {want})"))
+        if not ok:
+            raise AssertionError(f"bench {label}")
+        out[f"bench {label}"] = {"line": line, "launches": got}
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
+        f"versions: {out['shapes_held']} ({len(held)} in all)")
     return out
 
 

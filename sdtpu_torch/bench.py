@@ -6,7 +6,11 @@ batch 1 on one NVIDIA card, the counterpart of the JAX package's
     {"metric": ..., "value": N, "unit": "images/sec", "vs_baseline": N, ...}
 
 It adds ``--device`` (default ``cuda``; ``cpu`` for the tests, which then
-report no MFU).  ``--img2img`` VAE-encodes an init image first (at
+report no MFU).  ``--preset`` takes any preset at its native size, steps,
+sampler and guidance: ``sdxl`` (1024x1024, 25 steps, CFG), ``sdxl-turbo``
+(512x512, 4 Euler steps, no CFG), ``sdxl-refiner`` (a whole schedule from
+noise), ``sdxl-inpaint``, ``lcm-sd15`` (4 LCM steps, the guidance as an
+embedding).  ``--img2img`` VAE-encodes an init image first (at
 ``--strength``); a 9-channel inpaint preset also takes a mask (the right
 half) at strength 1, an 8-channel InstructPix2Pix preset an init image.
 ``--batch`` > 1 runs ``generate_batch``; ``--serving`` drives ``--requests``

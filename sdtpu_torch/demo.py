@@ -5,10 +5,14 @@
         [--preset tiny-sd] [--image-size N] [--steps N] [--seed 40] [--sampler NAME]
         [--cfg-scale S | --no-cfg] [--init-image PNG [--mask-image PNG] [--strength S]]
         [--image-guidance-scale S] [--int8] [--out out.png] [--device cuda]
+        [--refiner DIR_OR_PRESET [--denoising-split 0.8]]
 
 Without ``--model-dir`` it runs seeded random weights (the structured
 noise is the expected output); ``--model-dir`` loads a local diffusers
-checkpoint directory.  Without a tokenizer the prompt hashes to fixed
+checkpoint directory.  ``--refiner`` (a checkpoint directory or a preset
+such as ``sdxl-refiner``, random weights) hands the base model's latents
+at ``--denoising-split`` of the schedule to the refiner, which finishes
+the image (txt2img only).  Without a tokenizer the prompt hashes to fixed
 token ids, as in the JAX demo.  Images are read and written as PNG by
 ``utils/image.py`` (8-bit grey, RGB or RGBA in).  The JAX demo's flags for
 features the port does not have yet raise NotImplementedError naming the
@@ -34,7 +38,6 @@ LATER = (
     ("textual_inversion", [], "features slice"),
     ("prompt_weighting", False, "features slice"),
     ("encoder_cache", 1, "features slice"),
-    ("refiner", None, "model-family slice (the SDXL refiner)"),
 )
 
 
@@ -84,9 +87,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                     metavar="PATH[:TOKEN]")
     ap.add_argument("--prompt-weighting", action="store_true")
     ap.add_argument("--encoder-cache", type=int, default=1, metavar="K")
-    ap.add_argument("--refiner", default=None, metavar="DIR_OR_PRESET")
-    ap.add_argument("--denoising-split", type=float, default=0.8)
-    return ap.parse_args(argv)
+    ap.add_argument("--refiner", default=None, metavar="DIR_OR_PRESET",
+                    help="SDXL refiner checkpoint dir or preset (sdxl-refiner): the base "
+                         "model runs the high-noise head, the refiner finishes from its "
+                         "latents")
+    ap.add_argument("--denoising-split", type=float, default=0.8,
+                    help="base/refiner handoff fraction")
+    args = ap.parse_args(argv)
+    if args.refiner and (args.init_image or args.mask_image):
+        ap.error("--refiner composes with txt2img only")
+    return args
+
+
+def hashed_ids(prompt: str, text_config):
+    """A stable hash of the prompt to one token row, beside a zero row (the
+    JAX demo's ids when there is no tokenizer; str.__hash__ is salted per
+    process)."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(prompt.encode()))
+    row = rng.integers(0, text_config.vocab_size, text_config.max_length)
+    return np.stack([row, np.zeros_like(row)])
 
 
 def main(argv=None) -> None:
@@ -94,8 +117,6 @@ def main(argv=None) -> None:
     for name, default, where in LATER:
         if getattr(args, name) != default:
             raise NotImplementedError(f"demo --{name.replace('_', '-')} belongs to the {where}")
-
-    import numpy as np
 
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.utils.image import load_image, save_png
@@ -110,14 +131,17 @@ def main(argv=None) -> None:
         pipe.quantize_int8(transformer=args.int8_transformer, vae=args.int8_vae)
     token_ids = None
     if pipe.tokenizer is None:
-        import zlib
-
-        # a stable hash (str.__hash__ is salted per process)
         print("no tokenizer assets: hashing the prompt to fixed token ids")
-        rng = np.random.default_rng(zlib.crc32(args.prompt.encode()))
-        row = rng.integers(0, pipe.config.text_config.vocab_size,
-                           pipe.config.text_config.max_length)
-        token_ids = np.stack([row, np.zeros_like(row)])
+        token_ids = hashed_ids(args.prompt, pipe.config.text_config)
+    refiner = None
+    if args.refiner:
+        import os
+
+        if os.path.isdir(args.refiner):
+            refiner = StableDiffusionPipeline.from_pretrained(args.refiner, device=args.device)
+        else:
+            print(f"refiner preset {args.refiner}: random weights")
+            refiner = StableDiffusionPipeline.from_random(args.refiner, device=args.device)
     t0 = time.perf_counter()
     image = pipe.generate(
         args.prompt, args.negative_prompt, strength=args.strength,
@@ -128,7 +152,18 @@ def main(argv=None) -> None:
         image_size=args.image_size,
         token_ids=token_ids,
         sampler=args.sampler, clip_skip=args.clip_skip,
-        image_guidance_scale=args.image_guidance_scale)
+        image_guidance_scale=args.image_guidance_scale,
+        denoising_end=args.denoising_split if refiner else None,
+        output="latents" if refiner else "uint8")
+    if refiner:
+        image = refiner.generate(
+            args.prompt, args.negative_prompt, cfg=False if args.no_cfg else None,
+            cfg_scale=args.cfg_scale, num_inference_steps=args.steps, seed=args.seed,
+            # the latent grid is the base model's
+            image_size=args.image_size or pipe.config.default_image_size,
+            token_ids=(hashed_ids(args.prompt, refiner.config.text_config)
+                       if refiner.tokenizer is None else None),
+            sampler=args.sampler, latents=image, denoising_start=args.denoising_split)
     dt = time.perf_counter() - t0
     save_png(image, args.out)
     print(f"wrote {args.out} ({image.shape[1]}x{image.shape[2]}) in {dt:.2f}s "

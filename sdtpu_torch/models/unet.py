@@ -11,9 +11,11 @@ is quantized: conv1 is GN+SiLU+conv with its output moments, conv2 is
 GN(+temb)+SiLU+conv with the shortcut as its residual and GN statistics
 from conv1's moments; any other resnet takes GroupNorm -> SiLU -> conv2d.
 A slab resnet followed by an attention block hands that block its output
-moments for the block's GroupNorm.  The SDXL
-add-embedding and the LCM guidance embedding belong to the model-family
-slice and raise here.
+moments for the block's GroupNorm.  The time MLP takes the LCM guidance
+embedding (``timestep_cond`` through the bias-free ``cond_proj``, before
+the MLP) and the SDXL add-embedding (``added_cond``: the pooled text
+embedding and the size/crop/aesthetic time ids, through ``add_embedding``,
+after it).
 """
 
 from __future__ import annotations
@@ -43,18 +45,42 @@ from sdtpu_torch.utils import hostrng
 from sdtpu_torch.utils.quant import float_conv_kernel, resnet_conv_args, resnet_takes_slab
 
 
-def _check_family(config: UNetConfig) -> None:
-    if config.addition_embed_dim is not None or config.time_cond_proj_dim is not None:
-        raise NotImplementedError(
-            "SDXL add-embedding / LCM guidance embedding: model-family slice")
+def _time_mlp(temb: torch.Tensor, params: dict, config: UNetConfig, *, batch: int, dtype,
+              timestep_cond: Optional[torch.Tensor], added_cond: Optional[dict]) -> torch.Tensor:
+    """The sinusoidal embedding (..., batch, ch0) -> [+ LCM ``cond_proj``
+    of ``timestep_cond``] -> Linear -> SiLU -> Linear -> [+ the SDXL
+    add-embedding] -> the SiLU every resnet applies to it, hoisted."""
+    te = params["time_embedding"]
+    # cond_proj is per tree: a ControlNet paired with an LCM UNet has none
+    if config.time_cond_proj_dim is not None and "cond_proj" in te:
+        if timestep_cond is None:
+            raise ValueError("LCM config requires timestep_cond")
+        temb = temb + linear(timestep_cond.to(temb.dtype), te["cond_proj"])
+    temb = linear(temb, te["linear_1"])
+    temb = silu(temb)
+    temb = linear(temb, te["linear_2"])
+    if config.addition_embed_dim is not None:
+        if added_cond is None:
+            raise ValueError("SDXL config requires added_cond")
+        time_ids = added_cond["time_ids"].reshape(-1)
+        tid_emb = timestep_embedding(
+            time_ids, config.addition_time_embed_dim,
+            flip_sin_to_cos=config.flip_sin_to_cos, freq_shift=config.freq_shift,
+            dtype=dtype,
+        ).reshape(batch, -1)
+        add_emb = torch.cat([added_cond["text_embeds"].to(dtype), tid_emb], dim=-1)
+        aemb = linear(add_emb, params["add_embedding"]["linear_1"])
+        aemb = silu(aemb)
+        temb = temb + linear(aemb, params["add_embedding"]["linear_2"])
+    return silu(temb)
 
 
 def compute_time_embedding(
-    timesteps: torch.Tensor, params: dict, config: UNetConfig, *, batch: int, dtype
+    timesteps: torch.Tensor, params: dict, config: UNetConfig, *, batch: int, dtype,
+    timestep_cond: Optional[torch.Tensor] = None, added_cond: Optional[dict] = None,
 ) -> torch.Tensor:
-    """Sinusoidal embedding -> Linear -> SiLU -> Linear -> the SiLU every
-    resnet applies to it, hoisted."""
-    _check_family(config)
+    """One step's time MLP (:func:`_time_mlp`) for (batch,) or scalar
+    ``timesteps``."""
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(batch)
     temb = timestep_embedding(
@@ -62,25 +88,26 @@ def compute_time_embedding(
         flip_sin_to_cos=config.flip_sin_to_cos, freq_shift=config.freq_shift,
         dtype=dtype,
     )
-    temb = linear(temb, params["time_embedding"]["linear_1"])
-    temb = silu(temb)
-    temb = linear(temb, params["time_embedding"]["linear_2"])
-    return silu(temb)
+    return _time_mlp(temb, params, config, batch=batch, dtype=dtype,
+                     timestep_cond=timestep_cond, added_cond=added_cond)
 
 
 def precompute_time_projections(
     timesteps: torch.Tensor, params: dict, config: UNetConfig, *, batch: int,
+    timestep_cond: Optional[torch.Tensor] = None, added_cond: Optional[dict] = None,
     dtype=torch.bfloat16,
 ) -> dict:
     """Every time-dependent projection for every step of a known timestep
-    sequence (T,), in one batched sweep:
+    sequence (T,), in one batched sweep; the LCM guidance embedding
+    (``timestep_cond`` (batch, time_cond_proj_dim)) and the SDXL
+    add-embedding (``added_cond``: ``text_embeds`` (batch, P), ``time_ids``
+    (batch, 5 or 6)) are the same at every step and fold in here:
 
       {"temb": (T, batch, time_embed_dim),
        "down": [[(T, batch, out_ch) per resnet] per level],
        "mid": [(T, batch, ch)] * 2, "up": [[...] per level]}
 
     Index step ``i`` with :func:`time_cache_step`."""
-    _check_family(config)
     n = timesteps.shape[0]
     temb = timestep_embedding(
         timesteps.float(), config.block_out_channels[0],
@@ -88,10 +115,8 @@ def precompute_time_projections(
         dtype=dtype,
     )
     temb = temb[:, None, :].expand(n, batch, temb.shape[-1])
-    temb = linear(temb, params["time_embedding"]["linear_1"])
-    temb = silu(temb)
-    temb = linear(temb, params["time_embedding"]["linear_2"])
-    temb = silu(temb)
+    temb = _time_mlp(temb, params, config, batch=batch, dtype=dtype,
+                     timestep_cond=timestep_cond, added_cond=added_cond)
 
     def proj(r):
         return linear(temb, r["time_emb_proj"])
@@ -234,21 +259,28 @@ def unet_forward(
     params: dict,
     config: UNetConfig,
     *,
+    added_cond: Optional[dict] = None,
+    timestep_cond: Optional[torch.Tensor] = None,
     attention_impl: str = "flash",
     conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_cache: Optional[dict] = None,
 ) -> torch.Tensor:
     """Predict noise.  latents: (B, H, W, C_in); timesteps: (B,) or scalar;
-    context: (B, L, cross_attention_dim).  ``time_cache``: one step's slice
-    of :func:`precompute_time_projections` (then ``timesteps`` is unused).
+    context: (B, L, cross_attention_dim).  ``added_cond``: the SDXL
+    micro-conditioning ``{"text_embeds": (B, P), "time_ids": (B, 5|6)}``;
+    ``timestep_cond``: the LCM guidance embedding (B, time_cond_proj_dim).
+    ``time_cache``: one step's slice of :func:`precompute_time_projections`
+    (then ``timesteps``, ``added_cond`` and ``timestep_cond`` are unused:
+    they are folded in).
     ``attention_impl``: "flash" (kernel C), "ring", "xla" (dense; SDPA on a
     card); ``conv_impl``: "gemm" (the slab kernels) or "xla" (``F.conv2d``)."""
     if time_cache is not None:
         temb = time_cache["temb"]
     else:
         temb = compute_time_embedding(
-            timesteps, params, config, batch=latents.shape[0], dtype=latents.dtype)
+            timesteps, params, config, batch=latents.shape[0], dtype=latents.dtype,
+            timestep_cond=timestep_cond, added_cond=added_cond)
     x, skips = unet_encode(
         latents, temb, context, params, config, attention_impl=attention_impl,
         conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache,
@@ -382,8 +414,8 @@ def _init_attn_block(key, ch, depth, context_dim, *, dtype):
 def init_unet(key, config: UNetConfig, *, dtype=torch.float32) -> dict:
     """Random parameters with the JAX package's tree, shapes and bounds, on
     the CPU, drawn on the host from ``key`` (an int seed or a ``HostKey``)
-    in the JAX package's key order: 256 children taken in turn."""
-    _check_family(config)
+    in the JAX package's key order: 256 children taken in turn (the LCM
+    ``cond_proj`` and the SDXL ``add_embedding`` after the time MLP)."""
     keys = iter(hostrng.split(hostrng.ensure_key(key), 256))
     nk = lambda: next(keys)  # noqa: E731
     time_dim = config.time_embed_dim
@@ -395,6 +427,14 @@ def init_unet(key, config: UNetConfig, *, dtype=torch.float32) -> dict:
             "linear_2": init_linear(nk(), time_dim, time_dim, dtype=dtype),
         },
     }
+    if config.time_cond_proj_dim is not None:
+        params["time_embedding"]["cond_proj"] = init_linear(
+            nk(), config.time_cond_proj_dim, ch0, use_bias=False, dtype=dtype)
+    if config.addition_embed_dim is not None:
+        params["add_embedding"] = {
+            "linear_1": init_linear(nk(), config.addition_embed_dim, time_dim, dtype=dtype),
+            "linear_2": init_linear(nk(), time_dim, time_dim, dtype=dtype),
+        }
 
     def attn(ch, level):
         return _init_attn_block(nk(), ch, config.transformer_layers_per_block[level],

@@ -8,13 +8,18 @@ The JAX package compiles the whole request into one program; here it runs
 eagerly, in the same order:
 
 1. CLIP on the token rows, ordered ``[cond..., uncond...]`` under CFG;
+   for SDXL both encoders (CLIP-L's and bigG's penultimate states
+   concatenated, or bigG's alone for the refiner) with bigG's pooled
+   projection and the size/crop (or aesthetic-score) time ids as the
+   UNet's add-embedding inputs;
 2. for an init image, the VAE encoder: img2img forward-noises the encoded
    latents to the schedule's first step, latent-blend inpainting also
    keeps them to paste back after each step, a 9-channel inpaint UNet
    takes the mask and the masked image's latents as extra channels, and an
    InstructPix2Pix (8-channel) UNet the image's unscaled posterior mode;
 3. the cross-attention K/V of every transformer block and every time
-   projection of every step, computed once before the loop;
+   projection of every step (with an LCM UNet's guidance embedding and
+   SDXL's add-embedding folded in), computed once before the loop;
 4. per step: the latents repeated for the guidance branches -> the
    sampler's ``scale_model_input`` -> the extra channels -> ``unet_forward``
    -> the guidance combine -> the sampler's step (a stochastic one with
@@ -31,7 +36,9 @@ latents from a CPU ``torch.Generator`` instead.  ``txt2img`` and
 ``img2img`` take the draws as explicit tensors.
 
 ``from_pretrained`` loads a local diffusers checkpoint directory
-(``utils/weights.py:load_pipeline_params``).
+(``utils/weights.py:load_pipeline_params``).  ``denoising_end`` /
+``denoising_start`` split the schedule for the SDXL base -> refiner
+handoff (``samplers.slice_schedule``).
 
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
 ``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
@@ -56,7 +63,8 @@ from sdtpu_torch.models.unet import (
 )
 from sdtpu_torch.models.vae import vae_decode, vae_encode
 from sdtpu_torch.ops.resize import resize_image
-from sdtpu_torch.samplers import get_sampler
+from sdtpu_torch.ops.embedding import timestep_embedding
+from sdtpu_torch.samplers import get_sampler, slice_schedule
 from sdtpu_torch.utils import prng
 from sdtpu_torch.utils.image import from_uint8, to_uint8
 from sdtpu_torch.utils.profiling import stage
@@ -208,10 +216,8 @@ class StableDiffusionPipeline:
         among the presets; else the checkpoint's own JSON configs give it
         (``config.config_from_checkpoint``).  ``dtype`` sets the param and
         compute dtypes.  The tokenizer comes from ``tokenizer/``, then
-        ``tokenizer_2/``, then the repository's default assets.  A config
-        the port cannot run yet (an SDXL add-embedding, an LCM guidance
-        embedding, a second text encoder) raises NotImplementedError before
-        any weight file is read."""
+        ``tokenizer_2/`` (a bigG-only refiner ships only that one), then
+        the repository's default assets."""
         import os
 
         from sdtpu_torch.config import PRESETS, config_from_checkpoint
@@ -223,14 +229,6 @@ class StableDiffusionPipeline:
         else:
             base = os.path.basename(model_dir.rstrip("/"))
             config = get_preset(base) if base in PRESETS else config_from_checkpoint(model_dir)
-        unet = config.unet
-        if unet.addition_embed_dim is not None or config.clip is None or config.clip_2 is not None:
-            raise NotImplementedError(
-                f"{config.name}: SDXL-family checkpoints (add-embedding, second text "
-                "encoder) belong to the model-family slice")
-        if unet.time_cond_proj_dim is not None:
-            raise NotImplementedError(
-                f"{config.name}: LCM guidance-embedding UNets belong to the model-family slice")
         if dtype is not None:
             config = config.replace(param_dtype=dtype, compute_dtype=dtype)
         params = load_pipeline_params(model_dir, config, device=device)
@@ -303,6 +301,8 @@ class StableDiffusionPipeline:
         pag_scale: float = 0.0,
         freeu=None,
         encoder_cache_interval: int = 1,
+        denoising_end: Optional[float] = None,
+        denoising_start: Optional[float] = None,
     ):
         """Text -> image, or image -> image when ``init_image`` is given.
 
@@ -332,7 +332,16 @@ class StableDiffusionPipeline:
         ``samplers.SAMPLERS`` (default the preset's).  ``output``: "uint8"
         (B, H, W, 3) numpy, "float" ([-1, 1] numpy), "latents", or
         "device": the uint8 images as a tensor on the device, returned
-        without waiting for it (see :meth:`generate_async`)."""
+        without waiting for it (see :meth:`generate_async`).
+
+        ``denoising_end`` / ``denoising_start``: the SDXL base -> refiner
+        handoff (diffusers semantics: the schedule splits at the training
+        timestep ``round(N - frac * N)``).  The base runs the high-noise
+        head and returns its carry (``denoising_end=0.8,
+        output="latents"``); the refiner takes it (``latents=...,
+        denoising_start=0.8``) as it is, with no ``init_sigma`` scaling,
+        and runs the low-noise tail.  With one model and a deterministic
+        sampler a split run equals the unsplit one."""
         cfg = self.config.default_cfg if cfg is None else cfg
         cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
         steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
@@ -342,6 +351,18 @@ class StableDiffusionPipeline:
         if steps < 1:
             raise ValueError("num_inference_steps must be >= 1")
         size = self._size(image_size)
+        if denoising_start is not None:
+            if latents is None:
+                raise ValueError(
+                    "denoising_start consumes a base model's latents — pass "
+                    "latents= (base run: denoising_end=..., output='latents')")
+            if not 0.0 < denoising_start < 1.0:
+                raise ValueError("denoising_start must be in (0, 1)")
+        if denoising_end is not None and not 0.0 < denoising_end < 1.0:
+            raise ValueError("denoising_end must be in (0, 1)")
+        if num_images > 1 and (denoising_end is not None or denoising_start is not None):
+            raise ValueError("denoising_end/denoising_start are single-image (the "
+                             "base->refiner handoff carries explicit latents)")
         if num_images > 1:
             return self.generate_batch(
                 [prompt] * num_images, negative_prompt, cfg=cfg, cfg_scale=cfg_scale,
@@ -394,7 +415,8 @@ class StableDiffusionPipeline:
             sampler=sampler, strength=strength, image_guidance_scale=image_guidance_scale,
             images=self._prep_image(init_image, size) if is_img2img else None,
             masks=self._prep_mask(mask_image, size) if mask_image is not None else None,
-            latents=latents, output=output, clip_skip=clip_skip)
+            latents=latents, output=output, clip_skip=clip_skip,
+            denoising_end=denoising_end, denoising_start=denoising_start)
 
     def generate_async(self, prompt: str = "", negative_prompt: str = "",
                        **kwargs) -> "PendingImages":
@@ -563,7 +585,8 @@ class StableDiffusionPipeline:
     @torch.inference_mode()
     def txt2img(self, ids, latents: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
                 cfg_scale: float, output: str = "uint8", clip_skip: int = 0,
-                sampler: str = "ddpm", steps: Optional[int] = None, schedule=None):
+                sampler: str = "ddpm", steps: Optional[int] = None, schedule=None,
+                continuation: bool = False, image_size: Optional[int] = None):
         """The whole request with its noise given: ``ids`` (rows, L) token
         ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
         float32 N(0, 1) initial noise (scaled here by the schedule's
@@ -571,7 +594,10 @@ class StableDiffusionPipeline:
         noise, one slice per step, for a stochastic sampler (None for a
         deterministic one).  ``steps`` defaults to ``noise``'s length;
         ``schedule`` to ``sampler``'s for ``steps``.  ``generate`` draws
-        both as the JAX package does; a caller may pass any."""
+        both as the JAX package does; a caller may pass any.
+        ``continuation``: ``latents`` are a base model's carry already at
+        the (sliced) schedule's first step, taken as they are.
+        ``image_size`` (SDXL's time ids) defaults to the latents' size."""
         sdef = get_sampler(sampler)
         if schedule is None:
             if steps is None:
@@ -580,12 +606,13 @@ class StableDiffusionPipeline:
                 steps = noise.shape[0]
             schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
         self._check_noise(sdef, sampler, noise, schedule)
-        context = self._encode(ids, clip_skip)
+        size = image_size or latents.shape[1] * self.config.vae.downscale_factor
+        context, added = self._encode(ids, clip_skip, size=size, cfg=cfg)
         lat = latents.float()
-        if hasattr(schedule, "init_sigma"):  # sigma-space samplers start at sigma_max
-            lat = lat * schedule.init_sigma
+        if hasattr(schedule, "init_sigma") and not continuation:
+            lat = lat * schedule.init_sigma  # sigma-space samplers start at sigma_max
         lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
-                           sampler=sampler)
+                           sampler=sampler, added_cond=added)
         return self._finish(lat, output)
 
     @torch.inference_mode()
@@ -609,7 +636,7 @@ class StableDiffusionPipeline:
         cdt = self.config.compute_dtype
         vae = dict(attention_impl=self.attention_impl, conv_impl=self.conv_impl)
         init_sigma = getattr(schedule, "init_sigma", 1.0)
-        context = self._encode(ids, clip_skip)
+        context, added = self._encode(ids, clip_skip, size=images.shape[1], cfg=cfg)
         images = images.float()
         extra = inpaint = None
         guidance = None
@@ -649,12 +676,13 @@ class StableDiffusionPipeline:
                         inpaint = (masks.float(), lat0, fwd_noise.float())
         lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
                            sampler=sampler, extra=extra, inpaint=inpaint,
-                           image_guidance_scale=guidance)
+                           image_guidance_scale=guidance, added_cond=added)
         return self._finish(lat, output)
 
     def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float,
                 sampler: str = "ddpm", extra=None, inpaint=None,
-                image_guidance_scale: Optional[float] = None):
+                image_guidance_scale: Optional[float] = None,
+                added_cond: Optional[dict] = None):
         """The sampler's loop; ``context`` is (2B, L, D) under CFG, else
         (B, L, D); ``noise`` (steps, B, h, w, 4) for a stochastic sampler,
         else None.  ``extra``: channels concatenated to the UNet's input
@@ -662,7 +690,9 @@ class StableDiffusionPipeline:
         ``inpaint``: (mask, clean latents, forward noise) of the latent
         blend.  ``image_guidance_scale``: InstructPix2Pix's third branch
         under CFG (rows [text+image, image, uncond]; the context's uncond
-        rows serve the image-only branch too)."""
+        rows serve the image-only branch too).  ``added_cond``: SDXL's
+        add-embedding inputs at the context's rows.  An LCM UNet takes
+        ``cfg_scale`` as its guidance embedding."""
         ucfg = self.config.unet
         unet = self.params["unet"]
         cdt = self.config.compute_dtype
@@ -672,8 +702,18 @@ class StableDiffusionPipeline:
         n_rep = 3 if image_guidance_scale is not None else 2 if cfg else 1
         with stage("precompute"):
             cross_kv = precompute_cross_kv(context, unet, ucfg)
+            timestep_cond = None
+            if ucfg.time_cond_proj_dim is not None:
+                # the guidance scale as an embedding, w = cfg_scale - 1
+                # (diffusers' convention), in float32 as the JAX program
+                w = (np.float32(cfg_scale) - np.float32(1.0)) * np.float32(1000.0)
+                timestep_cond = timestep_embedding(
+                    torch.full((n_rep * batch,), float(w), device=latents.device),
+                    ucfg.time_cond_proj_dim, flip_sin_to_cos=False, freq_shift=1.0,
+                    dtype=cdt)
             time_cache = precompute_time_projections(
-                schedule.timesteps, unet, ucfg, batch=n_rep * batch, dtype=cdt)
+                schedule.timesteps, unet, ucfg, batch=n_rep * batch,
+                timestep_cond=timestep_cond, added_cond=added_cond, dtype=cdt)
             if extra is not None:
                 extra = extra.to(cdt)
         sdef = get_sampler(sampler)
@@ -719,9 +759,10 @@ class StableDiffusionPipeline:
     @torch.inference_mode()
     def _request(self, ids, key, *, size, steps, cfg, cfg_scale, sampler, strength,
                  image_guidance_scale, images=None, masks=None, latents=None,
-                 output="uint8", clip_skip=0):
+                 output="uint8", clip_skip=0, denoising_end=None, denoising_start=None):
         """Draw a request's noise from ``key`` (scalar or per-request) as the
-        JAX program does, then run :meth:`txt2img` or :meth:`img2img`."""
+        JAX program does, then run :meth:`txt2img` or :meth:`img2img`.  The
+        schedule is cut at ``denoising_start``, then at ``denoising_end``."""
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         sdef = get_sampler(sampler)
@@ -730,6 +771,13 @@ class StableDiffusionPipeline:
         strength_key = 1.0 if (self._is_edit() or not is_img2img) else round(strength, 6)
         schedule = sdef.make_schedule(self.config.scheduler, steps, strength_key,
                                       device=self.device)
+        n_train = self.config.scheduler.num_train_timesteps
+        if denoising_start is not None:
+            schedule = slice_schedule(schedule, num_train_timesteps=n_train,
+                                      denoising_start=denoising_start)
+        if denoising_end is not None:
+            schedule = slice_schedule(schedule, num_train_timesteps=n_train,
+                                      denoising_end=denoising_end)
         n_noise = schedule.num_steps if sdef.stochastic else 0
         f = self.config.vae.downscale_factor
         lat_shape = (size // f, size // f, self.config.vae.latent_channels)
@@ -752,7 +800,8 @@ class StableDiffusionPipeline:
                    output=output, clip_skip=clip_skip)
         if not is_img2img:
             lat0 = heads[0] if latents is None else to_device(latents, self.device)
-            return self.txt2img(ids, lat0, noise, **run)
+            return self.txt2img(ids, lat0, noise, continuation=denoising_start is not None,
+                                image_size=size, **run)
         images = to_device(images, self.device)
         masks = None if masks is None else to_device(masks, self.device)
         return self.img2img(ids, images, heads[0], heads[1], noise, strength=strength_key,
@@ -760,12 +809,42 @@ class StableDiffusionPipeline:
                             masked_noise=heads[2] if program == "inpaint" else None,
                             image_guidance_scale=image_guidance_scale, **run)
 
-    def _encode(self, ids, clip_skip: int) -> torch.Tensor:
+    def _encode(self, ids, clip_skip: int, *, size: int, cfg: bool):
+        """Token rows -> ``(context, added_cond)``.  SD 1.x: one encoder's
+        hidden states and no ``added_cond``.  SDXL: CLIP-L's and bigG's
+        penultimate states concatenated (768 + 1280), or bigG's alone for a
+        bigG-only refiner, with ``added_cond`` = bigG's projected pooled
+        output and the time ids ``[size, size, 0, 0, size, size]`` (original
+        size, crop, target size); under ``requires_aesthetics_score`` ``[size,
+        size, 0, 0, score]``, the score the preset's on the cond rows and its
+        negative one on the uncond rows (rows ``[cond..., uncond...]``).
+        Both encoders take the same ids, as in the JAX package."""
+        config = self.config
+        cdt = config.compute_dtype
         with stage("clip"):
             ids = to_device(np.asarray(ids, np.int64), self.device)
-            hidden, _ = clip_encode_windows(ids, self.params["clip"], self.config.clip,
-                                            clip_skip=clip_skip)
-            return hidden.to(self.config.compute_dtype)
+            parts = []
+            if config.clip is not None:
+                hidden, _ = clip_encode_windows(ids, self.params["clip"], config.clip,
+                                                clip_skip=clip_skip)
+                parts.append(hidden.to(cdt))
+            if config.clip_2 is None:
+                return parts[0], None
+            hidden2, pooled2 = clip_encode_windows(ids, self.params["clip_2"], config.clip_2,
+                                                   clip_skip=clip_skip)
+            parts.append(hidden2.to(cdt))
+            context = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+            rows = ids.shape[0]
+            if config.requires_aesthetics_score:
+                half = rows // 2 if cfg else rows
+                score = [config.default_aesthetic_score] * half + [
+                    config.default_negative_aesthetic_score] * (rows - half)
+                time_ids = [[size, size, 0, 0, a] for a in score]
+            else:
+                time_ids = [[size, size, 0, 0, size, size]] * rows
+            added = {"text_embeds": pooled2.to(cdt),
+                     "time_ids": to_device(np.asarray(time_ids, np.float32), self.device)}
+            return context, added
 
     def _finish(self, lat: torch.Tensor, output: str):
         if output == "latents":

@@ -7,7 +7,9 @@ and into ``tests/torch_ref.py``'s ``RefUNet`` and ``RefAutoencoderKL``
 (float32; the file imports torch only and is loaded by its path).  Both run
 full-network forwards on shared seeded inputs on ``--device``: the UNet at
 ``--batch`` x ``--latent``^2 latents, the VAE decode of ``--latent``^2
-latents and the VAE encode of an ``--image``^2 image.  It prints each
+latents and the VAE encode of an ``--image``^2 image.  An SDXL or refiner
+UNet also takes a synthesized pooled text embedding and its time ids (six,
+or five with an aesthetic score).  It prints each
 network's max absolute and relative (L2) error and the decoded image's
 PSNR::
 
@@ -102,9 +104,12 @@ def load_mirror(model_dir: str, config, *, device):
 
 
 def make_inputs(config, *, latent: int, batch: int, image: int, seed: int = 0) -> dict:
-    """Seeded numpy inputs (NHWC) shared by both sides."""
+    """Seeded numpy inputs (NHWC) shared by both sides; for an SDXL UNet
+    also ``text_embeds`` (drawn after the others) and ``time_ids`` (the JAX
+    tool's ``[512, 512, 0, 0, 6.0, 512]``, its first five under an
+    aesthetic score)."""
     rng = np.random.default_rng(seed)
-    return {
+    inputs = {
         "lat": rng.standard_normal((batch, latent, latent, config.unet.in_channels),
                                    dtype=np.float32),
         "ctx": rng.standard_normal((batch, config.text_config.max_length,
@@ -115,6 +120,14 @@ def make_inputs(config, *, latent: int, batch: int, image: int, seed: int = 0) -
         "img": rng.uniform(-1.0, 1.0, (1, image, image, config.vae.in_channels))
                .astype(np.float32),
     }
+    ucfg = config.unet
+    if ucfg.addition_embed_dim is not None:
+        n_ids = 5 if config.requires_aesthetics_score else 6
+        pooled_dim = ucfg.addition_embed_dim - n_ids * ucfg.addition_time_embed_dim
+        inputs["text_embeds"] = rng.standard_normal((batch, pooled_dim), dtype=np.float32)
+        inputs["time_ids"] = np.tile(
+            np.asarray([[512, 512, 0, 0, 6.0, 512][:n_ids]], np.float32), (batch, 1))
+    return inputs
 
 
 def run_port(params: dict, config, inputs: dict, *, dtype, device) -> dict:
@@ -126,10 +139,12 @@ def run_port(params: dict, config, inputs: dict, *, dtype, device) -> dict:
     def t(name):
         return torch.from_numpy(inputs[name]).to(device)
 
+    added = ({"text_embeds": t("text_embeds").to(dtype), "time_ids": t("time_ids")}
+             if "time_ids" in inputs else None)
     with torch.inference_mode():
         return {
             "unet": unet_forward(t("lat").to(dtype), t("ts"), t("ctx").to(dtype),
-                                 params["unet"], config.unet).float(),
+                                 params["unet"], config.unet, added_cond=added).float(),
             "vae_decode": vae_decode(t("z").to(dtype), params["vae_decoder"],
                                      config.vae).float(),
             "vae_encode": vae_encoder(t("img").to(dtype), params["vae_encoder"],
@@ -159,8 +174,11 @@ def run_mirror(models: dict, config, inputs: dict, *, device) -> dict:
 
     with torch.inference_mode(), _no_tf32(), torch.device(device):
         return {
-            "unet": nhwc(models["unet"](nchw("lat"), torch.from_numpy(inputs["ts"]).to(device),
-                                        torch.from_numpy(inputs["ctx"]).to(device))),
+            "unet": nhwc(models["unet"](
+                nchw("lat"), torch.from_numpy(inputs["ts"]).to(device),
+                torch.from_numpy(inputs["ctx"]).to(device),
+                **{k: torch.from_numpy(inputs[k]).to(device)
+                   for k in ("text_embeds", "time_ids") if k in inputs})),
             "vae_decode": nhwc(models["vae"].decode(nchw("z"), config.vae.scaling_factor)),
             "vae_encode": nhwc(models["vae"].encode_moments(nchw("img"))),
         }

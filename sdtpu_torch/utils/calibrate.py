@@ -60,12 +60,13 @@ def collect_unet_samples(
     latent_size: int,
     num_steps: int = 6,
     seed: int = 0,
+    added_cond: Optional[dict] = None,
 ) -> Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """A short DDPM trajectory yielding ``(latents_in, t, context)`` per
     step.  The initial latents and the per-step noise come from one
     ``torch.Generator`` on ``context``'s device, seeded with ``seed`` (not
     ``jax.random``'s bits); the trajectory is float32 and the UNet runs in
-    ``context``'s dtype."""
+    ``context``'s dtype.  ``added_cond``: SDXL's add-embedding inputs."""
     from sdtpu_torch.models.unet import unet_forward
     from sdtpu_torch.samplers import get_sampler
 
@@ -80,7 +81,7 @@ def collect_unet_samples(
         t = schedule.timesteps[i].float().expand(batch)
         yield lat, t, context
         eps = unet_forward(lat.to(context.dtype), t, context, params, config,
-                           attention_impl="dense").float()
+                           added_cond=added_cond, attention_impl="dense").float()
         noise = torch.randn(lat.shape, generator=gen, device=dev)
         lat = sdef.step(schedule, i, lat, eps, noise)
 
@@ -90,6 +91,8 @@ def calibrate_unet_act_ranges(
     params: dict,
     config: UNetConfig,
     samples: Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    *,
+    added_cond: Optional[dict] = None,
 ) -> Dict[str, np.ndarray]:
     """Replay ``(latents, t, context)`` samples through the eager UNet
     forward, capturing the per-feature input abs-max at every dynamic site:
@@ -103,7 +106,8 @@ def calibrate_unet_act_ranges(
     store: Dict[str, np.ndarray] = {}
     with activation_capture(store, site_by_id):
         for lat, t, ctx in samples:
-            unet_forward(lat.to(ctx.dtype), t, ctx, params, config, attention_impl="dense")
+            unet_forward(lat.to(ctx.dtype), t, ctx, params, config, added_cond=added_cond,
+                         attention_impl="dense")
     return store
 
 
@@ -116,22 +120,22 @@ def calibrate_pipeline_act_ranges(
     seed: int = 0,
 ) -> Dict[str, np.ndarray]:
     """One call for a pipeline: encode ``token_ids`` (a (B, L) batch of
-    calibration prompts) with CLIP, run a short DDPM trajectory in the
-    pipeline's compute dtype, and return the captured ranges for
-    ``pipe.quantize_int8(transformer="full", act_ranges=...)``."""
-    from sdtpu_torch.models.clip import clip_encode_windows
-
+    calibration prompts) with the text encoder(s), run a short DDPM
+    trajectory in the pipeline's compute dtype, and return the captured
+    ranges for ``pipe.quantize_int8(transformer="full", act_ranges=...)``.
+    The prompts are encoded as a request's cond rows are
+    (``StableDiffusionPipeline._encode``): an SDXL UNet takes bigG's pooled
+    embedding and the time ids ``[size, size, 0, 0, size, size]``, or five
+    with the preset's aesthetic score for a refiner, on every row."""
     config = pipe.config
-    if config.clip_2 is not None or config.unet.addition_embed_dim is not None:
-        raise NotImplementedError("dual text encoders / SDXL add-embedding: model-family slice")
-    ids = torch.as_tensor(np.asarray(token_ids, np.int64), device=pipe.device)
-    with torch.inference_mode():
-        hidden, _ = clip_encode_windows(ids, pipe.params["clip"], config.clip)
     size = image_size or config.default_image_size
+    with torch.inference_mode():
+        context, added = pipe._encode(token_ids, 0, size=size, cfg=False)
     samples = collect_unet_samples(
         pipe.params["unet"], config.unet, config.scheduler,
-        context=hidden.to(config.compute_dtype),
+        context=context,
         latent_size=size // config.vae.downscale_factor,
-        num_steps=num_steps, seed=seed,
+        num_steps=num_steps, seed=seed, added_cond=added,
     )
-    return calibrate_unet_act_ranges(pipe.params["unet"], config.unet, samples)
+    return calibrate_unet_act_ranges(pipe.params["unet"], config.unet, samples,
+                                     added_cond=added)

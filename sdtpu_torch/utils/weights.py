@@ -405,28 +405,31 @@ def _to(tree, device):
 
 
 def init_pipeline_params(key, config: PipelineConfig, *, device="cuda") -> dict:
-    """Seeded random parameters for ``from_random``: the text encoder, the
-    UNet, the VAE encoder and decoder, equal to the JAX package's
+    """Seeded random parameters for ``from_random``: the text encoder(s),
+    the UNet, the VAE encoder and decoder, equal to the JAX package's
     ``init_pipeline_params(key, config)`` leaf by leaf.  ``key`` (an int
     seed or a ``hostrng.HostKey``) splits five ways as there: CLIP, UNet,
-    the VAE encoder, the decoder, a second text encoder.  Every leaf is
-    drawn on the host with numpy's Philox, rounded to
-    ``config.param_dtype`` (the CLIP embeddings stay float32) and moved to
-    ``device`` once."""
+    the VAE encoder, the decoder, the second text encoder (``clip_2``,
+    SDXL's bigG; a bigG-only config such as the SDXL refiner has no
+    ``clip``).  Every leaf is drawn on the host with numpy's Philox,
+    rounded to ``config.param_dtype`` (the CLIP embeddings stay float32)
+    and moved to ``device`` once."""
     from sdtpu_torch.models.clip import init_clip
     from sdtpu_torch.models.unet import init_unet
     from sdtpu_torch.models.vae import init_vae_decoder, init_vae_encoder
 
-    if config.clip is None or config.clip_2 is not None:
-        raise NotImplementedError("dual / bigG-only text encoders: model-family slice")
-    k1, k2, k3, k4, _k5 = hostrng.split(hostrng.ensure_key(key), 5)
+    k1, k2, k3, k4, k5 = hostrng.split(hostrng.ensure_key(key), 5)
     dtype = config.param_dtype
-    return _to({
-        "clip": init_clip(k1, config.clip, dtype=dtype),
+    params = {
         "unet": init_unet(k2, config.unet, dtype=dtype),
         "vae_encoder": init_vae_encoder(k3, config.vae, dtype=dtype),
         "vae_decoder": init_vae_decoder(k4, config.vae, dtype=dtype),
-    }, device)
+    }
+    if config.clip is not None:
+        params["clip"] = init_clip(k1, config.clip, dtype=dtype)
+    if config.clip_2 is not None:
+        params["clip_2"] = init_clip(k5, config.clip_2, dtype=dtype)
+    return _to(params, device)
 
 
 def _zeros(tree, device):

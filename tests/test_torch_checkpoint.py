@@ -446,11 +446,25 @@ def test_from_pretrained_matches_the_jax_package(ckpt_dir, monkeypatch, route):
 
 
 @pytest.mark.parametrize("family", ["sdxl", "lcm", "refiner"])
-def test_from_pretrained_refuses_a_family_it_cannot_run(tmp_path, family):
-    """Configs only, no weight file: the refusal comes before any read."""
+def test_from_pretrained_refuses_a_family_it_cannot_run(tmp_path, family, monkeypatch):
+    """The model family is no longer refused: from the JSON configs alone
+    (full-size SDXL, refiner, LCM) ``from_pretrained`` derives the JAX
+    package's config and asks the loader for its trees; here the loader
+    returns the zero tree on the meta device, which has the family's
+    leaves (``clip_2``, no ``clip`` for the refiner, ``add_embedding``,
+    ``cond_proj``)."""
     d = fx._write_ckpt(str(tmp_path / f"{family}-like"), **KNOWN[family])
-    with pytest.raises(NotImplementedError, match="model-family slice"):
-        StableDiffusionPipeline.from_pretrained(d, device="cpu")
+    monkeypatch.setattr(tw, "load_pipeline_params",
+                        lambda model_dir, config, device: tw.zero_pipeline_params(
+                            config, device="meta"))
+    pipe = StableDiffusionPipeline.from_pretrained(d, device="cpu")
+    assert pipe.config == port_config(jcfg.config_from_checkpoint(d))
+    params = pipe.params
+    assert ("clip" in params) == (family != "refiner")
+    assert ("clip_2" in params) == (family != "lcm")
+    assert ("add_embedding" in params["unet"]) == (family != "lcm")
+    assert ("cond_proj" in params["unet"]["time_embedding"]) == (family == "lcm")
+    assert pipe.config.requires_aesthetics_score == (family == "refiner")
 
 
 # ------------------------------------------------------ native tokenizer --

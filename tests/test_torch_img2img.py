@@ -446,7 +446,11 @@ def test_demo_img2img_inpaint_and_refused_flags(tmp_path, monkeypatch, capsys):
     assert read_png(out).shape == (16, 16, 3)
     for flags, slice_name in ((["--pag-scale", "2"], "features"),
                               (["--controlnet", "x"], "ControlNet"),
-                              (["--refiner", "sdxl-refiner"], "model-family"),
                               (["--lora", "x.safetensors"], "features")):
         with pytest.raises(NotImplementedError, match=slice_name):
             demo.main(base + flags)
+    # --refiner is no longer refused; as in the JAX demo it is txt2img only
+    with pytest.raises(SystemExit) as e:
+        demo.main(base + ["--refiner", "sdxl-refiner", "--init-image", init])
+    assert e.value.code == 2
+    assert "--refiner composes with txt2img only" in capsys.readouterr().err

@@ -137,9 +137,17 @@ def test_heads_for_level(heads, channels, want):
 
 
 def test_unet_rejects_model_family_embeddings():
-    cfg = dataclasses.replace(TTINY.unet, addition_embed_dim=16)
-    with pytest.raises(NotImplementedError, match="model-family"):
-        tunet.init_unet(0, cfg)
+    """No longer refused: the SDXL add-embedding and the LCM guidance
+    projection are drawn in the JAX package's key order, bitwise."""
+    jcfg = dataclasses.replace(TINY.unet, addition_embed_dim=16 + 6 * 4,
+                               addition_time_embed_dim=4, time_cond_proj_dim=8)
+    got = tunet.init_unet(0, port_config(jcfg))
+    want = junet.init_unet(0, jcfg)
+    assert got["time_embedding"]["cond_proj"]["kernel"].shape == (8, 16)
+    assert "bias" not in got["time_embedding"]["cond_proj"]
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert len(jax.tree.leaves(got)) == len(jax.tree.leaves(want))
 
 
 # ------------------------------------------------------------------- VAE --
