@@ -144,7 +144,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               against the plain versions), the same at 25 DDPM steps and
               4 requests on the seed-0 tree; (d)
               ``sd15-inpaint`` and ``ip2p`` at full width on seeded random
-              weights: ``from_random`` seconds, one 512x512 request each with
+              weights (``sd15-inpaint``'s ``from_random`` tree, drawn once on
+              the host for phases 15-17, its seconds printed; ``ip2p`` takes
+              its conv_in's first 8 channels): one 512x512 request each with
               exact launches, one UNet forward at its inputs (batch 2 and
               3) through the kernels against the plain route; (e) the
               bench's ``--img2img``, ``--batch 4`` and ``--serving`` lines
@@ -156,8 +158,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               times 25, plus the decode's; the configs' A/B/C printed
               beside), every A, B and C call shape of it held to its plain
               version at TOL_REL and timed beside it and the library (per
-              image: kernels, plain, library, bound), one traced image's
-              device-busy time and idle share, one UNet forward at batch 2
+              image: kernels, plain, library, bound), one traced 10-step
+              image's device-busy time and idle share, one UNet forward at
+              batch 2
               (128x128 latents, 2048-wide context, the add-embedding)
               through the kernels against the plain route and float32;
               (b) ``sdxl-turbo`` at 512x512 on the same tree (4 Euler steps,
@@ -169,13 +172,33 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               ``denoising_end=0.8, output="latents"``, then
               ``sdxl-refiner`` (the base's clip_2 and VAE leaves, its UNet
               drawn from ``from_random``'s key) with ``denoising_start=0.8``,
-              launches held; (d) ``lcm-sd15``, one 512x512 4-step request,
-              launches held; in (b)-(d) every A, B and C call shape that
+              launches held; (d) ``lcm-sd15`` (the SD-1.5 family's tree, a
+              ``cond_proj`` drawn), one 512x512 4-step request, launches
+              held; in (b)-(d) every A, B and C call shape that
               sdxl's image did not run (turbo at batch 1 and 4, the
               refiner's 384/768/1536 channels, LCM) held to its plain
-              version at TOL_REL; (e) the bench's ``--preset sdxl
+              version at TOL_REL; (e) the bench's ``--preset sdxl --steps 10
               --repeats 3`` and ``--preset sdxl-turbo --batch 4 --repeats
               3`` lines with their launches held to their requests.
+17. features -- ControlNet and the denoise step's features on ``sd15`` at
+              full width and depth (the SD-1.5 family's tree; the ControlNet
+              ``init_controlnet(1)`` as the JAX package draws it, a second
+              net drawn on the card, the zero convs and the cond embedding's
+              conv_out drawn non-zero on the card), 512x512, 25 DDPM steps,
+              CFG 7.5, bf16: one ControlNet image, one step's residuals
+              and the UNet output with them kernels vs plain (the rule of
+              phase 4), a two-net image, ControlNet with img2img at strength
+              0.75, ControlNet on ``generate_batch`` of 4 on the gate's
+              weights (4 Euler steps, each row within the gate's envelope of
+              its solo image), PAG 3.0 (the mid block's site), FreeU, CFG
+              rescale 0.7, ``generate_hires`` from 256 to 512; on tiny-sd's
+              seed-0 tree PAG at the deepest attention level, the encoder
+              cache at k = 3 and a ControlNet of zeros; every request's
+              launches held to its recorded calls (A/B/C beside the configs'
+              reading), every A/C call configuration of the phase held to
+              its plain version at TOL_REL; the bench's ``--controlnet``,
+              ``--pag-scale 3`` and ``--encoder-cache 3`` lines (``--repeats
+              3``) with their launches held to the tiny-sd requests.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -949,6 +972,33 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def sd15_pipeline(torch, host, preset):
+    """A pipeline of the SD-1.5 family (``sd15``, ``sd15-inpaint``, ``ip2p``,
+    ``lcm-sd15``) on the card from one host tree, ``sd15-inpaint``'s seed-0
+    ``init_pipeline_params`` (= its ``from_random``): the presets differ
+    only in conv_in's input channels (its first 4 or 8 taken) and LCM's
+    guidance projection (``cond_proj``, drawn as ``init_unet`` draws it, on
+    the host).  One draw serves phases 15-17: each costs 14-16 s of numpy
+    Philox."""
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.ops import init_linear
+    from sdtpu_torch.utils import hostrng
+
+    config = get_preset(preset)
+    ucfg = config.unet
+    unet = dict(host["unet"])
+    conv_in = host["unet"]["conv_in"]
+    unet["conv_in"] = {"kernel": conv_in["kernel"][:, :, :ucfg.in_channels].contiguous(),
+                       "bias": conv_in["bias"]}
+    if ucfg.time_cond_proj_dim is not None:
+        unet["time_embedding"] = dict(unet["time_embedding"], cond_proj=init_linear(
+            hostrng.key(0), ucfg.time_cond_proj_dim, ucfg.block_out_channels[0], use_bias=False,
+            dtype=config.param_dtype))
+    return StableDiffusionPipeline(config, tree_to(dict(host, unet=unet), "cuda"),
+                                   device="cuda")
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1547,23 +1597,41 @@ def main() -> int:
     t5 = time.perf_counter()
 
     # phase 15: image-conditioned requests and batched serving, on the
-    # seed-0 tree again
+    # seed-0 tree again; the SD-1.5 family's tree of phases 15-17
+    # (sd15-inpaint's from_random, drawn once on the host: sd15_pipeline)
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.utils.weights import init_pipeline_params
+
+    t_draw = time.perf_counter()
+    sd15_host = init_pipeline_params(0, get_preset("sd15-inpaint"), device="cpu")
+    details["sd15_from_random_s"] = time.perf_counter() - t_draw
+    log(f"sd15-inpaint: from_random(seed=0)'s tree drawn in {details['sd15_from_random_s']:.3f}"
+        " s on the host (the SD-1.5 family of phases 15-17: sd15, sd15-inpaint, ip2p, "
+        "lcm-sd15)")
     pipe.params = tree_to(host_params, "cuda")
-    del host_params
-    details["conditioned"] = conditioned_phase(torch, np, gen, pipe, ids, launch_counts,
+    details["conditioned"] = conditioned_phase(torch, np, gen, pipe, ids, sd15_host,
+                                               launch_counts,
                                                reset_launch_counts, kind, e2e_expected)
     t6 = time.perf_counter()
 
     # phase 16: the SDXL family and LCM's guidance embedding
     pipe.params = None
     torch.cuda.empty_cache()
-    details["sdxl"] = sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind,
-                                 exp_rate)
+    details["sdxl"] = sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts,
+                                 kind, exp_rate)
     t7 = time.perf_counter()
+
+    # phase 17: ControlNet and the denoise step's features (sd15; tiny-sd's
+    # seed-0 tree for the deepest-level PAG site and the encoder cache)
+    torch.cuda.empty_cache()
+    details["features"] = features_phase(torch, np, gen, host_params, sd15_host, launch_counts,
+                                         reset_launch_counts, kind)
+    del host_params, sd15_host
+    t8 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
                           "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
-                          "sdxl": t7 - t6}
-    log("phases 10-16 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "sdxl": t7 - t6, "features": t8 - t7}
+    log("phases 10-17 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -2477,8 +2545,8 @@ def judge_rel(torch, label, k_out, p_out, f_out):
     return {"kernels_vs_plain": d_kp, "plain_bf16_vs_f32": d_pf}
 
 
-def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_counts, kind,
-                      e2e_expected):
+def conditioned_phase(torch, np, gen, pipe, ids, sd15_host, launch_counts, reset_launch_counts,
+                      kind, e2e_expected):
     """Phase 15: tiny-sd img2img and latent-blend inpainting (kernels vs
     plain on the final latents, exact launches), ``generate_batch`` at B =
     4 with the ported invariance gate, a ``ServingEngine`` answering 8
@@ -2627,19 +2695,20 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
 
     # (d) the SD-1.5 widths: sd15-inpaint (9-channel UNet, its mid block)
     # and ip2p (8 channels, three guidance branches), one 512x512 request
-    # each on seeded random weights
+    # each on seeded random weights (sd15-inpaint's from_random tree; ip2p
+    # takes its conv_in's first 8 channels)
     sd_ids = np.random.default_rng(40).integers(1, 49408, (2, 77))
     for preset, extra, rows in (("sd15-inpaint", {"mask_image": mask, "strength": 1.0}, 2),
                                 ("ip2p", {"image_guidance_scale": 1.5}, 3)):
         t0 = time.perf_counter()
-        sd = StableDiffusionPipeline.from_random(preset, seed=0, device="cuda")
+        sd = sd15_pipeline(torch, sd15_host, preset)
         torch.cuda.synchronize()
         fr_s = time.perf_counter() - t0
         kw = dict(token_ids=sd_ids, num_inference_steps=STEPS, seed=40, image_size=512,
                   init_image=init, **extra)
         img, sec, counts, expected, calls, peak = counted(torch, lambda: sd.generate(**kw),
                                                           launch_counts, reset_launch_counts)
-        log(f"{preset}: from_random(seed=0) {fr_s:.3f} s on the host; 512x512, {STEPS} DDPM "
+        log(f"{preset}: the tree to the card {fr_s:.3f} s; 512x512, {STEPS} DDPM "
             f"steps, CFG 7.5, UNet batch {rows}: image {img.shape}, pixel std "
             f"{float(img.std()):.3f}, {sec:.4f} s/image, peak memory above the resident "
             f"trees {peak / 2**30:.3f} GiB")
@@ -2662,7 +2731,7 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
                                      ucfg).float()
                 f_out = unet_forward(lat, ts, ctx, u32, ucfg).float()
         del u32
-        out[preset] = {"from_random_s": fr_s, "s_per_image": sec, "peak_bytes": peak,
+        out[preset] = {"to_card_s": fr_s, "s_per_image": sec, "peak_bytes": peak,
                        "launches": counts, "attention_shapes": [list(a) for a in attn],
                        **judge_rel(torch, f"{preset} unet_forward b{rows}", k_out, p_out, f_out)}
         del sd, k_out, p_out, f_out
@@ -2703,6 +2772,10 @@ def conditioned_phase(torch, np, gen, pipe, ids, launch_counts, reset_launch_cou
 # ------------------------------------------------------- the SDXL family --
 
 SDXL_STEPS = 25            # the sdxl preset's default: DDPM, CFG 7.5, 1024x1024
+# the traced sdxl image's and the sdxl bench line's steps: cut from 25 so
+# that phase 17 fits the script's time (the 25-step image above keeps its
+# launches, kernel shapes and seconds)
+SDXL_SHORT_STEPS = 10
 SPLIT = 0.8                # the base -> refiner handoff (diffusers' default)
 # A/B/C per UNet step, read from the configs (the recorded
 # calls decide): sdxl 17 resnets, 2 upsamplers, 70 transformer blocks;
@@ -2718,18 +2791,25 @@ PREDICTED_STEP = {"sdxl": {"conv3x3_slab": 34, "conv3x3_slab_upsample": 2,
 def request_calls(torch, pipe, kw, n_steps, decode=True, batch=None):
     """A request's kernel call configurations (:func:`record_calls`): one
     UNet step's (a 1-step request that returns its latents; with ``batch``
-    a ``generate_batch`` of that many rows) times ``n_steps``, plus one VAE
-    decode's where ``decode``."""
+    a 1-step ``generate_batch`` of that many rows, which decodes as the JAX
+    package's does, less one decode's calls) times ``n_steps``, plus one
+    VAE decode's where ``decode``."""
     one = dict({k: v for k, v in kw.items() if k not in ("latents", "denoising_start",
                                                          "denoising_end", "output")},
-               num_inference_steps=1, output="latents")
-    lat = []
-    step = record_calls(torch, lambda: lat.append(
-        pipe.generate(**one) if batch is None else pipe.generate_batch(["x"] * batch, **one)))
+               num_inference_steps=1)
+    f = pipe.config.vae.downscale_factor
+    lat_hw = kw.get("image_size", pipe.config.default_image_size) // f
+    z = torch.zeros((batch or 1, lat_hw, lat_hw, pipe.config.vae.latent_channels),
+                    device="cuda")
+    dec = record_calls(torch, lambda: pipe._finish(z, "uint8"))
+    if batch is None:
+        step = record_calls(torch, lambda: pipe.generate(output="latents", **one))
+    else:
+        step = record_calls(torch, lambda: pipe.generate_batch(["x"] * batch, **one))
+        step = {key: cs - dec[key] for key, cs in step.items()}
     calls = {key: Counter({c: n * n_steps for c, n in cs.items()}) for key, cs in step.items()}
     if decode:
-        z = torch.from_numpy(lat[0]).cuda()
-        for key, cs in record_calls(torch, lambda: pipe._finish(z, "uint8")).items():
+        for key, cs in dec.items():
             calls[key].update(cs)
     return calls
 
@@ -2855,7 +2935,7 @@ def shape_times(torch, gen, calls, exp_rate):
     return tot, rows
 
 
-def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rate):
+def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, kind, exp_rate):
     """Phase 16: ``sdxl`` at 1024x1024 on seeded random weights (one
     25-step CFG image with its launches held, its kernel shapes held to
     their plain versions and timed, a traced image, one UNet forward
@@ -2907,18 +2987,21 @@ def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rat
     # run are held to their plain versions too
     held = call_keys(calls)
     out["shapes_held"] = {"sdxl": len(held)}
+    # the bench line's request (its zero tree has this tree's shapes)
+    short_counts = expected_launches(request_calls(torch, base, kw, SDXL_SHORT_STEPS),
+                                     launch_counts)
     # one traced image: device-busy time and idle share
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        base.generate(**kw)
+        base.generate(**dict(kw, num_inference_steps=SDXL_SHORT_STEPS))
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     split = trace_split(torch, kineto_events(prof), wall)
     del prof
-    log(f"trace of one sdxl image ({SDXL_STEPS} steps, read in {time.perf_counter() - t0:.1f}"
+    log(f"trace of one sdxl image ({SDXL_SHORT_STEPS} steps, read in {time.perf_counter() - t0:.1f}"
         f" s): wall {split['wall_ms']:.1f} ms, window {split['window_ms']:.1f} ms, device busy "
         f"{split['device_busy_ms']:.1f} ms ({split['device_events']} device activities), idle "
         f"share {split['idle_share']:.4f}")
@@ -3074,9 +3157,10 @@ def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rat
     del refiner, base, r_unet
     torch.cuda.empty_cache()
 
-    # (d) lcm-sd15 at 512x512: 4 LCM steps, the guidance as an embedding
+    # (d) lcm-sd15 at 512x512: 4 LCM steps, the guidance as an embedding,
+    # on the SD-1.5 family's tree (sd15_pipeline)
     t0 = time.perf_counter()
-    lcm = StableDiffusionPipeline.from_random("lcm-sd15", seed=0, device="cuda")
+    lcm = sd15_pipeline(torch, sd15_host, "lcm-sd15")
     torch.cuda.synchronize()
     l_s = time.perf_counter() - t0
     lsteps = lcm.config.default_steps
@@ -3088,9 +3172,9 @@ def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rat
         {k: lsteps * v + VAE_DECODE[k] for k, v in PREDICTED_STEP["lcm-sd15"].items()})
     check_image("lcm-sd15", img, 512)
     out["shapes_held"]["lcm-sd15"] = hold_shapes(torch, gen, "lcm-sd15", lcalls, held)
-    log(f"lcm-sd15: from_random {l_s:.3f} s; 512x512, {lsteps} LCM steps, guidance embedding "
+    log(f"lcm-sd15: the tree to the card {l_s:.3f} s; 512x512, {lsteps} LCM steps, guidance embedding "
         f"(8 - 1) x 1000, UNet batch 1: {sec:.4f} s/image")
-    out["lcm-sd15"] = {"from_random_s": l_s, "s_per_image": sec, "launches": counts}
+    out["lcm-sd15"] = {"to_card_s": l_s, "s_per_image": sec, "launches": counts}
     del lcm
     torch.cuda.empty_cache()
 
@@ -3100,8 +3184,9 @@ def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rat
     # only the card's tail after the host's last enqueue, which two gaps
     # would average in
     for label, argv, per_request in (
-            ("--preset sdxl", ["--preset", "sdxl", "--repeats", str(BENCH_REPEATS)],
-             out["sdxl"]["launches"]),
+            (f"--preset sdxl --steps {SDXL_SHORT_STEPS}",
+             ["--preset", "sdxl", "--steps", str(SDXL_SHORT_STEPS), "--repeats",
+              str(BENCH_REPEATS)], short_counts),
             ("--preset sdxl-turbo --batch 4",
              ["--preset", "sdxl-turbo", "--batch", "4", "--repeats", str(BENCH_REPEATS)],
              bcounts)):
@@ -3119,6 +3204,274 @@ def sdxl_phase(torch, np, gen, launch_counts, reset_launch_counts, kind, exp_rat
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 16: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
         f"versions: {out['shapes_held']} ({len(held)} in all)")
+    return out
+
+
+# --------------------------------------------- ControlNet and step features --
+
+CN_SCALE = 0.02            # the zero convs' and conv_out's card draws (x normals)
+PAG_SCALE = 3.0
+FREEU = (1.5, 1.6, 0.9, 0.2)
+RESCALE = 0.7
+CACHE_K = 3                # the encoder cache's interval on tiny-sd
+HIRES_BASE = 256
+GATE_STEPS = 4             # the batch gate's Euler steps (its own settings)
+# A/B/C per SD-1.5 step, read from the configs (the recorded calls decide):
+# the UNet 22 resnets, 3 upsamplers, 16 transformer blocks; a ControlNet's
+# encoder copy 10 resnets and 7 blocks
+SD15_STEP = {"conv3x3_slab": 44, "conv3x3_slab_upsample": 3, "flash_attention": 16}
+CN_STEP = {"conv3x3_slab": 20, "conv3x3_slab_upsample": 0, "flash_attention": 7}
+
+
+def nonzero_controlnet(torch, tree, seed):
+    """``tree`` with its zero convs and its cond embedding's conv_out drawn
+    as CN_SCALE x normals on the card (a fresh ControlNet is an exact no-op:
+    its residuals would compare zeros with zeros)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(t):
+        return (torch.randn(t.shape, generator=gen, device="cuda") * CN_SCALE).to(t.dtype)
+
+    out = dict(tree)
+    out["zero_convs"] = [{k: draw(v) for k, v in zc.items()} for zc in tree["zero_convs"]]
+    if "zero_conv_mid" in tree:
+        out["zero_conv_mid"] = {k: draw(v) for k, v in tree["zero_conv_mid"].items()}
+    out["cond_embedding"] = dict(tree["cond_embedding"],
+                                 conv_out={k: draw(v) for k, v in
+                                           tree["cond_embedding"]["conv_out"].items()})
+    return out
+
+
+def features_phase(torch, np, gen, tiny_params, sd15_host, launch_counts, reset_launch_counts,
+                   kind):
+    """Phase 17: ControlNet (one and two nets, with img2img, on
+    ``generate_batch`` within the batch gate's envelope) and the step
+    features (PAG at SD-1.5's mid block and tiny-sd's deepest level, FreeU,
+    CFG rescale, tiny-sd's encoder cache, the hires fix) on ``sd15`` at
+    full width and depth, 512x512, 25 DDPM steps, CFG 7.5, bf16: every
+    request's launches held to its recorded calls, every A/C call
+    configuration of the phase held to its plain version, one step's
+    ControlNet residuals and the UNet output with them kernels vs plain,
+    and the bench's ``--controlnet``, ``--pag-scale`` and ``--encoder-cache``
+    lines."""
+    from sdtpu_torch import StableDiffusionPipeline, bench
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.models.controlnet import (
+        controlnet_cond_embed,
+        controlnet_forward,
+        init_controlnet,
+    )
+    from sdtpu_torch.models.unet import unet_forward
+    from sdtpu_torch.samplers import get_sampler
+    from sdtpu_torch.tools import check_batch_invariance
+    from sdtpu_torch.utils.weights import zero_controlnet_params
+
+    out = {}
+    t_phase = time.perf_counter()
+    held = set()  # hold_shapes' record
+    phase_calls = []
+    rng = np.random.default_rng(17)
+    ids = rng.integers(1, 49408, (2, 77))
+    ctrl_a = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    ctrl_b = rng.integers(0, 256, (512, 512), dtype=np.uint8)  # a grey map
+    init = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+
+    def run(label, fn, predicted=None):
+        """``fn`` counted (its calls recorded, then a run with the launches
+        zeroed just before it and held to them), its A/B/C beside the
+        configs' reading; returns (result, seconds, counts, peak bytes)."""
+        res, sec, counts, expected, calls, peak = counted(torch, fn, launch_counts,
+                                                          reset_launch_counts)
+        hold_counts(label, counts, expected)
+        log(f"{label}: {sec:.4f} s, peak memory above what was allocated before it "
+            f"{peak / 2**30:.3f} GiB")
+        phase_calls.append(calls)
+        if predicted is not None:
+            main = {k: counts[k] for k in predicted}
+            log(f"{label} A/B/C {main}; predicted from the configs {predicted}: "
+                + ("agree" if main == predicted else "DIFFER (the recorded calls decide)"))
+        out[label] = {"s_per_image": sec, "launches": counts, "peak_bytes": peak}
+        return res, sec, counts, peak
+
+    def per_image(step, nets=0):
+        return {k: STEPS * (v + nets * CN_STEP[k]) + VAE_DECODE[k] for k, v in step.items()}
+
+    # the weights: sd15 from the SD-1.5 family's tree (sd15_pipeline) and a
+    # ControlNet drawn as the JAX package draws it (the encoder half of a
+    # whole SD-1.5 UNet), a second net on the card
+    t0 = time.perf_counter()
+    sd = sd15_pipeline(torch, sd15_host, "sd15")
+    torch.cuda.synchronize()
+    fr_s = time.perf_counter() - t0
+    pcfg = sd.config
+    t0 = time.perf_counter()
+    cn_host = init_controlnet(1, pcfg.unet, dtype=pcfg.param_dtype)
+    cn_s = time.perf_counter() - t0
+    cn1 = nonzero_controlnet(torch, tree_to(cn_host, "cuda"), 171)
+    del cn_host
+    cn2 = nonzero_controlnet(torch, card_normal_tree(torch, cn1, 172), 173)
+    torch.cuda.synchronize()
+    log(f"sd15: the tree to the card {fr_s:.3f} s; init_controlnet(1) {cn_s:.3f} s "
+        f"on the host (a whole SD-1.5 UNet drawn, its encoder half kept); the second net "
+        f"0.04 x normals drawn on the card; zero convs and conv_out {CN_SCALE} x normals")
+    out["to_card_s"], out["init_controlnet_s"] = fr_s, cn_s
+    kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
+              cfg_scale=7.5)
+    # the yardstick of the features' seconds: the plain sd15 image
+    img, sec, _, _ = run("sd15", lambda: sd.generate(**kw), per_image(SD15_STEP))
+    check_image("sd15", img, 512)
+    log(f"sd15 (512x512, {STEPS} DDPM steps, CFG 7.5, UNet batch 2): {sec:.4f} s/image")
+
+    # (1) one ControlNet image; one step's residuals and the UNet output with
+    # them, kernels vs plain
+    sd.load_controlnet(cn1)
+    img, sec, _, peak = run("controlnet", lambda: sd.generate(control_image=ctrl_a, **kw),
+                             per_image(SD15_STEP, 1))
+    check_image("controlnet", img, 512)
+    log(f"controlnet (sd15 512x512, {STEPS} DDPM steps, CFG 7.5, UNet and ControlNet batch 2):"
+        f" {sec:.4f} s/image, peak memory above the trees {peak / 2**30:.3f} GiB")
+    ucfg = pcfg.unet
+    lat = torch.randn((2, 64, 64, ucfg.in_channels), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+    cond = torch.rand((2, 512, 512, 3), generator=gen, device="cuda")
+
+    def step(unet, net, dt):
+        emb = controlnet_cond_embed(cond.to(dt), net["cond_embedding"])
+        res = controlnet_forward(lat.to(dt), ts, ctx.to(dt), emb, net, ucfg,
+                                 conditioning_scale=0.8)
+        flat = torch.cat([r.float().flatten() for r in res["down"] + [res["mid"]]])
+        return flat, unet_forward(lat.to(dt), ts, ctx.to(dt), unet, ucfg, control=res).float()
+
+    with torch.inference_mode():
+        k_res, k_out = step(sd.params["unet"], cn1, torch.bfloat16)
+        with routed(**plain_routes()):
+            p_res, p_out = step(sd.params["unet"], cn1, torch.bfloat16)
+            f_res, f_out = step(to_dtype(sd.params["unet"], torch.float32),
+                                to_dtype(cn1, torch.float32), torch.float32)
+    out["controlnet"]["residuals"] = judge_rel(
+        torch, "controlnet residuals of one step (13 skips + mid, b2 64x64)", k_res, p_res, f_res)
+    out["controlnet"]["unet_control"] = judge_rel(
+        torch, "sd15 unet_forward b2 64x64 with the residuals", k_out, p_out, f_out)
+    del k_res, p_res, f_res, k_out, p_out, f_out
+    torch.cuda.empty_cache()
+
+    # (2) two nets, one map each, the residuals summed
+    sd.load_controlnet([cn1, cn2])
+    img, sec, _, _ = run("controlnet x2", lambda: sd.generate(
+        control_image=[ctrl_a, ctrl_b], controlnet_scale=[1.0, 0.6], **kw),
+        per_image(SD15_STEP, 2))
+    check_image("controlnet x2", img, 512)
+    log(f"controlnet x2: {sec:.4f} s/image")
+
+    # (3) one net with img2img at strength STRENGTH
+    sd.load_controlnet(cn1)
+    s_eff = get_sampler("ddpm").make_schedule(pcfg.scheduler, STEPS, STRENGTH).num_steps
+    img, sec, _, _ = run("controlnet img2img", lambda: sd.generate(
+        control_image=ctrl_a, init_image=init, strength=STRENGTH, **kw))
+    check_image("controlnet img2img", img, 512)
+    log(f"controlnet img2img (strength {STRENGTH}: {s_eff} steps): {sec:.4f} s/image")
+
+    # (4) generate_batch of 4 on the gate's weights (0.04 x normals drawn on
+    # the card), GATE_STEPS Euler steps: each row within the gate's envelope
+    # of its solo image
+    gate = StableDiffusionPipeline(pcfg, card_normal_tree(torch, sd.params, 1234), device="cuda")
+    gate.load_controlnet(card_normal_tree(torch, cn1, 1235))
+    maps = [ctrl_a, ctrl_b, ctrl_a[::-1], init]
+    bids = np.random.default_rng(4).integers(1, 49408, (4, 77))
+    bkw = dict(num_inference_steps=GATE_STEPS, sampler="euler", image_size=512)
+    imgs, sec, _, peak = run("controlnet generate_batch B=4", lambda: gate.generate_batch(
+        ["x"] * 4, token_ids=bids, seeds=[10, 11, 12, 13], control_images=maps, **bkw))
+    check_image("controlnet generate_batch", imgs, 512, 4)
+    gaps = []
+    for i in range(4):
+        solo = gate.generate_batch(["x"], token_ids=bids[i:i + 1], seeds=[10 + i],
+                                   control_images=[maps[i]], **bkw)[0]
+        gap = check_batch_invariance.row_gap(imgs[i], solo)
+        level, frac = gap["max_level_diff"], gap["mismatched_frac"]
+        ok = level <= INV_LEVEL and frac <= INV_FRAC
+        log(f"controlnet generate_batch row {i}: against its solo image max {level} level(s), "
+            f"{frac:.4%} of values differ (envelope {INV_LEVEL}, {INV_FRAC:.0%})"
+            + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"controlnet generate_batch row {i} is off its solo image")
+        gaps.append({"row": i, "max_level_diff": level, "mismatched_frac": frac})
+    log(f"controlnet generate_batch B=4 ({GATE_STEPS} Euler steps, UNet batch 8): {sec:.4f} s "
+        f"({4 / sec:.4f} images/s), peak memory {peak / 2**30:.3f} GiB")
+    out["controlnet generate_batch B=4"]["gaps"] = gaps
+    del gate
+    sd.controlnet = None
+    torch.cuda.empty_cache()
+
+    # (5)-(7) PAG at the mid block, FreeU, CFG rescale on sd15
+    for label, feat, predicted in (
+            (f"pag {PAG_SCALE}", dict(pag_scale=PAG_SCALE), per_image(SD15_STEP)),
+            ("freeu", dict(freeu=FREEU), per_image(SD15_STEP)),
+            (f"guidance_rescale {RESCALE}", dict(guidance_rescale=RESCALE),
+             per_image(SD15_STEP))):
+        img, sec, _, _ = run(label, lambda: sd.generate(**kw, **feat), predicted)
+        check_image(label, img, 512)
+        log(f"{label} (sd15 512x512, {STEPS} steps): {sec:.4f} s/image")
+
+    # (9) the hires fix: txt2img at HIRES_BASE, then img2img at 512
+    img, sec, _, _ = run(f"generate_hires {HIRES_BASE}->512", lambda: sd.generate_hires(
+        token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512,
+        base_size=HIRES_BASE))
+    check_image("generate_hires", img, 512)
+    log(f"generate_hires {HIRES_BASE}->512 (hires_strength 0.7): {sec:.4f} s/image")
+    del sd
+    torch.cuda.empty_cache()
+
+    # (5), (8) on tiny-sd: PAG at the deepest attention level, the encoder
+    # cache at CACHE_K (the encoder on 25 // k groups + the remainder's
+    # steps), and a ControlNet of zeros (the bench's tree): each request's
+    # launches are the bench line's per image
+    tiny = StableDiffusionPipeline(get_preset("tiny-sd"), tree_to(tiny_params, "cuda"),
+                                   device="cuda")
+    tkw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
+    n_enc = STEPS // CACHE_K + STEPS % CACHE_K
+    per_request = {}
+    for label, flag, feat in (
+            (f"tiny-sd pag {PAG_SCALE}", ["--pag-scale", str(PAG_SCALE)],
+             dict(pag_scale=PAG_SCALE)),
+            (f"tiny-sd encoder cache k={CACHE_K}", ["--encoder-cache", str(CACHE_K)],
+             dict(encoder_cache_interval=CACHE_K)),
+            ("tiny-sd controlnet (zeros)", ["--controlnet"], dict(control_image=ctrl_a))):
+        if "control_image" in feat:
+            tiny.load_controlnet(zero_controlnet_params(tiny.config, device="cuda"))
+        img, sec, counts, _ = run(label, lambda: tiny.generate(**tkw, **feat))
+        check_image(label, img, 512)
+        log(f"{label} (512x512, {STEPS} steps"
+            + (f", the encoder on {n_enc} of them" if "encoder_cache_interval" in feat else "")
+            + f"): {sec:.4f} s/image")
+        per_request[tuple(flag)] = counts
+    del tiny
+    torch.cuda.empty_cache()
+
+    # every A/C call configuration of the phase against its plain version
+    merged = {key: Counter() for key in phase_calls[0]}
+    for calls in phase_calls:
+        for key, cs in calls.items():
+            merged[key].update(cs)
+    out["shapes_held"] = hold_shapes(torch, gen, "phase 17's requests", merged, held)
+
+    # (10) the bench's lines (tiny-sd, the default preset): the first run,
+    # then 1 + repeats pipelined, each with the launches of the request above
+    for flag, per in per_request.items():
+        reset_launch_counts()
+        line = bench.main([*flag, "--repeats", str(BENCH_REPEATS)])
+        got = dict(launch_counts)
+        want = {k: (BENCH_REPEATS + 2) * v for k, v in per.items()}
+        ok = (line["value"] > 0 and line["device"] == kind and got == want
+              and line["mfu_pct"] is None)
+        log(f"bench {' '.join(flag)}: {json.dumps(line)}; launches {got}"
+            + (" ok" if ok else f" FAIL (want {want})"))
+        if not ok:
+            raise AssertionError(f"bench {' '.join(flag)}")
+        out[f"bench {' '.join(flag)}"] = {"line": line, "launches": got}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
+        f"versions: {len(held)}")
     return out
 
 

@@ -16,11 +16,12 @@ half) at strength 1, an 8-channel InstructPix2Pix preset an init image.
 ``--batch`` > 1 runs ``generate_batch``; ``--serving`` drives ``--requests``
 requests through the ``ServingEngine`` (``--batch`` coalesced,
 ``--device-batch`` rows per device request) and prints the serving line.
-Flags that need a feature the port does not have yet raise
-``NotImplementedError`` naming the slice that brings it: ``--controlnet``,
-``--pag-scale`` and ``--encoder-cache``.  ``--sampler`` takes any of the 13
-names of ``sdtpu_torch.samplers.SAMPLERS``; another name raises
-``ValueError``.
+``--controlnet`` attaches a ControlNet of zeros with the preset's shapes
+(in its parameter dtype) and conditions every request on a seeded uint8
+control map; ``--pag-scale`` adds Perturbed-Attention Guidance's third
+branch; ``--encoder-cache k`` runs the UNet's encoder once per k steps.
+``--sampler`` takes any of the 13 names of
+``sdtpu_torch.samplers.SAMPLERS``; another name raises ``ValueError``.
 
 The parameters are zeros of the init shapes (speed does not depend on the
 weight values), quantized with ``--int8``; ``SDTPU_PACKED_OUT_PROJ=1`` in
@@ -31,7 +32,8 @@ before request N is fetched, and an image's time is the gap between
 successive fetches; ``--no-overlap`` times each request alone.  The
 analytic FLOP count covers no conditioned UNet (9 or 8 input channels),
 whose line then has no ``program_tflops`` and ``mfu_pct``, as in the JAX
-package's.
+package's; nor a ControlNet, PAG's third branch or the encoder cache,
+whose line has them null (the JAX bench gives none).
 """
 
 from __future__ import annotations
@@ -93,19 +95,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError, naming its slice, for a flag whose feature
-    the port does not have yet."""
-    later = [
-        (args.controlnet, "--controlnet", "ControlNet slice"),
-        (args.pag_scale != 0.0, "--pag-scale", "features slice"),
-        (args.encoder_cache != 1, "--encoder-cache", "features slice"),
-    ]
-    for used, flag, where in later:
-        if used:
-            raise NotImplementedError(f"bench {flag} belongs to the {where}")
-
-
 def main(argv=None) -> dict:
     """Run the benchmark; prints the JSON line and returns it as a dict."""
     args = parse_args(argv)
@@ -115,10 +104,11 @@ def main(argv=None) -> dict:
 
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.config import get_preset
+    from sdtpu_torch.pipeline.pipeline import check_features
     from sdtpu_torch.samplers import get_sampler
     from sdtpu_torch.utils.flops import pipeline_flops
     from sdtpu_torch.utils.runtime import device_sync
-    from sdtpu_torch.utils.weights import zero_pipeline_params
+    from sdtpu_torch.utils.weights import zero_controlnet_params, zero_pipeline_params
 
     config = get_preset(args.preset)
     if args.attention_impl:
@@ -128,8 +118,10 @@ def main(argv=None) -> dict:
     cfg = False if args.no_cfg else config.default_cfg
     if args.image_size is None:
         args.image_size = config.default_image_size
-    refuse_unported(args)
     get_sampler(sampler)  # an unknown name raises before any parameter is made
+    # as do the step features' invalid values, with the JAX package's messages
+    check_features(args.encoder_cache, args.controlnet, 0.0, args.pag_scale, None, cfg,
+                   config.unet.in_channels == 2 * config.vae.latent_channels)
     device = torch.device(args.device)
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else str(device))
@@ -157,8 +149,15 @@ def main(argv=None) -> dict:
         args.strength = 1.0
     elif config.unet.in_channels == 2 * latent_ch:
         args.img2img = True
+    control_image = None
+    if args.controlnet:
+        pipe.load_controlnet(zero_controlnet_params(config, device=device))
+        control_image = rng.integers(0, 255, (args.image_size, args.image_size, 3),
+                                     dtype=np.uint8)
+    features = dict(pag_scale=args.pag_scale, encoder_cache_interval=args.encoder_cache)
     if args.serving:
-        return _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg)
+        return _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg,
+                              control_image, features)
     init_image = (rng.integers(0, 255, (args.image_size, args.image_size, 3), dtype=np.uint8)
                   if args.img2img else None)
     if args.batch == 1:
@@ -169,7 +168,8 @@ def main(argv=None) -> dict:
             return pipe.generate("bench", token_ids=ids, num_inference_steps=steps, seed=seed,
                                  image_size=args.image_size, output=output, sampler=sampler,
                                  cfg=cfg, init_image=init_image, strength=args.strength,
-                                 mask_image=bench_mask)
+                                 mask_image=bench_mask, control_image=control_image,
+                                 **features)
     else:
         ids = rng.integers(1, config.text_config.vocab_size,
                            (args.batch, config.text_config.max_length))
@@ -180,7 +180,9 @@ def main(argv=None) -> dict:
                 image_size=args.image_size, output=output, sampler=sampler, cfg=cfg,
                 init_images=[init_image] * args.batch if init_image is not None else None,
                 mask_images=[bench_mask] * args.batch if bench_mask is not None else None,
-                strength=args.strength)
+                strength=args.strength,
+                control_images=([control_image] * args.batch if control_image is not None
+                                else None), **features)
 
     t0 = time.perf_counter()
     run(0)
@@ -222,7 +224,9 @@ def main(argv=None) -> dict:
 
     p50 = statistics.median(times)
     images_per_sec = args.batch / p50
-    variant = ("int8 " if args.int8 else "") + ("img2img " if args.img2img else "")
+    variant = ("int8 " if args.int8 else "") + ("controlnet " if args.controlnet else "") + (
+        f"enc-cache{args.encoder_cache} " if args.encoder_cache > 1 else "") + (
+        "img2img " if args.img2img else "")
     guidance = "CFG" if cfg else "no-CFG"
     result = {
         "metric": f"{args.preset} {args.image_size}x{args.image_size} "
@@ -242,7 +246,12 @@ def main(argv=None) -> dict:
     }
     if mode == "pipelined":
         result["p50_request_latency_s"] = round(statistics.median(request_times), 4)
-    if config.unet.in_channels == latent_ch:
+    if config.unet.in_channels == latent_ch and (
+            args.controlnet or args.pag_scale > 0.0 or args.encoder_cache > 1):
+        # the FLOP count covers neither the ControlNet, PAG's branch nor
+        # the encoder cache: no share of the peak rather than a wrong one
+        result["program_tflops"] = result["mfu_pct"] = None
+    elif config.unet.in_channels == latent_ch:
         flops = pipeline_flops(pipe.config, args.image_size, steps, args.batch, cfg=cfg,
                                img2img=args.img2img, strength=args.strength)
         result["program_tflops"] = round(flops / 1e12, 2)
@@ -253,10 +262,12 @@ def main(argv=None) -> dict:
     return result
 
 
-def _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg) -> dict:
+def _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg, control_image,
+                   features) -> dict:
     """Requests through the ServingEngine (queueing, coalescing, per-request
     keys and two batches in flight included), after a warmup of the device
-    request sizes it will run: the serving JSON line."""
+    request sizes it will run: the serving JSON line.  Every request and
+    the warmup carry ``control_image`` and the step ``features``."""
     import numpy as np
 
     from sdtpu_torch.pipeline.serving import DEFAULT_DEVICE_BATCH, ServingEngine
@@ -277,14 +288,16 @@ def _bench_serving(args, pipe, config, rng, dev_name, steps, sampler, cfg) -> di
     warm = sorted({min(db, args.batch)} | ({args.batch % db} if args.batch % db else set()))
     pipe.warmup(image_sizes=(args.image_size,), step_counts=(steps,), batch_sizes=tuple(warm),
                 cfg=cfg, sampler=sampler, img2img=init_image is not None,
-                inpaint=mask_image is not None, strength=strength)
+                inpaint=mask_image is not None, strength=strength, control_image=control_image,
+                **features)
     engine = ServingEngine(pipe, max_batch_size=args.batch, max_wait_ms=5.0,
                            device_batch_size=db)
     try:
         t0 = time.perf_counter()
         futs = [engine.submit("bench", token_ids=ids[i], seed=i, num_inference_steps=steps,
                               sampler=sampler, cfg=cfg, image_size=args.image_size,
-                              init_image=init_image, mask_image=mask_image, strength=strength)
+                              init_image=init_image, mask_image=mask_image, strength=strength,
+                              control_image=control_image, **features)
                 for i in range(n)]
         for f in futs:
             f.result(timeout=600)

@@ -6,18 +6,26 @@
         [--cfg-scale S | --no-cfg] [--init-image PNG [--mask-image PNG] [--strength S]]
         [--image-guidance-scale S] [--int8] [--out out.png] [--device cuda]
         [--refiner DIR_OR_PRESET [--denoising-split 0.8]]
+        [--controlnet PATH --control-image PNG [--controlnet-scale S]]...
+        [--pag-scale S] [--freeu B1,B2,S1,S2] [--guidance-rescale R]
+        [--encoder-cache K] [--hires-base PX [--hires-strength S]]
 
 Without ``--model-dir`` it runs seeded random weights (the structured
 noise is the expected output); ``--model-dir`` loads a local diffusers
 checkpoint directory.  ``--refiner`` (a checkpoint directory or a preset
 such as ``sdxl-refiner``, random weights) hands the base model's latents
 at ``--denoising-split`` of the schedule to the refiner, which finishes
-the image (txt2img only).  Without a tokenizer the prompt hashes to fixed
-token ids, as in the JAX demo.  Images are read and written as PNG by
+the image (txt2img only).  ``--controlnet`` (a diffusers ControlNet file
+or directory; repeated for several nets, each with its ``--control-image``
+and optionally its ``--controlnet-scale``), ``--pag-scale``, ``--freeu``,
+``--guidance-rescale`` and ``--encoder-cache`` go to ``generate``;
+``--hires-base`` runs ``generate_hires`` from that base size (plain
+txt2img only).  Without a tokenizer the prompt hashes to fixed token ids,
+as in the JAX demo.  Images are read and written as PNG by
 ``utils/image.py`` (8-bit grey, RGB or RGBA in).  The JAX demo's flags for
-features the port does not have yet raise NotImplementedError naming the
-slice that brings them.  On the card by default; ``--device cpu`` is for
-the tests.
+features the port does not have yet (``--lora``, ``--textual-inversion``,
+``--prompt-weighting``) raise NotImplementedError naming the slice that
+brings them.  On the card by default; ``--device cpu`` is for the tests.
 """
 
 from __future__ import annotations
@@ -27,17 +35,9 @@ import time
 
 # the JAX demo's flags of later slices: (flag, its default, the slice)
 LATER = (
-    ("freeu", None, "features slice"),
-    ("guidance_rescale", 0.0, "features slice"),
-    ("pag_scale", 0.0, "features slice"),
-    ("hires_base", None, "features slice (generate_hires)"),
-    ("controlnet", [], "ControlNet slice"),
-    ("control_image", [], "ControlNet slice"),
-    ("controlnet_scale", [], "ControlNet slice"),
-    ("lora", [], "features slice"),
-    ("textual_inversion", [], "features slice"),
-    ("prompt_weighting", False, "features slice"),
-    ("encoder_cache", 1, "features slice"),
+    ("lora", [], "text-features slice"),
+    ("textual_inversion", [], "text-features slice"),
+    ("prompt_weighting", False, "text-features slice"),
 )
 
 
@@ -73,20 +73,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--clip-skip", type=int, default=0)
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--freeu", default=None, metavar="B1,B2,S1,S2",
+                    help="FreeU factors, e.g. 1.5,1.6,0.9,0.2 for SD 1.x")
+    ap.add_argument("--guidance-rescale", type=float, default=0.0,
+                    help="CFG rescale factor in (0, 1]")
+    ap.add_argument("--pag-scale", type=float, default=0.0,
+                    help="Perturbed-Attention Guidance scale (a third guidance branch)")
+    ap.add_argument("--hires-base", type=int, default=None, metavar="PX",
+                    help="two-pass hires fix: txt2img at this size, then img2img at the "
+                         "target size")
+    ap.add_argument("--hires-strength", type=float, default=0.7,
+                    help="the hires fix's second-pass strength")
+    ap.add_argument("--controlnet", action="append", default=[], metavar="PATH",
+                    help="a diffusers ControlNet safetensors file or directory; repeatable")
+    ap.add_argument("--control-image", action="append", default=[],
+                    help="control map PNG, one per --controlnet")
+    ap.add_argument("--controlnet-scale", type=float, action="append", default=[],
+                    help="one per --controlnet (default 1)")
+    ap.add_argument("--encoder-cache", type=int, default=1, metavar="K",
+                    help="run the UNet's encoder once per K steps")
     # the JAX demo's flags of later slices: parsed, then refused
-    ap.add_argument("--freeu", default=None, metavar="B1,B2,S1,S2")
-    ap.add_argument("--guidance-rescale", type=float, default=0.0)
-    ap.add_argument("--pag-scale", type=float, default=0.0)
-    ap.add_argument("--hires-base", type=int, default=None, metavar="PX")
-    ap.add_argument("--hires-strength", type=float, default=0.7)
-    ap.add_argument("--controlnet", action="append", default=[], metavar="PATH")
-    ap.add_argument("--control-image", action="append", default=[])
-    ap.add_argument("--controlnet-scale", type=float, action="append", default=[])
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:SCALE]")
     ap.add_argument("--textual-inversion", action="append", default=[],
                     metavar="PATH[:TOKEN]")
     ap.add_argument("--prompt-weighting", action="store_true")
-    ap.add_argument("--encoder-cache", type=int, default=1, metavar="K")
     ap.add_argument("--refiner", default=None, metavar="DIR_OR_PRESET",
                     help="SDXL refiner checkpoint dir or preset (sdxl-refiner): the base "
                          "model runs the high-noise head, the refiner finishes from its "
@@ -96,6 +106,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.refiner and (args.init_image or args.mask_image):
         ap.error("--refiner composes with txt2img only")
+    if args.controlnet:
+        if len(args.control_image) != len(args.controlnet):
+            ap.error("need exactly one --control-image per --controlnet")
+        if args.controlnet_scale and len(args.controlnet_scale) != len(args.controlnet):
+            ap.error("need one --controlnet-scale per --controlnet (or none)")
+    elif args.control_image:
+        ap.error("--control-image requires --controlnet")
+    if args.hires_base and (args.init_image or args.mask_image or args.refiner):
+        ap.error("--hires-base composes with plain txt2img only")
     return args
 
 
@@ -129,6 +148,13 @@ def main(argv=None) -> None:
         pipe = StableDiffusionPipeline.from_random(args.preset, device=args.device)
     if args.int8:
         pipe.quantize_int8(transformer=args.int8_transformer, vae=args.int8_vae)
+    cn_scales = args.controlnet_scale or [1.0] * len(args.controlnet)
+    if args.controlnet:
+        pipe.load_controlnet(args.controlnet[0] if len(args.controlnet) == 1
+                             else args.controlnet)
+        for path, scale in zip(args.controlnet, cn_scales):
+            print(f"controlnet {path} (scale {scale})")
+    control = [load_image(p) for p in args.control_image]
     token_ids = None
     if pipe.tokenizer is None:
         print("no tokenizer assets: hashing the prompt to fixed token ids")
@@ -143,8 +169,12 @@ def main(argv=None) -> None:
             print(f"refiner preset {args.refiner}: random weights")
             refiner = StableDiffusionPipeline.from_random(args.refiner, device=args.device)
     t0 = time.perf_counter()
-    image = pipe.generate(
-        args.prompt, args.negative_prompt, strength=args.strength,
+    gen, extra = pipe.generate, {}
+    if args.hires_base:
+        gen = pipe.generate_hires
+        extra = dict(base_size=args.hires_base, hires_strength=args.hires_strength)
+    image = gen(
+        args.prompt, args.negative_prompt, **extra, strength=args.strength,
         cfg=False if args.no_cfg else None, cfg_scale=args.cfg_scale,
         num_inference_steps=args.steps, seed=args.seed,
         init_image=load_image(args.init_image) if args.init_image else None,
@@ -153,6 +183,11 @@ def main(argv=None) -> None:
         token_ids=token_ids,
         sampler=args.sampler, clip_skip=args.clip_skip,
         image_guidance_scale=args.image_guidance_scale,
+        guidance_rescale=args.guidance_rescale, pag_scale=args.pag_scale,
+        freeu=tuple(float(v) for v in args.freeu.split(",")) if args.freeu else None,
+        encoder_cache_interval=args.encoder_cache,
+        control_image=(control if len(control) > 1 else control[0] if control else None),
+        controlnet_scale=cn_scales if len(cn_scales) > 1 else cn_scales[0] if cn_scales else 1.0,
         denoising_end=args.denoising_split if refiner else None,
         output="latents" if refiner else "uint8")
     if refiner:

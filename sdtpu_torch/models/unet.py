@@ -16,6 +16,13 @@ embedding (``timestep_cond`` through the bias-free ``cond_proj``, before
 the MLP) and the SDXL add-embedding (``added_cond``: the pooled text
 embedding and the size/crop/aesthetic time ids, through ``add_embedding``,
 after it).
+
+The denoise step's hooks: ControlNet residuals added to the saved skips
+and the mid output (``control``), Perturbed-Attention Guidance's identity
+self-attention on the last ``pag_tail`` rows at the PAG site, and FreeU's
+backbone scale and skip low-pass at the two lowest-resolution up blocks
+(``freeu``, :func:`apply_freeu`).  ``unet_encode`` / ``unet_decode`` split
+the forward for the pipeline's encoder cache.
 """
 
 from __future__ import annotations
@@ -126,7 +133,8 @@ def precompute_time_projections(
         cache["down"].append([proj(r) for r in block["resnets"]])
     if config.mid_block:
         cache["mid"] = [proj(r) for r in params["mid_block"]["resnets"]]
-    for block in params["up_blocks"]:
+    # encoder-only trees (ControlNet) have no up blocks
+    for block in params.get("up_blocks", []):
         cache["up"].append([proj(r) for r in block["resnets"]])
     return cache
 
@@ -152,7 +160,7 @@ def precompute_cross_kv(context: torch.Tensor, params: dict, config: UNetConfig)
         cache["down"].append([block_kv(a) for a in block.get("attentions", [])])
     if config.mid_block:
         cache["mid"] = [block_kv(a) for a in params["mid_block"]["attentions"]]
-    for block in params["up_blocks"]:
+    for block in params.get("up_blocks", []):
         cache["up"].append([block_kv(a) for a in block.get("attentions", [])])
     return cache
 
@@ -216,10 +224,13 @@ def attention_block(
     num_groups: int = 32,
     implementation: str = "flash",
     cross_kv: Optional[list] = None,
+    pag_tail: int = 0,
     stats=None,
 ) -> torch.Tensor:
     """Transformer2D: GN(eps 1e-6, from the producer's ``stats`` when given)
-    -> proj_in -> transformer blocks -> proj_out -> + residual."""
+    -> proj_in -> transformer blocks -> proj_out -> + residual.
+    ``pag_tail``: the last rows take identity self-attention
+    (:func:`sdtpu_torch.ops.attention.transformer_block`)."""
     b, h, w, c = x.shape
     out = group_norm(x, params["norm"], num_groups=num_groups, eps=1e-6, stats=stats)
     out = linear(out.reshape(b, h * w, c), params["proj_in"])
@@ -227,7 +238,7 @@ def attention_block(
         out = transformer_block(
             out, block, num_heads=num_heads, context=context,
             implementation=implementation,
-            cross_kv=None if cross_kv is None else cross_kv[i],
+            cross_kv=None if cross_kv is None else cross_kv[i], pag_tail=pag_tail,
         )
     out = linear(out, params["proj_out"])
     return out.reshape(b, h, w, c) + x
@@ -242,6 +253,35 @@ def upsample(x: torch.Tensor, params: dict, conv_impl: str = "gemm") -> torch.Te
     """Nearest 2x + 3x3 conv, fused in the slab kernel's upsample mode where
     the slab shape rule accepts it (``conv_impl="gemm"``)."""
     return nearest_up_conv2d(x, params["kernel"].to(x.dtype), params["bias"], impl=conv_impl)
+
+
+def fourier_filter(x: torch.Tensor, scale: float, threshold: int = 1) -> torch.Tensor:
+    """FreeU's low-frequency rescale of an NHWC map: FFT over H and W in
+    float32, fftshift, the ``2 * threshold`` square at the centre (the
+    lowest frequencies) times ``scale``, inverse FFT, the real part in
+    ``x``'s dtype."""
+    h, w = x.shape[1], x.shape[2]
+    xf = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=(1, 2)), dim=(1, 2))
+    mask = torch.ones((1, h, w, 1), dtype=torch.float32, device=x.device)
+    cr, cc = h // 2, w // 2
+    mask[:, cr - threshold:cr + threshold, cc - threshold:cc + threshold] = scale
+    xf = torch.fft.ifftshift(xf * mask, dim=(1, 2))
+    return torch.fft.ifftn(xf, dim=(1, 2)).real.to(x.dtype)
+
+
+def apply_freeu(rev: int, x: torch.Tensor, skip: torch.Tensor, freeu):
+    """FreeU at up block ``rev`` (0 = the lowest resolution): the backbone's
+    first half of channels times b, the skip low-passed by s; blocks past
+    the first two pass through."""
+    if rev > 1:
+        return x, skip
+    b1, b2, s1, s2 = freeu
+    b, s = (b1, s1) if rev == 0 else (b2, s2)
+    half = x.shape[-1] // 2
+    # b as a 0-dim CPU tensor of x's dtype: a scalar to the op on any device
+    x = torch.cat([x[..., :half] * torch.tensor(b, dtype=x.dtype),
+                   x[..., half:]], dim=-1)
+    return x, fourier_filter(skip, s)
 
 
 def _heads_for_level(config: UNetConfig, channels: int) -> int:
@@ -265,6 +305,9 @@ def unet_forward(
     conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_cache: Optional[dict] = None,
+    control: Optional[dict] = None,
+    freeu=None,
+    pag_tail: int = 0,
 ) -> torch.Tensor:
     """Predict noise.  latents: (B, H, W, C_in); timesteps: (B,) or scalar;
     context: (B, L, cross_attention_dim).  ``added_cond``: the SDXL
@@ -274,7 +317,10 @@ def unet_forward(
     (then ``timesteps``, ``added_cond`` and ``timestep_cond`` are unused:
     they are folded in).
     ``attention_impl``: "flash" (kernel C), "ring", "xla" (dense; SDPA on a
-    card); ``conv_impl``: "gemm" (the slab kernels) or "xla" (``F.conv2d``)."""
+    card); ``conv_impl``: "gemm" (the slab kernels) or "xla" (``F.conv2d``).
+    ``control``: ControlNet residuals ``{"down": [one per saved skip],
+    "mid": tensor or None}`` (``models/controlnet.py``); ``freeu``: (b1, b2,
+    s1, s2); ``pag_tail``: PAG's perturbed rows (:func:`unet_encode`)."""
     if time_cache is not None:
         temb = time_cache["temb"]
     else:
@@ -283,11 +329,12 @@ def unet_forward(
             timestep_cond=timestep_cond, added_cond=added_cond)
     x, skips = unet_encode(
         latents, temb, context, params, config, attention_impl=attention_impl,
-        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache,
+        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache, control=control,
+        pag_tail=pag_tail,
     )
     return unet_decode(
         x, skips, temb, context, params, config, attention_impl=attention_impl,
-        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache,
+        conv_impl=conv_impl, cross_kv=cross_kv, time_proj=time_cache, freeu=freeu,
     )
 
 
@@ -302,13 +349,27 @@ def unet_encode(
     conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_proj: Optional[dict] = None,
+    control: Optional[dict] = None,
+    pag_tail: int = 0,
 ) -> tuple:
-    """Encoder + mid block: returns ``(x, skips)``."""
+    """Encoder + mid block: returns ``(x, skips)``.  ``control``'s residuals
+    are added to the saved skips (never to the running activation) and to
+    the mid output.  ``pag_tail``: the last rows take identity
+    self-attention at the PAG site: the mid block's attention, or, with no
+    mid block, every attention block of the deepest attention level."""
     tp = time_proj
     ng = config.norm_num_groups
     context = context.to(latents.dtype)
+    pag_level = -1
+    if pag_tail and not config.mid_block:
+        pag_level = max(lvl for lvl, has in enumerate(config.attention_levels) if has)
+    ctrl_down = None if control is None else iter(control["down"])
+
+    def save(a):
+        return a if ctrl_down is None else a + next(ctrl_down).to(a.dtype)
+
     x = conv2d(latents, params["conv_in"]["kernel"], params["conv_in"]["bias"], padding=1)
-    skips = [x]
+    skips = [save(x)]
     for level, block in enumerate(params["down_blocks"]):
         heads = _heads_for_level(config, config.block_out_channels[level])
         has_attn = config.attention_levels[level]
@@ -322,12 +383,12 @@ def unet_encode(
                     x, context, block["attentions"][i], num_heads=heads,
                     num_groups=ng, implementation=attention_impl,
                     cross_kv=None if cross_kv is None else cross_kv["down"][level][i],
-                    stats=rstats,
+                    pag_tail=pag_tail if level == pag_level else 0, stats=rstats,
                 )
-            skips.append(x)
+            skips.append(save(x))
         if "downsample" in block:
             x = downsample(x, block["downsample"])
-            skips.append(x)
+            skips.append(save(x))
     if config.mid_block:
         mid = params["mid_block"]
         heads = _heads_for_level(config, config.block_out_channels[-1])
@@ -338,10 +399,12 @@ def unet_encode(
             x, context, mid["attentions"][0], num_heads=heads, num_groups=ng,
             implementation=attention_impl,
             cross_kv=None if cross_kv is None else cross_kv["mid"][0],
-            stats=rstats,
+            pag_tail=pag_tail, stats=rstats,
         )
         x = resnet_block(x, temb, mid["resnets"][1], num_groups=ng,
                          t_pre=None if tp is None else tp["mid"][1], conv_impl=conv_impl)
+        if control is not None and control.get("mid") is not None:
+            x = x + control["mid"].to(x.dtype)
     return x, tuple(skips)
 
 
@@ -357,8 +420,12 @@ def unet_decode(
     conv_impl: str = "gemm",
     cross_kv: Optional[dict] = None,
     time_proj: Optional[dict] = None,
+    freeu=None,
 ) -> torch.Tensor:
-    """Decoder + output head, consuming :func:`unet_encode`'s output."""
+    """Decoder + output head, consuming :func:`unet_encode`'s output (under
+    the encoder cache an earlier step's, with this step's time
+    projections).  ``freeu``: (b1, b2, s1, s2) at the skip concats of the
+    first two up blocks (:func:`apply_freeu`)."""
     tp = time_proj
     ng = config.norm_num_groups
     context = context.to(x.dtype)
@@ -368,7 +435,10 @@ def unet_decode(
         heads = _heads_for_level(config, config.block_out_channels[level])
         has_attn = config.attention_levels[level]
         for i, res in enumerate(block["resnets"]):
-            x = torch.cat([x, skips.pop()], dim=-1)
+            skip = skips.pop()
+            if freeu is not None:
+                x, skip = apply_freeu(rev, x, skip, freeu)
+            x = torch.cat([x, skip], dim=-1)
             x = resnet_block(x, temb, res, num_groups=ng,
                              t_pre=None if tp is None else tp["up"][rev][i],
                              emit_stats=has_attn, conv_impl=conv_impl)

@@ -163,12 +163,26 @@ def transformer_block(
     context: torch.Tensor,
     implementation: str = "dense",
     cross_kv: Optional[dict] = None,
+    pag_tail: int = 0,
 ) -> torch.Tensor:
     """BasicTransformerBlock: LN -> self-attn -> LN -> cross-attn -> LN ->
-    GeGLU feed-forward, each with its residual."""
+    GeGLU feed-forward, each with its residual.
+
+    ``pag_tail``: Perturbed-Attention Guidance's rows.  The last
+    ``pag_tail`` rows take identity self-attention (each query attends to
+    itself alone: ``x + out(v(h))``, through ``linear``, so with int8
+    weights its static scale where one is calibrated); the head rows go
+    through :func:`attention` as without it (on the flash route kernel C at
+    the head's batch).  Cross-attention and the feed-forward take all rows."""
     h = layer_norm(x, params["norm1"])
-    x = attention(h, params["attn1"], num_heads=num_heads,
-                  implementation=implementation, residual=x)
+    if pag_tail:
+        ident = linear(linear(h[-pag_tail:], params["attn1"]["v"]), params["attn1"]["out"])
+        head = attention(h[:-pag_tail], params["attn1"], num_heads=num_heads,
+                         implementation=implementation, residual=x[:-pag_tail])
+        x = torch.cat([head, x[-pag_tail:] + ident])
+    else:
+        x = attention(h, params["attn1"], num_heads=num_heads,
+                      implementation=implementation, residual=x)
     h = layer_norm(x, params["norm2"])
     x = attention(h, params["attn2"], num_heads=num_heads, context=context,
                   implementation=implementation, kv_cache=cross_kv, residual=x)

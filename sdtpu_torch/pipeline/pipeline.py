@@ -40,6 +40,15 @@ latents from a CPU ``torch.Generator`` instead.  ``txt2img`` and
 ``denoising_start`` split the schedule for the SDXL base -> refiner
 handoff (``samplers.slice_schedule``).
 
+The denoise step's features: one or several ControlNets
+(``load_controlnet``; each net's cond embedding, cross K/V and time
+projections once before the loop, its residuals summed into the UNet's
+skips every step), Perturbed-Attention Guidance (a third branch, rows
+``[cond, (uncond,) perturbed]``, identity self-attention on its rows at the
+PAG site), FreeU, CFG rescale (:func:`rescale_noise_cfg`) and the encoder
+cache (the UNet's encoder once per group of k steps, the decoder every
+step).  ``generate_hires`` chains a txt2img request and an img2img one.
+
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
 ``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
 ``vae_decode``, ``to_uint8``.  With ``output="device"`` a request makes no
@@ -55,10 +64,13 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig, get_preset
 from sdtpu_torch.models.clip import clip_encode_windows
+from sdtpu_torch.models.controlnet import controlnet_cond_embed, controlnet_forward
 from sdtpu_torch.models.unet import (
     precompute_cross_kv,
     precompute_time_projections,
     time_cache_step,
+    unet_decode,
+    unet_encode,
     unet_forward,
 )
 from sdtpu_torch.models.vae import vae_decode, vae_encode
@@ -150,6 +162,63 @@ def request_noise(key, steps: int, shape, device, *, program: str = "txt2img",
     return out.reshape(n, *shape)
 
 
+def rescale_noise_cfg(eps_cfg: torch.Tensor, eps_text: torch.Tensor, rescale: float):
+    """CFG rescale (Lin et al. 2023, eq. 16; diffusers ``guidance_rescale``):
+    the combined prediction scaled to the text branch's per-row standard
+    deviation (over all axes but the batch, float32, divided by n as
+    ``jnp.std``), blended with the unscaled one by ``rescale``; a row whose
+    combined deviation is 0 keeps factor 1."""
+    dims = tuple(range(1, eps_cfg.ndim))
+    std_text = torch.std(eps_text.float(), dim=dims, keepdim=True, correction=0)
+    std_cfg = torch.std(eps_cfg, dim=dims, keepdim=True, correction=0)
+    factor = torch.where(std_cfg > 0.0, std_text / std_cfg, torch.ones_like(std_cfg))
+    return rescale * (eps_cfg * factor) + (1.0 - rescale) * eps_cfg
+
+
+def check_features(encoder_cache_interval, has_control, guidance_rescale, pag_scale, freeu,
+                   cfg, is_edit, control_rows=None, controlnet_loaded=True) -> dict:
+    """The JAX package's checks of the encoder cache, of ``generate_batch``'s
+    control maps (``control_rows``: the maps' and the prompts' counts), of
+    CFG rescale, PAG and FreeU, in its order and with its messages; returns
+    the denoise loop's feature arguments (FreeU's factors as a tuple of
+    floats)."""
+    if encoder_cache_interval < 1:
+        raise ValueError("encoder_cache_interval must be >= 1")
+    if encoder_cache_interval > 1 and has_control:
+        raise ValueError("encoder_cache_interval is incompatible with ControlNet "
+                         "(the control residuals enter the cached encoder half)")
+    if control_rows is not None:
+        if not controlnet_loaded:
+            raise ValueError("control_images requires a ControlNet — call "
+                             "pipe.load_controlnet(...) first")
+        if control_rows[0] != control_rows[1]:
+            raise ValueError("control_images must match the number of prompts")
+    if guidance_rescale != 0.0:
+        if not 0.0 < guidance_rescale <= 1.0:
+            raise ValueError("guidance_rescale must be in [0, 1]")
+        if not cfg:
+            raise ValueError("guidance_rescale rescales the CFG combine — it needs cfg=True")
+        if is_edit:
+            raise ValueError("guidance_rescale is not defined for editing checkpoints "
+                             "(InstructPix2Pix uses 3-branch guidance)")
+    if pag_scale != 0.0:
+        if pag_scale < 0.0:
+            raise ValueError("pag_scale must be >= 0")
+        if is_edit:
+            raise ValueError("pag_scale is incompatible with editing checkpoints "
+                             "(InstructPix2Pix's 3-branch guidance owns the extra rows)")
+    if freeu is not None:
+        try:
+            freeu = tuple(round(float(v), 6) for v in freeu)
+            if len(freeu) != 4:
+                raise ValueError
+        except (TypeError, ValueError):
+            raise ValueError("freeu must be (b1, b2, s1, s2) — e.g. (1.5, 1.6, 0.9, 0.2) "
+                             "for SD 1.x, (1.3, 1.4, 0.9, 0.2) for SDXL") from None
+    return dict(guidance_rescale=guidance_rescale, pag_scale=pag_scale, freeu=freeu,
+                encoder_cache_interval=encoder_cache_interval)
+
+
 class PendingImages:
     """An in-flight :meth:`StableDiffusionPipeline.generate_async` result:
     the uint8 images as a device tensor whose work may still be queued.
@@ -193,6 +262,8 @@ class StableDiffusionPipeline:
         self.params = params
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        # a ControlNet tree, or a list of them (load_controlnet)
+        self.controlnet = None
         # a request's draws on a card: one CUDA graph replay per request
         self._draws = prng.NormalGraphs() if self.device.type == "cuda" else None
 
@@ -271,6 +342,58 @@ class StableDiffusionPipeline:
         self.params = quantize_pipeline_int8(self.params, vae=vae, **kw)
         return self
 
+    def load_controlnet(self, controlnet) -> "StableDiffusionPipeline":
+        """Attach a ControlNet for ``control_image=`` (:meth:`generate`) and
+        ``control_images=`` (:meth:`generate_batch`); returns self.
+        ``controlnet``: a diffusers ``ControlNetModel`` safetensors file or
+        model directory (read against this pipeline's UNet config, in its
+        ``param_dtype``), a tree (``models/controlnet.py:init_controlnet``,
+        or the JAX package's tree as numpy arrays, each leaf keeping its
+        dtype), or a list of either: multi-ControlNet, one control map per
+        net, the residuals summed, one scale per net or one for all.  The
+        tree stays float on an int8 pipeline, as in the JAX package."""
+        from sdtpu_torch.utils.weights import load_controlnet_params, params_from_numpy
+
+        def load_one(cn):
+            if isinstance(cn, str):
+                return load_controlnet_params(cn, self.config.unet,
+                                              dtype=self.config.param_dtype, device=self.device)
+            return params_from_numpy(cn, device=self.device)
+
+        if isinstance(controlnet, (list, tuple)):
+            self.controlnet = [load_one(c) for c in controlnet]
+        else:
+            self.controlnet = load_one(controlnet)
+        return self
+
+    def _controlnets(self) -> list:
+        """The loaded ControlNet(s) as a list."""
+        return (list(self.controlnet) if isinstance(self.controlnet, (list, tuple))
+                else [self.controlnet])
+
+    @staticmethod
+    def _control_args(nets, control_image, controlnet_scale):
+        """(control map(s), scale(s)) against the loaded nets: (list of maps,
+        list of float scales), one per net."""
+        imgs = list(control_image) if isinstance(control_image, (list, tuple)) else [control_image]
+        if len(imgs) != len(nets):
+            raise ValueError(f"{len(nets)} ControlNet(s) loaded but {len(imgs)} control "
+                             "image(s) given — multi-ControlNet needs one map per net")
+        scales = (list(controlnet_scale) if isinstance(controlnet_scale, (list, tuple))
+                  else [controlnet_scale] * len(nets))
+        if len(scales) != len(nets):
+            raise ValueError("controlnet_scale list must match the number of ControlNets")
+        return imgs, [float(s) for s in scales]
+
+    def _control_rows(self, entries, controlnet_scale, size) -> list:
+        """One control entry per request row (a map, or one map per net) ->
+        :meth:`denoise`'s ``control``: [(net, (rows, size, size, 3) maps,
+        scale)], the scales the first row's."""
+        nets = self._controlnets()
+        rows = [self._control_args(nets, entry, controlnet_scale) for entry in entries]
+        return [(net, np.concatenate([self._prep_control(r[0][k], size) for r in rows]),
+                 rows[0][1][k]) for k, net in enumerate(nets)]
+
     # -- public API -----------------------------------------------------------
 
     def generate(
@@ -296,6 +419,7 @@ class StableDiffusionPipeline:
         prompt_weighting: bool = False,
         token_weights: Optional[np.ndarray] = None,
         control_image=None,
+        controlnet_scale=1.0,
         image_guidance_scale: float = 1.5,
         guidance_rescale: float = 0.0,
         pag_scale: float = 0.0,
@@ -341,7 +465,19 @@ class StableDiffusionPipeline:
         output="latents"``); the refiner takes it (``latents=...,
         denoising_start=0.8``) as it is, with no ``init_sigma`` scaling,
         and runs the low-noise tail.  With one model and a deterministic
-        sampler a split run equals the unsplit one."""
+        sampler a split run equals the unsplit one.
+
+        ``control_image`` (after :meth:`load_controlnet`): an (H, W[, 1|3])
+        uint8 or [0, 1] float control map, one per net for several nets;
+        ``controlnet_scale`` (one, or one per net) multiplies the residuals.
+        ``pag_scale`` > 0: Perturbed-Attention Guidance, eps = uncond +
+        cfg_scale (cond - uncond) + pag_scale (cond - perturbed), or cond +
+        pag_scale (cond - perturbed) without CFG.  ``freeu``: (b1, b2, s1,
+        s2).  ``guidance_rescale`` in (0, 1]: CFG rescale
+        (:func:`rescale_noise_cfg`).  ``encoder_cache_interval`` k > 1: the
+        UNet's encoder once per group of k steps, the decoder alone with the
+        step's time projections in between, a ``steps % k`` remainder in
+        full at the end; not with ControlNet."""
         cfg = self.config.default_cfg if cfg is None else cfg
         cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
         steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
@@ -379,12 +515,13 @@ class StableDiffusionPipeline:
                                        (num_images, 1)) if token_weights is not None else None),
                 control_images=([control_image] * num_images
                                 if control_image is not None else None),
+                controlnet_scale=controlnet_scale,
                 image_guidance_scale=image_guidance_scale, guidance_rescale=guidance_rescale,
                 pag_scale=pag_scale, freeu=freeu,
                 encoder_cache_interval=encoder_cache_interval)
-        later([("generate(control_image=...)", control_image is not None, "ControlNet slice"),
-                ("generate(prompt_weighting=...)", bool(prompt_weighting), "features slice"),
-                ("generate(token_weights=...)", token_weights is not None, "features slice")])
+        later([("generate(prompt_weighting=...)", bool(prompt_weighting), "text-features slice"),
+               ("generate(token_weights=...)", token_weights is not None,
+                "text-features slice")])
         with stage("tokenize"):
             ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
         is_img2img = init_image is not None
@@ -404,8 +541,12 @@ class StableDiffusionPipeline:
             raise ValueError(f"unknown rng {rng!r} (expected 'jax' or 'torch')")
         if latents is not None and is_img2img:
             raise ValueError("latents injection is txt2img-only")
-        self._check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
-                             is_edit)
+        has_control = control_image is not None
+        if has_control and self.controlnet is None:
+            raise ValueError("control_image requires a ControlNet — call "
+                             "pipe.load_controlnet(...) first")
+        features = check_features(encoder_cache_interval, has_control, guidance_rescale,
+                                  pag_scale, freeu, cfg, is_edit)
         if latents is not None:
             latents = np.asarray(latents, np.float32)
             if latents.ndim == 3:
@@ -416,7 +557,9 @@ class StableDiffusionPipeline:
             images=self._prep_image(init_image, size) if is_img2img else None,
             masks=self._prep_mask(mask_image, size) if mask_image is not None else None,
             latents=latents, output=output, clip_skip=clip_skip,
-            denoising_end=denoising_end, denoising_start=denoising_start)
+            denoising_end=denoising_end, denoising_start=denoising_start,
+            control=(self._control_rows([control_image], controlnet_scale, size)
+                     if has_control else None), **features)
 
     def generate_async(self, prompt: str = "", negative_prompt: str = "",
                        **kwargs) -> "PendingImages":
@@ -435,6 +578,47 @@ class StableDiffusionPipeline:
             raise ValueError("generate_async implies output='device'")
         kwargs["output"] = "device"
         return PendingImages(self.generate(prompt, negative_prompt, **kwargs))
+
+    def generate_hires(self, prompt: str = "", negative_prompt: str = "", *,
+                       image_size: Optional[int] = None, base_size: Optional[int] = None,
+                       hires_strength: float = 0.7, **kwargs):
+        """The two-pass hires fix: txt2img at ``base_size`` (default half the
+        target, a multiple of 8, at least 64), a bilinear upscale of the
+        float image on the host (``utils/image.py:bilinear_resize``), then
+        img2img at ``image_size`` with ``hires_strength``.  The other
+        :meth:`generate` arguments apply to both passes, ``output`` to the
+        second; ``init_image``, ``mask_image`` and ``latents`` belong to
+        the method.  With ``num_images`` > 1 the second pass runs once per
+        row, with ``seed + i``."""
+        from sdtpu_torch.utils.image import bilinear_resize
+
+        size = image_size or self.config.default_image_size
+        if base_size is None:
+            base_size = max(64, (size // 2) // 8 * 8)
+        if base_size % 8 or size % 8:
+            raise ValueError("image_size/base_size must be multiples of 8")
+        if base_size >= size:
+            raise ValueError("base_size must be smaller than image_size")
+        for owned in ("init_image", "mask_image", "latents"):
+            if kwargs.pop(owned, None) is not None:
+                raise ValueError(f"generate_hires owns {owned}")
+        kwargs.pop("strength", None)  # the second pass takes hires_strength
+        output = kwargs.pop("output", "uint8")
+        num_images = int(kwargs.pop("num_images", 1) or 1)
+        if num_images > 1 and output == "device":
+            raise ValueError("generate_hires(num_images>1) fetches per-row results; use "
+                             "output='uint8' or 'float'")
+        base = self.generate(prompt, negative_prompt, image_size=base_size, output="float",
+                             num_images=num_images, **kwargs)
+        up = bilinear_resize(np.asarray(base), size, size)
+        if num_images == 1:
+            return self.generate(prompt, negative_prompt, image_size=size, init_image=up,
+                                 strength=hires_strength, output=output, **kwargs)
+        seed = kwargs.pop("seed", 0)
+        outs = [self.generate(prompt, negative_prompt, image_size=size, init_image=up[i:i + 1],
+                              strength=hires_strength, output=output, seed=seed + i, **kwargs)
+                for i in range(num_images)]
+        return np.concatenate([np.asarray(o) for o in outs], axis=0)
 
     def generate_batch(
         self,
@@ -472,17 +656,23 @@ class StableDiffusionPipeline:
         per prompt) switches to per-request keys: each row's image depends
         only on its own seed, not on its batch (the serving engine relies on
         it); without them ``seed`` keys the whole batch.  ``init_images``
-        and ``mask_images`` hold one image per prompt (see
-        :meth:`generate`).  ``output`` as in :meth:`generate`.  ``mesh``
-        and the arguments of later slices raise NotImplementedError."""
+        and ``mask_images`` hold one image per prompt, ``control_images``
+        one entry per prompt (a map, or one map per net; the scales are the
+        batch's), the other features as in :meth:`generate`.  ``output`` as
+        in :meth:`generate`, but ``"latents"`` returns the decoded float
+        images, as the JAX package's ``generate_batch`` does.  ``mesh``,
+        ``prompt_weighting`` and ``token_weights`` raise
+        NotImplementedError."""
         later([
             ("generate_batch(mesh=...)", mesh is not None,
              "multi-card slice (dp/tp meshes, global_mesh)"),
-            ("generate_batch(control_images=...)", control_images is not None,
-             "ControlNet slice"),
-            ("generate_batch(prompt_weighting=...)", bool(prompt_weighting), "features slice"),
-            ("generate_batch(token_weights=...)", token_weights is not None, "features slice"),
+            ("generate_batch(prompt_weighting=...)", bool(prompt_weighting),
+             "text-features slice"),
+            ("generate_batch(token_weights=...)", token_weights is not None,
+             "text-features slice"),
         ])
+        if output not in OUTPUTS:
+            raise ValueError(f"unknown output {output!r}")
         cfg = self.config.default_cfg if cfg is None else cfg
         cfg_scale = self.config.default_cfg_scale if cfg_scale is None else cfg_scale
         steps = self.config.default_steps if num_inference_steps is None else num_inference_steps
@@ -535,8 +725,11 @@ class StableDiffusionPipeline:
         is_edit = is_img2img and self._is_edit()
         if is_edit and mask_images is not None:
             raise ValueError("editing checkpoints (InstructPix2Pix) take no mask")
-        self._check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
-                             is_edit)
+        has_control = control_images is not None
+        features = check_features(
+            encoder_cache_interval, has_control, guidance_rescale, pag_scale, freeu, cfg, is_edit,
+            control_rows=(len(control_images), cond.shape[0]) if has_control else None,
+            controlnet_loaded=self.controlnet is not None)
         if seeds is not None:
             if len(seeds) != cond.shape[0]:
                 raise ValueError("seeds must match the number of prompts")
@@ -553,16 +746,22 @@ class StableDiffusionPipeline:
         return self._request(ids, key, size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
                              sampler=sampler, strength=strength,
                              image_guidance_scale=image_guidance_scale, images=images,
-                             masks=masks, output=output, clip_skip=clip_skip)
+                             masks=masks, output="float" if output == "latents" else output,
+                             clip_skip=clip_skip,
+                             control=(self._control_rows(control_images, controlnet_scale, size)
+                                      if has_control else None), **features)
 
     def warmup(self, *, image_sizes=(512,), step_counts=(25,), batch_sizes=(1,),
                cfg: bool = True, sampler: str = "ddpm", img2img: bool = False,
-               inpaint: bool = False, strength: float = 0.9, pag_scale: float = 0.0) -> int:
+               inpaint: bool = False, strength: float = 0.9, pag_scale: float = 0.0,
+               control_image=None, controlnet_scale=1.0, guidance_rescale: float = 0.0,
+               freeu=None, encoder_cache_interval: int = 1) -> int:
         """Run one request of each program a serving deployment will use
         (per-request seeds, as the engine sends them), so that none of its
         requests pays a first use: the kernels' build, the draws' CUDA graph
-        capture for each (draws, shape), the libraries' first calls.
-        Returns the number of programs run."""
+        capture for each (draws, shape), the libraries' first calls.  The
+        step features as in :meth:`generate` (``control_image`` for every
+        row).  Returns the number of programs run."""
         n = 0
         max_len = self.config.text_config.max_length
         for size in image_sizes:
@@ -571,7 +770,11 @@ class StableDiffusionPipeline:
                     ids = np.ones((batch, max_len), dtype=np.int64)
                     kw = dict(token_ids=ids, cfg=cfg, num_inference_steps=steps,
                               image_size=size, sampler=sampler, seeds=list(range(batch)),
-                              pag_scale=pag_scale)
+                              pag_scale=pag_scale, guidance_rescale=guidance_rescale,
+                              freeu=freeu, encoder_cache_interval=encoder_cache_interval,
+                              control_images=(None if control_image is None
+                                              else [control_image] * batch),
+                              controlnet_scale=controlnet_scale)
                     if img2img or inpaint:
                         kw.update(
                             init_images=[np.zeros((size, size, 3), dtype=np.uint8)] * batch,
@@ -586,7 +789,7 @@ class StableDiffusionPipeline:
     def txt2img(self, ids, latents: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
                 cfg_scale: float, output: str = "uint8", clip_skip: int = 0,
                 sampler: str = "ddpm", steps: Optional[int] = None, schedule=None,
-                continuation: bool = False, image_size: Optional[int] = None):
+                continuation: bool = False, image_size: Optional[int] = None, **features):
         """The whole request with its noise given: ``ids`` (rows, L) token
         ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
         float32 N(0, 1) initial noise (scaled here by the schedule's
@@ -597,7 +800,9 @@ class StableDiffusionPipeline:
         both as the JAX package does; a caller may pass any.
         ``continuation``: ``latents`` are a base model's carry already at
         the (sliced) schedule's first step, taken as they are.
-        ``image_size`` (SDXL's time ids) defaults to the latents' size."""
+        ``image_size`` (SDXL's time ids) defaults to the latents' size.
+        ``features``: :meth:`denoise`'s ``control``, ``guidance_rescale``,
+        ``pag_scale``, ``freeu`` and ``encoder_cache_interval``."""
         sdef = get_sampler(sampler)
         if schedule is None:
             if steps is None:
@@ -612,7 +817,7 @@ class StableDiffusionPipeline:
         if hasattr(schedule, "init_sigma") and not continuation:
             lat = lat * schedule.init_sigma  # sigma-space samplers start at sigma_max
         lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
-                           sampler=sampler, added_cond=added)
+                           sampler=sampler, added_cond=added, **features)
         return self._finish(lat, output)
 
     @torch.inference_mode()
@@ -620,7 +825,8 @@ class StableDiffusionPipeline:
                 fwd_noise: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
                 cfg_scale: float, schedule, strength: float, sampler: str = "ddpm", masks=None,
                 masked_noise: Optional[torch.Tensor] = None,
-                image_guidance_scale: float = 1.5, output: str = "uint8", clip_skip: int = 0):
+                image_guidance_scale: float = 1.5, output: str = "uint8", clip_skip: int = 0,
+                **features):
         """The image-conditioned request with its draws given (the JAX
         program's img2img branch, ``sdtpu/pipeline/pipeline.py:1911-2017``):
         ``images`` (B, H, W, 3) float32 in [-1, 1] at the request's size,
@@ -630,7 +836,8 @@ class StableDiffusionPipeline:
         ``strength`` (1 for an editing UNet; a 9-channel inpaint UNet at 1
         starts from pure noise).  ``masks``: (B, h, w, 1) on the latent
         grid for the latent blend, (B, H, W, 1) on the pixel grid for a
-        9-channel inpaint UNet, which also takes ``masked_noise``."""
+        9-channel inpaint UNet, which also takes ``masked_noise``.
+        ``features`` as in :meth:`txt2img`."""
         sdef = get_sampler(sampler)
         self._check_noise(sdef, sampler, noise, schedule)
         cdt = self.config.compute_dtype
@@ -664,8 +871,10 @@ class StableDiffusionPipeline:
                     f = self.config.vae.downscale_factor
                     mask_lat = mask_pix[:, ::f, ::f, :].expand(*masked_lat.shape[:3], 1)
                     extra = torch.cat([mask_lat, masked_lat], dim=-1)
-                    if cfg:
-                        extra = torch.cat([extra, extra])
+                    # every guidance branch, PAG's too, takes the same extras
+                    reps = (2 if cfg else 1) + (1 if features.get("pag_scale", 0.0) > 0 else 0)
+                    if reps > 1:
+                        extra = torch.cat([extra] * reps)
                     if round(strength, 6) >= 1.0:  # diffusers' is_strength_max
                         lat = fwd_noise.float() * init_sigma
                     else:
@@ -676,13 +885,14 @@ class StableDiffusionPipeline:
                         inpaint = (masks.float(), lat0, fwd_noise.float())
         lat = self.denoise(context, lat, noise, schedule, cfg=cfg, cfg_scale=cfg_scale,
                            sampler=sampler, extra=extra, inpaint=inpaint,
-                           image_guidance_scale=guidance, added_cond=added)
+                           image_guidance_scale=guidance, added_cond=added, **features)
         return self._finish(lat, output)
 
     def denoise(self, context, latents, noise, schedule, *, cfg: bool, cfg_scale: float,
                 sampler: str = "ddpm", extra=None, inpaint=None,
                 image_guidance_scale: Optional[float] = None,
-                added_cond: Optional[dict] = None):
+                added_cond: Optional[dict] = None, control=None, guidance_rescale: float = 0.0,
+                pag_scale: float = 0.0, freeu=None, encoder_cache_interval: int = 1):
         """The sampler's loop; ``context`` is (2B, L, D) under CFG, else
         (B, L, D); ``noise`` (steps, B, h, w, 4) for a stochastic sampler,
         else None.  ``extra``: channels concatenated to the UNet's input
@@ -692,14 +902,35 @@ class StableDiffusionPipeline:
         under CFG (rows [text+image, image, uncond]; the context's uncond
         rows serve the image-only branch too).  ``added_cond``: SDXL's
         add-embedding inputs at the context's rows.  An LCM UNet takes
-        ``cfg_scale`` as its guidance embedding."""
+        ``cfg_scale`` as its guidance embedding.
+
+        ``control``: [(ControlNet tree, (B, H, W, 3) control map in [0, 1],
+        scale)], the residuals summed; the nets read the 4-channel latents
+        (before ``extra``).  ``pag_scale`` > 0 adds PAG's rows ``[cond,
+        (uncond,) perturbed]`` (the cond context again).
+        ``guidance_rescale`` rescales the CFG combine against the cond
+        rows.  ``freeu``: (b1, b2, s1, s2).  ``encoder_cache_interval`` k:
+        in each group of k steps the first runs the encoder, every one the
+        decoder on the group's encoder output with its own time
+        projections; the ``steps % k`` remainder runs in full."""
         ucfg = self.config.unet
         unet = self.params["unet"]
         cdt = self.config.compute_dtype
         batch = latents.shape[0]
+        pag = pag_scale > 0.0
         if image_guidance_scale is not None:
             context = torch.cat([context[:batch], context[batch:], context[batch:]])
-        n_rep = 3 if image_guidance_scale is not None else 2 if cfg else 1
+        elif pag:
+            # the perturbed branch rides the tail rows with the cond text
+            context = torch.cat([context, context[:batch]])
+            if added_cond is not None:
+                added_cond = {k: torch.cat([v, v[:batch]]) for k, v in added_cond.items()}
+        n_rep = (3 if image_guidance_scale is not None or (pag and cfg)
+                 else 2 if cfg or pag else 1)
+        pag_tail = batch if pag else 0
+        k_cache = encoder_cache_interval
+        if k_cache > 1 and control is not None:
+            raise ValueError("encoder_cache_interval is incompatible with ControlNet")
         with stage("precompute"):
             cross_kv = precompute_cross_kv(context, unet, ucfg)
             timestep_cond = None
@@ -716,29 +947,73 @@ class StableDiffusionPipeline:
                 timestep_cond=timestep_cond, added_cond=added_cond, dtype=cdt)
             if extra is not None:
                 extra = extra.to(cdt)
+            # each ControlNet's cond embedding (every guidance branch's
+            # rows), cross K/V and time projections over its own tree
+            nets = []
+            for net, image, scale in control or ():
+                emb = controlnet_cond_embed(to_device(image, latents.device).to(cdt),
+                                            net["cond_embedding"])
+                nets.append((net, torch.cat([emb] * n_rep) if n_rep > 1 else emb,
+                             precompute_cross_kv(context, net, ucfg),
+                             precompute_time_projections(
+                                 schedule.timesteps, net, ucfg, batch=n_rep * batch,
+                                 timestep_cond=timestep_cond, added_cond=added_cond,
+                                 dtype=cdt), scale))
         sdef = get_sampler(sampler)
         state = sdef.state_init(latents) if sdef.multistep else None
         lat = latents
         n_steps = schedule.num_steps
+        n_grouped = n_steps // k_cache * k_cache if k_cache > 1 else 0
+        run = dict(attention_impl=self.attention_impl, conv_impl=self.conv_impl,
+                   cross_kv=cross_kv)
+        cached = None
         for i in range(n_steps):
             with stage("unet_step"):
                 lat_in = torch.cat([lat] * n_rep) if n_rep > 1 else lat
                 if sdef.scale_model_input is not None:
                     lat_in = sdef.scale_model_input(schedule, i, lat_in)
                 lat_in = lat_in.to(cdt)
+                t = schedule.timesteps[i]
+                ctrl = None
+                for net, emb, kv, tc, scale in nets:
+                    r = controlnet_forward(
+                        lat_in, t, context, emb, net, ucfg, conditioning_scale=scale,
+                        attention_impl=self.attention_impl, conv_impl=self.conv_impl,
+                        cross_kv=kv, time_cache=time_cache_step(tc, i))
+                    ctrl = r if ctrl is None else {
+                        "down": [a + b for a, b in zip(ctrl["down"], r["down"])],
+                        "mid": None if r["mid"] is None else ctrl["mid"] + r["mid"]}
                 if extra is not None:
                     lat_in = torch.cat([lat_in, extra], dim=-1)
-                eps = unet_forward(
-                    lat_in, schedule.timesteps[i], context, unet, ucfg,
-                    attention_impl=self.attention_impl, conv_impl=self.conv_impl,
-                    cross_kv=cross_kv, time_cache=time_cache_step(time_cache, i),
-                ).float()
+                tc_i = time_cache_step(time_cache, i)
+                if i >= n_grouped:
+                    eps = unet_forward(lat_in, t, context, unet, ucfg, time_cache=tc_i,
+                                       control=ctrl, freeu=freeu, pag_tail=pag_tail, **run)
+                else:
+                    # the encoder at a group's first step; its (x, skips)
+                    # serve the group's later steps
+                    if i % k_cache == 0:
+                        cached = unet_encode(lat_in, tc_i["temb"], context, unet, ucfg,
+                                             time_proj=tc_i, pag_tail=pag_tail, **run)
+                    eps = unet_decode(*cached, tc_i["temb"], context, unet, ucfg,
+                                      time_proj=tc_i, freeu=freeu, **run)
+                eps = eps.float()
                 if image_guidance_scale is not None:
                     e_t, e_i, e_u = eps[:batch], eps[batch:2 * batch], eps[2 * batch:]
                     eps = e_u + cfg_scale * (e_t - e_i) + image_guidance_scale * (e_i - e_u)
+                elif cfg and pag:
+                    cond, uncond, pert = eps[:batch], eps[batch:2 * batch], eps[2 * batch:]
+                    eps = uncond + cfg_scale * (cond - uncond) + pag_scale * (cond - pert)
+                    if guidance_rescale > 0.0:
+                        eps = rescale_noise_cfg(eps, cond, guidance_rescale)
                 elif cfg:
                     cond, uncond = eps[:batch], eps[batch:]
                     eps = uncond + cfg_scale * (cond - uncond)
+                    if guidance_rescale > 0.0:
+                        eps = rescale_noise_cfg(eps, cond, guidance_rescale)
+                elif pag:
+                    cond, pert = eps[:batch], eps[batch:]
+                    eps = cond + pag_scale * (cond - pert)
                 z = noise[i] if sdef.stochastic else None
                 if sdef.multistep:
                     lat, state = sdef.step(schedule, i, lat, eps, z, state)
@@ -759,10 +1034,12 @@ class StableDiffusionPipeline:
     @torch.inference_mode()
     def _request(self, ids, key, *, size, steps, cfg, cfg_scale, sampler, strength,
                  image_guidance_scale, images=None, masks=None, latents=None,
-                 output="uint8", clip_skip=0, denoising_end=None, denoising_start=None):
+                 output="uint8", clip_skip=0, denoising_end=None, denoising_start=None,
+                 **features):
         """Draw a request's noise from ``key`` (scalar or per-request) as the
-        JAX program does, then run :meth:`txt2img` or :meth:`img2img`.  The
-        schedule is cut at ``denoising_start``, then at ``denoising_end``."""
+        JAX program does, then run :meth:`txt2img` or :meth:`img2img` with
+        ``features`` (:meth:`denoise`'s).  The schedule is cut at
+        ``denoising_start``, then at ``denoising_end``."""
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         sdef = get_sampler(sampler)
@@ -797,7 +1074,7 @@ class StableDiffusionPipeline:
         heads = draws[:n_head]
         noise = draws[n_head:] if sdef.stochastic else None
         run = dict(cfg=cfg, cfg_scale=cfg_scale, sampler=sampler, schedule=schedule,
-                   output=output, clip_skip=clip_skip)
+                   output=output, clip_skip=clip_skip, **features)
         if not is_img2img:
             lat0 = heads[0] if latents is None else to_device(latents, self.device)
             return self.txt2img(ids, lat0, noise, continuation=denoising_start is not None,
@@ -880,40 +1157,6 @@ class StableDiffusionPipeline:
             raise ValueError(f"image_size must be a positive multiple of {f}")
         return size
 
-    @staticmethod
-    def _check_features(encoder_cache_interval, guidance_rescale, pag_scale, freeu, cfg,
-                        is_edit) -> None:
-        """The JAX package's checks of the later slices' guidance and UNet
-        knobs (with its messages), then NotImplementedError for a valid one
-        that is used."""
-        if encoder_cache_interval < 1:
-            raise ValueError("encoder_cache_interval must be >= 1")
-        if guidance_rescale != 0.0:
-            if not 0.0 < guidance_rescale <= 1.0:
-                raise ValueError("guidance_rescale must be in [0, 1]")
-            if not cfg:
-                raise ValueError(
-                    "guidance_rescale rescales the CFG combine — it needs cfg=True")
-            if is_edit:
-                raise ValueError("guidance_rescale is not defined for editing checkpoints "
-                                 "(InstructPix2Pix uses 3-branch guidance)")
-        if pag_scale != 0.0:
-            if pag_scale < 0.0:
-                raise ValueError("pag_scale must be >= 0")
-            if is_edit:
-                raise ValueError("pag_scale is incompatible with editing checkpoints "
-                                 "(InstructPix2Pix's 3-branch guidance owns the extra rows)")
-        if freeu is not None:
-            try:
-                _b1, _b2, _s1, _s2 = (float(v) for v in freeu)
-            except (TypeError, ValueError):
-                raise ValueError("freeu must be (b1, b2, s1, s2) — e.g. (1.5, 1.6, 0.9, 0.2) "
-                                 "for SD 1.x, (1.3, 1.4, 0.9, 0.2) for SDXL") from None
-        later([("pag_scale", pag_scale != 0.0, "features slice"),
-                ("freeu", freeu is not None, "features slice"),
-                ("guidance_rescale", guidance_rescale != 0.0, "features slice"),
-                ("encoder_cache_interval", encoder_cache_interval != 1, "features slice")])
-
     def _uncond_row(self) -> np.ndarray:
         """BOS then EOS padding: the empty prompt's row for CFG's
         unconditional branch when only the cond row was given."""
@@ -975,6 +1218,23 @@ class StableDiffusionPipeline:
         ri = (np.arange(size) * arr.shape[0] // size).clip(0, arr.shape[0] - 1)
         ci = (np.arange(size) * arr.shape[1] // size).clip(0, arr.shape[1] - 1)
         return arr[ri[:, None], ci[None, :]]
+
+    def _prep_control(self, control_image, size) -> np.ndarray:
+        """Control map -> (1, size, size, 3) float32 in [0, 1] on the host:
+        (H, W) or (H, W, 1|3), uint8 or float; grey maps broadcast to three
+        channels; a nearest resize to the request's size."""
+        arr = np.asarray(control_image)
+        if arr.dtype == np.uint8:
+            arr = arr.astype(np.float32) / 255.0
+        arr = arr.astype(np.float32)
+        if arr.ndim == 2:
+            arr = arr[:, :, None]
+        if arr.shape[-1] == 1:
+            arr = np.repeat(arr, 3, axis=-1)
+        if arr.shape[-1] != 3:
+            raise ValueError(f"control image must be (H, W[, 1|3]); got {arr.shape}")
+        arr = self._nearest_resize(arr, size)
+        return np.clip(arr, 0.0, 1.0)[None].astype(np.float32)
 
     def _prep_mask(self, mask_image, size) -> np.ndarray:
         """Inpainting mask -> (1, h, w, 1) float32 in [0, 1] (1 = repaint,

@@ -3,7 +3,8 @@
 
 :class:`ServingEngine` runs a background worker thread: requests that share
 a bucket (image size, steps, sampler, CFG and its scale, img2img with its
-strength and mask flag, CLIP skip, window count) are coalesced up to
+strength and mask flag, CLIP skip, window count, CFG rescale, PAG, FreeU,
+the ControlNet scale(s), the encoder cache) are coalesced up to
 ``max_batch_size`` or until one global ``max_wait_ms`` window passes, run
 as ``generate_batch`` requests of at most ``device_batch_size`` rows, and
 resolved to per-request futures.  Per-request keys and per-row negative
@@ -16,8 +17,8 @@ most 3% of values).
 The worker keeps two batches in flight: it dispatches batch N+1
 (``output="device"``) before it fetches batch N.  A transient error
 retries a batch once; a ValueError or TypeError fails its futures at once.
-A request field of a later slice (ControlNet, PAG, FreeU, CFG rescale,
-encoder caching, prompt weighting) raises at ``submit``.
+A request field of a later slice (prompt weighting, token weights) raises
+at ``submit``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,14 @@ class _Request:
     mask_image: Optional[np.ndarray] = None
     strength: float = 0.9
     image_guidance_scale: float = 1.5
+    # the step features pick the request's program; the control map is per
+    # row, its scale (one, or one per net) the batch's
+    guidance_rescale: float = 0.0
+    pag_scale: float = 0.0
+    freeu: Optional[tuple] = None
+    control_image: Optional[np.ndarray] = None
+    controlnet_scale: float = 1.0
+    encoder_cache_interval: int = 1
     clip_skip: int = 0
     # rows with different CLIP window counts do not coalesce: padded empty
     # windows would make a row's context depend on its batch
@@ -65,15 +74,22 @@ class _Request:
 
     @property
     def bucket(self):
-        # the negative prompt and the image and mask contents are per row;
-        # the mask flag, strength and image guidance pick the request's
-        # program
+        # the negative prompt and the image, mask and control contents are
+        # per row; the mask flag, strength, image guidance, the step
+        # features and the control scale(s) pick the request's program
         img2img = self.init_image is not None
+        scales = (self.controlnet_scale if isinstance(self.controlnet_scale, (list, tuple))
+                  else [self.controlnet_scale])
         return (self.image_size, self.steps, self.sampler, self.cfg,
                 round(self.cfg_scale, 6), img2img, self.mask_image is not None,
                 round(self.strength, 6) if img2img else None,
                 round(self.image_guidance_scale, 6) if img2img else None,
-                self.clip_skip, self.n_windows)
+                round(self.guidance_rescale, 6), round(self.pag_scale, 6),
+                None if self.freeu is None else tuple(round(float(v), 6) for v in self.freeu),
+                self.clip_skip,
+                (tuple(round(float(v), 6) for v in scales)
+                 if self.control_image is not None else None),
+                self.n_windows, self.encoder_cache_interval)
 
 
 class ServingEngine:
@@ -133,21 +149,20 @@ class ServingEngine:
                pag_scale: float = 0.0, freeu: Optional[tuple] = None,
                encoder_cache_interval: int = 1) -> Future:
         """Enqueue one txt2img request (img2img with ``init_image``,
-        inpainting with ``mask_image`` too); the future resolves to an (H, W,
-        3) uint8 image.  Unset knobs resolve to the preset's defaults here,
-        so that the bucket is well defined."""
+        inpainting with ``mask_image`` too; a control map after the
+        pipeline's ``load_controlnet``); the future resolves to an (H, W, 3)
+        uint8 image.  Unset knobs resolve to the preset's defaults here, so
+        that the bucket is well defined."""
         if self._shutdown.is_set():
             raise RuntimeError("engine is shut down")
-        later([(f"ServingEngine.submit({name}=...)", used, where) for name, used, where in (
-            ("control_image", control_image is not None, "ControlNet slice"),
-            ("prompt_weighting", bool(prompt_weighting), "features slice"),
-            ("token_weights", token_weights is not None, "features slice"),
-            ("guidance_rescale", guidance_rescale != 0.0, "features slice"),
-            ("pag_scale", pag_scale != 0.0, "features slice"),
-            ("freeu", freeu is not None, "features slice"),
-            ("encoder_cache_interval", encoder_cache_interval != 1, "features slice"))])
+        later([(f"ServingEngine.submit({name}=...)", used, "text-features slice")
+               for name, used in (("prompt_weighting", bool(prompt_weighting)),
+                                  ("token_weights", token_weights is not None))])
         if mask_image is not None and init_image is None:
             raise ValueError("mask_image requires init_image (inpainting)")
+        if control_image is not None and getattr(self.pipeline, "controlnet", None) is None:
+            raise ValueError("control_image requires a ControlNet — call "
+                             "pipeline.load_controlnet(...) first")
         config = self.pipeline.config
         tok = getattr(self.pipeline, "tokenizer", None)
         w = config.text_config.max_length
@@ -166,8 +181,10 @@ class ServingEngine:
             sampler=sampler or config.default_sampler, cfg=use_cfg,
             cfg_scale=config.default_cfg_scale if cfg_scale is None else cfg_scale,
             init_image=init_image, mask_image=mask_image, strength=strength,
-            image_guidance_scale=image_guidance_scale, clip_skip=clip_skip,
-            n_windows=n_windows, t_submit=time.monotonic())
+            image_guidance_scale=image_guidance_scale, guidance_rescale=guidance_rescale,
+            pag_scale=pag_scale, freeu=freeu, control_image=control_image,
+            controlnet_scale=controlnet_scale, encoder_cache_interval=encoder_cache_interval,
+            clip_skip=clip_skip, n_windows=n_windows, t_submit=time.monotonic())
         self._queue.put(req)
         return req.future
 
@@ -226,13 +243,18 @@ class ServingEngine:
         kw = dict(negative_prompt=[r.negative_prompt for r in batch], cfg=first.cfg,
                   cfg_scale=first.cfg_scale, num_inference_steps=first.steps,
                   seeds=[r.seed for r in batch], image_size=first.image_size,
-                  token_ids=token_ids, sampler=first.sampler, clip_skip=first.clip_skip)
+                  token_ids=token_ids, sampler=first.sampler, clip_skip=first.clip_skip,
+                  guidance_rescale=first.guidance_rescale, pag_scale=first.pag_scale,
+                  freeu=first.freeu, encoder_cache_interval=first.encoder_cache_interval)
         if first.init_image is not None:
             kw["init_images"] = [r.init_image for r in batch]
             kw["strength"] = first.strength
             kw["image_guidance_scale"] = first.image_guidance_scale
             if first.mask_image is not None:
                 kw["mask_images"] = [r.mask_image for r in batch]
+        if first.control_image is not None:
+            kw["control_images"] = [r.control_image for r in batch]
+            kw["controlnet_scale"] = first.controlnet_scale
         return [r.prompt for r in batch], kw
 
     def _dispatch(self, batch: List[_Request]):

@@ -33,6 +33,35 @@ def psnr(a, b, *, data_range: float = 2.0) -> float:
     return float(10.0 * np.log10(data_range**2 / mse))
 
 
+def bilinear_resize(images, height: int, width: int) -> np.ndarray:
+    """Bilinear resize of a (B, H, W, C) float batch on the host, with
+    half-pixel centres: ``jax.image.resize(..., "bilinear")`` for an
+    upscale; a downscale samples two taps without its antialias filter.
+    A copy of ``sdtpu/utils/image.py:bilinear_resize`` (the hires fix's
+    upscale between its passes)."""
+    arr = np.asarray(images, dtype=np.float32)
+    b, h, w, c = arr.shape
+    if (h, w) == (height, width):
+        return arr
+
+    def axis_weights(n_in, n_out):
+        # src = (dst + 0.5) * n_in / n_out - 0.5, clamped into [0, n_in - 1]
+        # before the floor, so that edge samples extend the border
+        src = (np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out - 0.5
+        src = np.clip(src, 0.0, n_in - 1)
+        lo = np.floor(src).astype(np.int64)
+        hi = np.minimum(lo + 1, n_in - 1)
+        frac = (src - lo).astype(np.float32)
+        return lo, hi, frac
+
+    ylo, yhi, yf = axis_weights(h, height)
+    xlo, xhi, xf = axis_weights(w, width)
+    top, bot = arr[:, ylo], arr[:, yhi]
+    rows = top + (bot - top) * yf[None, :, None, None]
+    left, right = rows[:, :, xlo], rows[:, :, xhi]
+    return left + (right - left) * xf[None, None, :, None]
+
+
 # -- PNG, with the standard library (the card's machine has no PIL) ---------
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

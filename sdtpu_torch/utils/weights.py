@@ -178,7 +178,10 @@ def _attn_block_from_sd(sd: Mapping, p: str) -> dict:
     }
 
 
-def unet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
+def _unet_encoder_from_sd(sd: Mapping, config: UNetConfig) -> dict:
+    """The encoder half that the UNet and its ControlNet copy share:
+    conv_in, the time (and SDXL add-) embeddings, the down blocks, the mid
+    block."""
     params = {
         "conv_in": _conv(sd, "conv_in"),
         "time_embedding": {
@@ -211,6 +214,11 @@ def unet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
                         _resnet_from_sd(sd, "mid_block.resnets.1")],
             "attentions": [_attn_block_from_sd(sd, "mid_block.attentions.0")],
         }
+    return params
+
+
+def unet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
+    params = _unet_encoder_from_sd(sd, config)
 
     up_blocks = []
     for rev in range(config.num_levels):
@@ -228,6 +236,55 @@ def unet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
     params["norm_out"] = _norm(sd, "conv_norm_out")
     params["conv_out"] = _conv(sd, "conv_out")
     return params
+
+
+# ---------------------------------------------------------------------------
+# ControlNet (diffusers ControlNetModel state dict)
+# ---------------------------------------------------------------------------
+
+
+def controlnet_params_from_state_dict(sd: Mapping, config: UNetConfig) -> dict:
+    """A diffusers ``ControlNetModel`` state dict -> the
+    ``models/controlnet.py`` tree.  ``config`` is the base model's UNet
+    config, which the encoder copy shares.  Its own keys:
+    ``controlnet_cond_embedding.{conv_in, blocks.N, conv_out}``,
+    ``controlnet_down_blocks.N`` (a zero conv per saved skip),
+    ``controlnet_mid_block``."""
+    params = _unet_encoder_from_sd(sd, config)
+    zero_convs = []
+    while f"controlnet_down_blocks.{len(zero_convs)}.weight" in sd:
+        zero_convs.append(_conv(sd, f"controlnet_down_blocks.{len(zero_convs)}"))
+    if not zero_convs:
+        raise KeyError("no controlnet_down_blocks.* keys — not a ControlNetModel state_dict")
+    params["zero_convs"] = zero_convs
+    if config.mid_block:
+        params["zero_conv_mid"] = _conv(sd, "controlnet_mid_block")
+    blocks = []
+    while f"controlnet_cond_embedding.blocks.{len(blocks)}.weight" in sd:
+        blocks.append(_conv(sd, f"controlnet_cond_embedding.blocks.{len(blocks)}"))
+    params["cond_embedding"] = {
+        "conv_in": _conv(sd, "controlnet_cond_embedding.conv_in"),
+        "blocks": blocks,
+        "conv_out": _conv(sd, "controlnet_cond_embedding.conv_out"),
+    }
+    return params
+
+
+def load_controlnet_params(path: str, config: UNetConfig, *, dtype=None,
+                           device="cuda") -> dict:
+    """A diffusers ControlNet from a safetensors file or a model directory
+    holding one (e.g. ``lllyasviel/sd-controlnet-canny``), read in place by
+    the native reader; floating leaves cast to ``dtype`` where given, each
+    leaf an owned copy on ``device``."""
+    from sdtpu_torch.utils.native_safetensors import NativeSafetensors
+
+    if os.path.isdir(path):
+        path = _find_weight_file(path)
+    with NativeSafetensors(path) as f:
+        sd = f.state_dict()
+        out = cast_tree(controlnet_params_from_state_dict(sd, config), dtype, device)
+        del sd
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -318,13 +375,14 @@ def _find_weight_file(dirpath: str) -> str:
 
 def cast_tree(tree, dtype, device):
     """Each floating leaf cast to ``dtype`` (through float32, round to
-    nearest even, as the JAX package's ``cast_pytree``), the others kept;
-    one owned copy per leaf on ``device``."""
+    nearest even, as the JAX package's ``cast_pytree``; ``None`` keeps each
+    leaf's dtype), the others kept; one owned copy per leaf on
+    ``device``."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [cast_tree(v, dtype, device) for v in tree]
-    if tree.is_floating_point() and tree.dtype != dtype:
+    if dtype is not None and tree.is_floating_point() and tree.dtype != dtype:
         return tree.float().to(dtype).to(device)
     # the leaf may be a view of a mapped file: always a copy
     return tree.to(device, copy=True)
@@ -376,6 +434,8 @@ def load_pipeline_params(model_dir: str, config: PipelineConfig, *, dtype=None,
 
 
 def _leaf_to_torch(leaf, device) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         # torch rejects ml_dtypes' bfloat16; bf16 -> f32 -> bf16 is exact
@@ -387,7 +447,8 @@ def _leaf_to_torch(leaf, device) -> torch.Tensor:
 def params_from_numpy(tree, *, device="cuda"):
     """A nested dict/list tree of numpy arrays (e.g. the JAX package's
     parameters after ``jax.tree.map(np.asarray, params)``) -> the same tree
-    of tensors on ``device``, each leaf keeping its own dtype."""
+    of tensors on ``device``, each leaf keeping its own dtype (a tensor
+    leaf is moved there as it is)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -446,4 +507,15 @@ def zero_pipeline_params(config: PipelineConfig, *, device="cuda") -> dict:
     weight values)."""
     with hostrng.shapes_only():
         shapes = init_pipeline_params(0, config, device="meta")
+    return _zeros(shapes, device)
+
+
+def zero_controlnet_params(config: PipelineConfig, *, device="cuda") -> dict:
+    """Zeros with ``init_controlnet``'s tree and shapes for ``config``'s UNet
+    in its ``param_dtype``, made on ``device`` without drawing (the bench's
+    ``--controlnet``)."""
+    from sdtpu_torch.models.controlnet import init_controlnet
+
+    with hostrng.shapes_only():
+        shapes = init_controlnet(0, config.unet, dtype=config.param_dtype)
     return _zeros(shapes, device)

@@ -68,21 +68,24 @@ def test_bench_prints_the_reference_json_line(tiny_preset, capsys, extra, mode):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--img2img", "--controlnet"], "ControlNet"),
-    (["--controlnet"], "ControlNet"),
-    (["--pag-scale", "3"], "features"),
-    (["--encoder-cache", "2"], "features"),
-    (["--serving", "--pag-scale", "3"], "features"),
-    (["--batch", "2", "--encoder-cache", "2"], "features"),
+    (["--img2img", "--controlnet", "--encoder-cache", "2"], "incompatible with ControlNet"),
+    (["--controlnet", "--encoder-cache", "3"], "incompatible with ControlNet"),
+    (["--pag-scale", "-3"], "pag_scale must be >= 0"),
+    (["--encoder-cache", "0"], "encoder_cache_interval must be >= 1"),
+    (["--serving", "--pag-scale", "-3"], "pag_scale must be >= 0"),
+    (["--batch", "2", "--encoder-cache", "0"], "encoder_cache_interval must be >= 1"),
     (["--sampler", "heun"], "unknown sampler"),
 ])
-def test_bench_refuses_unported_flags(tiny_preset, flags, slice_name):
-    """A flag of a later slice raises NotImplementedError naming it, also
-    beside ``--img2img``, ``--serving`` and ``--batch`` (which run,
-    ``test_bench_img2img_batch_and_serving_lines``); an unknown
-    ``--sampler`` raises ValueError, before any parameter is made."""
-    error = ValueError if "--sampler" in flags else NotImplementedError
-    with pytest.raises(error, match=slice_name):
+def test_bench_refuses_unported_flags(tiny_preset, flags, slice_name, monkeypatch):
+    """``--controlnet``, ``--pag-scale`` and ``--encoder-cache`` run
+    (``test_torch_controlnet.py``, ``test_torch_guidance.py``); an invalid
+    value of theirs, also beside ``--img2img``, ``--serving`` and
+    ``--batch``, and an unknown ``--sampler`` raise the JAX package's
+    ValueError before any parameter is made."""
+    from sdtpu_torch.utils import weights
+
+    monkeypatch.setattr(weights, "zero_pipeline_params", None)  # never reached
+    with pytest.raises(ValueError, match=slice_name):
         bench.main(["--preset", tiny_preset, "--device", "cpu", *flags])
 
 
@@ -131,14 +134,15 @@ def test_bench_conditioned_presets_take_their_inputs(monkeypatch, capsys):
 
 
 def test_bench_module_exits_non_zero_naming_the_slice():
-    """``python -m sdtpu_torch.bench`` with a refused flag: a non-zero exit
-    and the slice in the error, before any parameter is made."""
+    """``python -m sdtpu_torch.bench`` with a refused flag value: a non-zero
+    exit and the JAX package's message in the error, before any parameter
+    is made."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-m", "sdtpu_torch.bench", "--device", "cpu",
-                           "--controlnet"], cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=120)
+                           "--controlnet", "--encoder-cache", "2"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "ControlNet slice" in proc.stderr
+    assert "encoder_cache_interval is incompatible with ControlNet" in proc.stderr
     assert '"metric"' not in proc.stdout
 
 

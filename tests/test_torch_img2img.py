@@ -182,7 +182,11 @@ def test_num_images_matches_jax_within_one_level(pipes, init):
 
 
 def test_generate_batch_outputs(pipes):
-    _, t = pipes
+    """uint8, device and float outputs; ``output="latents"`` returns the
+    decoded float images, as the JAX package's ``generate_batch`` (which
+    never asks its program for latents) does, also through
+    ``generate(num_images=2)``."""
+    j, t = pipes
     kw = dict(token_ids=np.stack(TOKENS), num_inference_steps=2, seeds=[1, 2])
     u8 = t.generate_batch(["x", "y"], **kw)
     dev = t.generate_batch(["x", "y"], output="device", **kw)
@@ -191,7 +195,14 @@ def test_generate_batch_outputs(pipes):
     flt = t.generate_batch(["x", "y"], output="float", **kw)
     assert flt.shape == (2, 32, 32, 3) and flt.dtype == np.float32
     lat = t.generate_batch(["x", "y"], output="latents", **kw)
-    assert lat.shape == (2, 8, 8, 4)
+    want = j.generate_batch(["x", "y"], output="latents", **kw)
+    assert lat.shape == want.shape == (2, 32, 32, 3) and lat.dtype == want.dtype
+    np.testing.assert_array_equal(lat, flt)
+    np.testing.assert_allclose(lat, want, rtol=0, atol=1e-4)
+    got, want = both(pipes, "generate", "x", token_ids=TOKENS, num_inference_steps=2, seed=1,
+                     num_images=2, output="latents")
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="unknown output"):
         t.generate_batch(["x", "y"], output="png", **kw)
 
@@ -364,18 +375,27 @@ def test_edit_checks_raise_as_jax_does(pipes8, method, kw):
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"mesh": object()}, "multi-card"),
-    ({"control_images": [INIT, INIT]}, "ControlNet"),
-    ({"prompt_weighting": True}, "features"),
-    ({"token_weights": np.ones((2, 16))}, "features"),
-    ({"pag_scale": 2.0}, "features"),
-    ({"freeu": (1.5, 1.6, 0.9, 0.2)}, "features"),
-    ({"guidance_rescale": 0.5}, "features"),
-    ({"encoder_cache_interval": 2}, "features"),
+    ({"control_images": [INIT, INIT]}, "load_controlnet"),
+    ({"prompt_weighting": True}, "text-features"),
+    ({"token_weights": np.ones((2, 16))}, "text-features"),
+    ({"pag_scale": -2.0}, "pag_scale must be >= 0"),
+    ({"freeu": (1.5, 1.6)}, "freeu must be"),
+    ({"guidance_rescale": 1.5}, r"guidance_rescale must be in \[0, 1\]"),
+    ({"encoder_cache_interval": 0}, "encoder_cache_interval must be >= 1"),
 ])
 def test_generate_batch_later_slices_raise(pipes, kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        pipes[1].generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1,
-                                **kw)
+    """A mesh and prompt or token weights belong to later slices
+    (NotImplementedError naming the slice); the step features raise the
+    JAX package's ValueError for an invalid value, in both packages, as
+    control maps do with no ControlNet loaded."""
+    j, t = pipes
+    later = "mesh" in kw or "prompt_weighting" in kw or "token_weights" in kw
+    with pytest.raises(NotImplementedError if later else ValueError, match=slice_name):
+        t.generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1, **kw)
+    if not later:
+        with pytest.raises(ValueError, match=slice_name):
+            j.generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1,
+                             **kw)
 
 
 # -------------------------------------------------------- PNG and the demo --
@@ -444,9 +464,9 @@ def test_demo_img2img_inpaint_and_refused_flags(tmp_path, monkeypatch, capsys):
     assert "wrote" in capsys.readouterr().out
     demo.main(base + ["--no-cfg", "--sampler", "euler", "--seed", "5", "--image-size", "16"])
     assert read_png(out).shape == (16, 16, 3)
-    for flags, slice_name in ((["--pag-scale", "2"], "features"),
-                              (["--controlnet", "x"], "ControlNet"),
-                              (["--lora", "x.safetensors"], "features")):
+    for flags, slice_name in ((["--prompt-weighting"], "text-features"),
+                              (["--textual-inversion", "x.safetensors"], "text-features"),
+                              (["--lora", "x.safetensors"], "text-features")):
         with pytest.raises(NotImplementedError, match=slice_name):
             demo.main(base + flags)
     # --refiner is no longer refused; as in the JAX demo it is txt2img only

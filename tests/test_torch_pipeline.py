@@ -161,19 +161,21 @@ def test_injected_latents_replace_the_draw(port_pipe):
     ({"init_image": np.zeros((32, 32, 3), np.uint8), "latents": np.zeros((8, 8, 4), np.float32)},
      ValueError, "latents injection is txt2img-only"),
     ({"mask_image": np.zeros((32, 32), np.uint8)}, ValueError, "mask_image requires init_image"),
-    ({"control_image": np.zeros((32, 32, 3), np.uint8)}, NotImplementedError, "ControlNet"),
-    ({"prompt_weighting": True}, NotImplementedError, "features"),
-    ({"pag_scale": 3.0}, NotImplementedError, "features"),
-    ({"freeu": (1.5, 1.6, 0.9, 0.2)}, NotImplementedError, "features"),
-    ({"encoder_cache_interval": 2}, NotImplementedError, "features"),
-    ({"num_images": 2, "pag_scale": 3.0}, NotImplementedError, "features"),
+    ({"control_image": np.zeros((32, 32, 3), np.uint8)}, ValueError, "load_controlnet"),
+    ({"prompt_weighting": True}, NotImplementedError, "text-features"),
+    ({"pag_scale": -3.0}, ValueError, "pag_scale must be >= 0"),
+    ({"freeu": (1.5, 1.6)}, ValueError, "freeu must be"),
+    ({"encoder_cache_interval": 0}, ValueError, "encoder_cache_interval must be >= 1"),
+    ({"num_images": 2, "pag_scale": -3.0}, ValueError, "pag_scale must be >= 0"),
     ({"sampler": "heun"}, ValueError, "unknown sampler"),
 ])
 def test_later_slices_raise(port_pipe, kwargs, error, match):
-    """A feature of a later slice raises NotImplementedError naming it (also
-    through ``num_images``, which runs ``generate_batch``); img2img and
-    inpainting misuse and a sampler name the JAX package does not have
-    raise its ValueError."""
+    """A feature of a later slice (prompt weighting) raises
+    NotImplementedError naming it; the step features of this slice take the
+    JAX package's checks, which raise its ValueError for an invalid value
+    (also through ``num_images``, which runs ``generate_batch``), as do a
+    control map with no ControlNet loaded, img2img and inpainting misuse and
+    a sampler name the JAX package does not have."""
     with pytest.raises(error, match=match):
         port_pipe.generate(token_ids=TOKENS, num_inference_steps=1, **kwargs)
 

@@ -239,19 +239,31 @@ def test_retry_policy(pipe, exc, fails, ok, retries, calls):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"control_image": INIT}, "ControlNet"),
-    ({"prompt_weighting": True}, "features"),
-    ({"token_weights": np.ones(16)}, "features"),
-    ({"guidance_rescale": 0.5}, "features"),
-    ({"pag_scale": 2.0}, "features"),
-    ({"freeu": (1.5, 1.6, 0.9, 0.2)}, "features"),
-    ({"encoder_cache_interval": 2}, "features"),
+    ({"control_image": INIT}, "load_controlnet"),
+    ({"prompt_weighting": True}, "text-features"),
+    ({"token_weights": np.ones(16)}, "text-features"),
+    ({"guidance_rescale": 1.5}, r"guidance_rescale must be in \[0, 1\]"),
+    ({"pag_scale": -2.0}, "pag_scale must be >= 0"),
+    ({"freeu": (1.5, 1.6)}, "freeu must be"),
+    ({"encoder_cache_interval": 0}, "encoder_cache_interval must be >= 1"),
 ])
 def test_submit_refuses_fields_of_later_slices(pipe, kw, slice_name):
+    """Prompt and token weights belong to a later slice: ``submit`` raises
+    NotImplementedError naming it.  A control map with no ControlNet loaded
+    raises the JAX engine's ValueError at ``submit``; an invalid step
+    feature fails its future with the JAX package's ValueError."""
     engine = ServingEngine(pipe, max_wait_ms=5)
     try:
-        with pytest.raises(NotImplementedError, match=slice_name):
-            engine.submit("p", token_ids=IDS, **kw)
+        if "prompt_weighting" in kw or "token_weights" in kw:
+            with pytest.raises(NotImplementedError, match=slice_name):
+                engine.submit("p", token_ids=IDS, **kw)
+        elif "control_image" in kw:
+            with pytest.raises(ValueError, match=slice_name):
+                engine.submit("p", token_ids=IDS, **kw)
+        else:
+            fut = engine.submit("p", token_ids=IDS, num_inference_steps=1, image_size=32, **kw)
+            with pytest.raises(ValueError, match=slice_name):
+                fut.result(timeout=TIMEOUT)
     finally:
         engine.shutdown()
 
@@ -308,8 +320,10 @@ def test_warmup_runs_each_program_once(pipe, monkeypatch, kw, n):
     assert len(seen) == n
     assert all(s[4] == tuple(range(s[0])) for s in seen)
     assert all(s[2] == (kw.get("img2img", False) or kw.get("inpaint", False)) for s in seen)
-    with pytest.raises(NotImplementedError, match="features"):
-        pipe.warmup(image_sizes=(32,), step_counts=(1,), pag_scale=2.0)
+    # PAG's program too (test_torch_guidance.py holds the other features)
+    assert pipe.warmup(image_sizes=(32,), step_counts=(1,), pag_scale=2.0) == 1
+    with pytest.raises(ValueError, match="pag_scale must be >= 0"):
+        pipe.warmup(image_sizes=(32,), step_counts=(1,), pag_scale=-2.0)
 
 
 # ---------------------------------------------------------------- tools --
