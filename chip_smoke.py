@@ -124,8 +124,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               sampler (ddim, euler, euler-a, dpm++-karras, dpm++-sde, unipc,
               lcm, after ddpm as the yardstick): s/image, finite, two runs
               bitwise equal, the bf16 image's launch counts; ``bench
-              --sampler dpm++-karras``.  The directory is deleted at the
-              end.
+              --sampler dpm++-karras``; the directory converted by
+              ``tools/convert_checkpoint`` (bf16, on the card) and
+              ``load_converted`` onto the card, held bitwise to
+              ``from_pretrained``'s tree (the cache's bytes, both load
+              times).  The directory and its cache are deleted at the end.
 15. conditioned -- on the seed-0 tiny-sd tree again: (a) img2img and
               latent-blend inpainting at 512x512, 25 DDPM steps at strength
               0.75 (18 steps), CFG 7.5: exact launches (recorded calls,
@@ -199,6 +202,25 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               its plain version at TOL_REL; the bench's ``--controlnet``,
               ``--pag-scale 3`` and ``--encoder-cache 3`` lines (``--repeats
               3``) with their launches held to the tiny-sd requests.
+18. text   -- the text features on ``sd15`` at full width and depth (the
+              SD-1.5 family's tree), 512x512, 25 DDPM steps, CFG 7.5, bf16,
+              a byte-level tokenizer: (a) a seeded rank-8 kohya LoRA over
+              every UNet module (conv_in, the 1x1 shortcuts, the samplers'
+              convs, LoCon 3x3 convs with a flattened down) and every CLIP
+              layer at scale 0.8: the base image, ``load_lora`` (host s, the
+              snapshots' bytes), the fused image, one fused UNet forward
+              kernels vs plain (phase 4's rule), ``unload_loras`` (the tree
+              bitwise the pre-load tree) and the restored image (bitwise
+              the base image); (b) a 2-vector textual-inversion concept in a
+              prompt (its ids in the prompt's); (c) a prompt-weighted image,
+              all-ones token weights (bitwise the base image), a two-window
+              weighted prompt; every request's launches held to its
+              recorded calls (the one-window requests to the base's), every
+              A/C call configuration of the phase held to its plain version
+              at TOL_REL; (d) four weighted requests through a
+              ``ServingEngine`` on the gate's weights (4 Euler steps): one
+              batch of 4, each row within the gate's envelope of its solo
+              image.  The phase's seconds are printed, and the script's.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -972,6 +994,18 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def trees_bitwise(torch, a, b) -> bool:
+    """The same paths, dtypes, shapes and bits (lists as lists)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(trees_bitwise(torch, a[k], b[k]) for k in a))
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(trees_bitwise(torch, x, y) for x, y in zip(a, b)))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
 def sd15_pipeline(torch, host, preset):
     """A pipeline of the SD-1.5 family (``sd15``, ``sd15-inpaint``, ``ip2p``,
     ``lcm-sd15``) on the card from one host tree, ``sd15-inpaint``'s seed-0
@@ -1007,6 +1041,7 @@ def main() -> int:
     ap.add_argument("--trace-dir", default="build/trace",
                     help="where phase 13 writes its profiler trace (trace.json)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1626,12 +1661,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["features"] = features_phase(torch, np, gen, host_params, sd15_host, launch_counts,
                                          reset_launch_counts, kind)
-    del host_params, sd15_host
+    del host_params
     t8 = time.perf_counter()
+
+    # phase 18: the text features (sd15)
+    torch.cuda.empty_cache()
+    details["text"] = text_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts)
+    del sd15_host
+    t9 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
                           "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
-                          "sdxl": t7 - t6, "features": t8 - t7}
-    log("phases 10-17 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "sdxl": t7 - t6, "features": t8 - t7, "text": t9 - t8}
+    log("phases 10-18 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -1654,6 +1695,8 @@ def main() -> int:
             "library_ms": tot["library_ms"],
         })
     details["kernels"] = kernels
+    details["total_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {details['total_s']:.1f} s in all, the kernels' build included")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(details, f, indent=1)
@@ -2177,7 +2220,6 @@ def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
 
 # the samplers of phase 14, after the main path's ddpm as the yardstick
 SAMPLER_RUNS = ("ddpm", "ddim", "euler", "euler-a", "dpm++-karras", "dpm++-sde", "unipc", "lcm")
-ST_DTYPES = {"float16": "F16", "float32": "F32", "bfloat16": "BF16", "int64": "I64"}
 # the JSON configs of a diffusers tiny-sd directory, as diffusers and
 # transformers write them (widths of the port's tiny-sd preset)
 TINY_SD_JSON = {
@@ -2210,28 +2252,6 @@ TINY_SD_JSON = {
 }
 
 
-def write_safetensors(torch, path, tensors):
-    """A .safetensors file (the 8-byte little-endian header length, the JSON
-    header padded with spaces to 8 bytes, the tensors' bytes in order); the
-    card's machine has no ``safetensors`` package."""
-    header, offset = {}, 0
-    flat = {}
-    for name, t in tensors.items():
-        t = t.detach().contiguous().cpu()
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": ST_DTYPES[str(t.dtype).removeprefix("torch.")],
-                        "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
-        flat[name] = t.reshape(-1).view(torch.uint8).numpy()
-        offset += nbytes
-    header["__metadata__"] = {"format": "pt"}
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(len(raw).to_bytes(8, "little") + raw)
-        for arr in flat.values():
-            f.write(arr.data)
-
-
 def clip_state_dict(tree, config):
     """The port's CLIP tree -> HF ``CLIPTextModel`` keys: the inverse of
     ``utils/weights.py:clip_params_from_state_dict`` (linears (I, O) ->
@@ -2262,6 +2282,7 @@ def write_tiny_sd_checkpoint(torch, root, clip_tree, config):
     CLIP keys from the port's seeded CLIP tree, and the JSON configs.
     Returns the bytes written."""
     from sdtpu_torch.tools.validate_checkpoint import torch_ref
+    from sdtpu_torch.utils.weights import save_safetensors
 
     ref = torch_ref()
     parts = {}
@@ -2276,7 +2297,8 @@ def write_tiny_sd_checkpoint(torch, root, clip_tree, config):
     for sub, (fname, sd) in parts.items():
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         path = os.path.join(root, sub, fname)
-        write_safetensors(torch, path, {k: v.to(torch.float16) for k, v in sd.items()})
+        save_safetensors({k: v.to(torch.float16) for k, v in sd.items()}, path,
+                         metadata={"format": "pt"})
         total += os.path.getsize(path)
     for rel, cfg in TINY_SD_JSON.items():
         os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
@@ -2297,8 +2319,10 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
     from sdtpu_torch.config import get_preset
     from sdtpu_torch.kernels._build import BUILD_DIR
     from sdtpu_torch.models.vae import vae_encoder
+    from sdtpu_torch.tools import convert_checkpoint
     from sdtpu_torch.tools import validate_checkpoint as vc
     from sdtpu_torch.utils import native_safetensors
+    from sdtpu_torch.utils.weights import load_converted
     from sdtpu_torch.utils.image import to_uint8
 
     out = {}
@@ -2336,6 +2360,29 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
         if not same:
             raise AssertionError("the checkpoint's JSON configs did not give tiny-sd")
         out.update(write_s=write_s, bytes=nbytes, from_pretrained_s=load_s, peak_bytes=peak)
+
+        # the converted-tree cache: the directory converted by the tool (on
+        # the card, bf16), loaded back onto the card and held bitwise to
+        # from_pretrained's tree; the cache goes with the directory
+        cache = os.path.join(os.path.dirname(root), "tiny-sd.cache.safetensors")
+        t0 = time.perf_counter()
+        conv = convert_checkpoint.main([root, "--preset", "tiny-sd", "--out", cache,
+                                        "--dtype", "bf16"])
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = load_converted(cache, device="cuda")
+        torch.cuda.synchronize()
+        cache_load_s = time.perf_counter() - t0
+        same = trees_bitwise(torch, cached, pipe.params)
+        log(f"checkpoint: convert_checkpoint {convert_s:.3f} s, cache {conv['bytes']} bytes; "
+            f"load_converted(device='cuda') {cache_load_s:.3f} s against from_pretrained's "
+            f"{load_s:.3f} s; every leaf bitwise from_pretrained's: {same}"
+            + (" ok" if same else " FAIL"))
+        if not same:
+            raise AssertionError("the converted cache differs from from_pretrained's tree")
+        out["cache"] = {"bytes": conv["bytes"], "convert_s": convert_s,
+                        "load_converted_s": cache_load_s}
+        del cached
 
         # validate_checkpoint on the card: the kernel route (bf16) and the
         # plain route (bf16) against the mirror in float32
@@ -3223,6 +3270,27 @@ SD15_STEP = {"conv3x3_slab": 44, "conv3x3_slab_upsample": 3, "flash_attention": 
 CN_STEP = {"conv3x3_slab": 20, "conv3x3_slab_upsample": 0, "flash_attention": 7}
 
 
+def phase_run(torch, out, phase_calls, launch_counts, reset_launch_counts, label, fn,
+              predicted=None, calls=None):
+    """``fn`` counted (its calls recorded, unless ``calls`` are given, then a
+    run with the launches zeroed just before it and held to them), its
+    A/B/C beside the configs' reading; ``out[label]`` its seconds, launches
+    and peak bytes, ``phase_calls`` its calls.  Returns (result, seconds,
+    counts, peak bytes)."""
+    res, sec, counts, expected, calls, peak = counted(torch, fn, launch_counts,
+                                                      reset_launch_counts, calls)
+    hold_counts(label, counts, expected)
+    log(f"{label}: {sec:.4f} s, peak memory above what was allocated before it "
+        f"{peak / 2**30:.3f} GiB")
+    phase_calls.append(calls)
+    if predicted is not None:
+        main = {k: counts[k] for k in predicted}
+        log(f"{label} A/B/C {main}; predicted from the configs {predicted}: "
+            + ("agree" if main == predicted else "DIFFER (the recorded calls decide)"))
+    out[label] = {"s_per_image": sec, "launches": counts, "peak_bytes": peak}
+    return res, sec, counts, peak
+
+
 def nonzero_controlnet(torch, tree, seed):
     """``tree`` with its zero convs and its cond embedding's conv_out drawn
     as CN_SCALE x normals on the card (a fresh ControlNet is an exact no-op:
@@ -3276,22 +3344,8 @@ def features_phase(torch, np, gen, tiny_params, sd15_host, launch_counts, reset_
     ctrl_b = rng.integers(0, 256, (512, 512), dtype=np.uint8)  # a grey map
     init = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
 
-    def run(label, fn, predicted=None):
-        """``fn`` counted (its calls recorded, then a run with the launches
-        zeroed just before it and held to them), its A/B/C beside the
-        configs' reading; returns (result, seconds, counts, peak bytes)."""
-        res, sec, counts, expected, calls, peak = counted(torch, fn, launch_counts,
-                                                          reset_launch_counts)
-        hold_counts(label, counts, expected)
-        log(f"{label}: {sec:.4f} s, peak memory above what was allocated before it "
-            f"{peak / 2**30:.3f} GiB")
-        phase_calls.append(calls)
-        if predicted is not None:
-            main = {k: counts[k] for k in predicted}
-            log(f"{label} A/B/C {main}; predicted from the configs {predicted}: "
-                + ("agree" if main == predicted else "DIFFER (the recorded calls decide)"))
-        out[label] = {"s_per_image": sec, "launches": counts, "peak_bytes": peak}
-        return res, sec, counts, peak
+    run = functools.partial(phase_run, torch, out, phase_calls, launch_counts,
+                            reset_launch_counts)
 
     def per_image(step, nets=0):
         return {k: STEPS * (v + nets * CN_STEP[k]) + VAE_DECODE[k] for k, v in step.items()}
@@ -3471,6 +3525,242 @@ def features_phase(torch, np, gen, tiny_params, sd15_host, launch_counts, reset_
         out[f"bench {' '.join(flag)}"] = {"line": line, "launches": got}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 17: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
+        f"versions: {len(held)}")
+    return out
+
+
+# ------------------------------------------------------------ text features --
+
+LORA_RANK = 8
+LORA_SCALE = 0.8
+LORA_UP_STD = 0.01         # the up factor's normals (a trained up is small)
+PW_PROMPT = "a (red:1.4) cube on a [table]"
+TI_TOKEN = "<sdtpu-concept>"
+LONG_PROMPT = ("a photograph of an astronaut riding a horse on the surface of the moon, "
+               "(highly detailed:1.2), cinematic lighting")  # over 75 byte tokens
+
+
+def seeded_lora(np, tree, seed):
+    """A kohya-layout adapter over every module of ``utils/lora.py``'s
+    tables: the UNet's convs (conv_in, the resnets', the 1x1 shortcuts, the
+    down- and upsamplers', conv_out), linears and projections, and every
+    text-encoder layer; a 3x3 conv's down flattened to (r, I*9), as LoCon
+    files store it.  Down ~ N(0, 1/I), up ~ LORA_UP_STD x N(0, 1), alpha the
+    rank: the delta is ~2% of a fan-in-scaled weight."""
+    from sdtpu_torch.utils.lora import _index_clip, _index_unet
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def pair(key, shape):
+        if len(shape) == 4:
+            kh, kw, ci, co = shape
+            down = rng.standard_normal((LORA_RANK, ci * kh * kw), dtype=np.float32)
+            up = rng.standard_normal((co, LORA_RANK, 1, 1), dtype=np.float32)
+            if (kh, kw) == (1, 1):
+                down = down.reshape(LORA_RANK, ci, 1, 1)
+        else:
+            ci, co = shape
+            down = rng.standard_normal((LORA_RANK, ci), dtype=np.float32)
+            up = rng.standard_normal((co, LORA_RANK), dtype=np.float32)
+        fan_in = int(np.prod(down.shape[1:]))
+        sd[f"{key}.lora_down.weight"] = down / np.float32(math.sqrt(fan_in))
+        sd[f"{key}.lora_up.weight"] = up * np.float32(LORA_UP_STD)
+        sd[f"{key}.alpha"] = np.float32(LORA_RANK)
+
+    for name, (leaf, _) in sorted(_index_unet(tree["unet"]).items()):
+        pair(f"lora_unet_{name}", tuple(leaf["kernel"].shape))
+    for name, (leaf, _) in sorted(_index_clip(tree["clip"]).items()):
+        pair(f"lora_te_{name}", tuple(leaf["kernel"].shape[1:]))
+    return sd
+
+
+def text_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts):
+    """Phase 18: the text features on ``sd15`` at full width and depth
+    (the SD-1.5 family's tree), 512x512, 25 DDPM steps, CFG 7.5, bf16: a
+    LoRA fused, its UNet forward kernels vs plain, unloaded bitwise; a
+    textual-inversion concept; prompt weighting, unit token weights
+    (bitwise the unweighted image), a two-window prompt; weighted requests
+    through the ServingEngine within the batch gate's envelope."""
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.models.unet import unet_forward
+    from sdtpu_torch.pipeline.serving import ServingEngine
+    from sdtpu_torch.tools import check_batch_invariance
+
+    out = {}
+    t_phase = time.perf_counter()
+    held = set()  # hold_shapes' record
+    phase_calls = []
+    run = functools.partial(phase_run, torch, out, phase_calls, launch_counts,
+                            reset_launch_counts)
+    sd = sd15_pipeline(torch, sd15_host, "sd15")
+    sd.tokenizer = byte_tokenizer()
+    pcfg = sd.config
+    rng = np.random.default_rng(18)
+    ids = rng.integers(1, 49408, (2, 77))
+    kw = dict(num_inference_steps=STEPS, seed=40, image_size=512, cfg_scale=7.5)
+    per_image = {k: STEPS * v + VAE_DECODE[k] for k, v in SD15_STEP.items()}
+
+    # (a) LoRA: the base image, the fused one, the restored one; the fused
+    # and restored images' launches held to the base image's calls
+    base, _, _, _ = run("text base", lambda: sd.generate(token_ids=ids, **kw), per_image)
+    check_image("text base", base, 512)
+    base_calls = phase_calls[-1]
+    before = sd.params
+    t0 = time.perf_counter()
+    adapter = seeded_lora(np, sd.params, 181)
+    draw_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = sd.load_lora(adapter, scale=LORA_SCALE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_mod = len(adapter) // 3
+    snap = sum(t.numel() * t.element_size() for t in sd._lora_originals.values())
+    ok = report["applied"] == n_mod and not report["skipped"] and not report["unrecognized"]
+    log(f"lora: rank {LORA_RANK}, scale {LORA_SCALE}, {n_mod} modules (drawn in {draw_s:.3f} s); "
+        f"load_lora {load_s:.3f} s (applied {report['applied']}, skipped "
+        f"{len(report['skipped'])}, unrecognized {len(report['unrecognized'])}); the "
+        f"snapshots for unload {snap} bytes on the card" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("load_lora did not fuse every module of the adapter")
+    fused, sec, _, _ = run("lora", lambda: sd.generate(token_ids=ids, **kw), calls=base_calls)
+    check_image("lora", fused, 512)
+    changed = float(np.abs(fused.astype(np.int16) - base.astype(np.int16)).mean())
+    log(f"lora (sd15 512x512, {STEPS} DDPM steps, CFG 7.5): {sec:.4f} s/image; mean |fused - "
+        f"base| {changed:.3f} levels")
+    if changed == 0.0:
+        raise AssertionError("the fused adapter did not change the image")
+    ucfg = pcfg.unet
+    lat = torch.randn((2, 64, 64, ucfg.in_channels), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+
+    def forward(unet, dt):
+        return unet_forward(lat.to(dt), ts, ctx.to(dt), unet, ucfg).float()
+
+    with torch.inference_mode():
+        k_out = forward(sd.params["unet"], torch.bfloat16)
+        with routed(**plain_routes()):
+            p_out = forward(sd.params["unet"], torch.bfloat16)
+            f_out = forward(to_dtype(sd.params["unet"], torch.float32), torch.float32)
+    out["lora"]["unet"] = judge_rel(torch, "sd15 unet_forward b2 64x64 on the fused tree",
+                                    k_out, p_out, f_out)
+    del k_out, p_out, f_out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_back = sd.unload_loras()
+    torch.cuda.synchronize()
+    unload_s = time.perf_counter() - t0
+    same = trees_bitwise(torch, sd.params, before)
+    log(f"unload_loras {unload_s:.4f} s, {n_back} modules restored; the tree bitwise the "
+        f"pre-load tree: {same}" + (" ok" if same and n_back == n_mod else " FAIL"))
+    if not same or n_back != n_mod:
+        raise AssertionError("unload_loras did not restore the tree")
+    restored, _, _, _ = run("lora unloaded", lambda: sd.generate(token_ids=ids, **kw),
+                            calls=base_calls)
+    same = bool(np.array_equal(restored, base))
+    log(f"lora unloaded: the image bitwise the base image: {same}" + (" ok" if same else " FAIL"))
+    if not same:
+        raise AssertionError("the image after unload_loras differs from the base image")
+    out["lora"].update(load_s=load_s, unload_s=unload_s, modules=n_mod, snapshot_bytes=snap,
+                       mean_level_change=changed)
+
+    # (b) a 2-vector textual-inversion concept (diffusers layout) in a prompt
+    table = sd.params["clip"]["token_embedding"]["weight"]
+    emb = {TI_TOKEN: (torch.randn((2, table.shape[1]), generator=gen, device="cuda")
+                      * table.float().std()).cpu()}
+    t0 = time.perf_counter()
+    reg = sd.load_textual_inversion(emb)
+    ti_s = time.perf_counter() - t0
+    prompt = f"a photo of {TI_TOKEN} on a table"
+    new_ids = reg[TI_TOKEN]
+    tok_ids = sd.tokenizer.encode(prompt, max_length=77)
+    ok = new_ids == [table.shape[0], table.shape[0] + 1] and all(i in tok_ids for i in new_ids)
+    log(f"textual inversion: {TI_TOKEN} -> {new_ids} in {ti_s:.4f} s; the prompt's ids hold "
+        f"them: {ok}" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("textual inversion: the placeholder's ids are off")
+    img, sec, _, _ = run("ti", lambda: sd.generate(prompt, **kw), calls=base_calls)
+    check_image("ti", img, 512)
+    log(f"ti (sd15 512x512, {STEPS} steps): {sec:.4f} s/image")
+    out["ti"]["ids"] = new_ids
+
+    # (c) weighted prompts: emphasis, unit token weights (bitwise the base
+    # image), a two-window prompt
+    img, sec, _, _ = run("pw", lambda: sd.generate(PW_PROMPT, prompt_weighting=True, **kw),
+                         calls=base_calls)
+    check_image("pw", img, 512)
+    log(f"pw {PW_PROMPT!r}: {sec:.4f} s/image")
+    img, sec, _, _ = run("tw ones", lambda: sd.generate(
+        token_ids=ids, token_weights=np.ones(ids.shape, np.float32), **kw), calls=base_calls)
+    same = bool(np.array_equal(img, base))
+    log(f"tw ones: {sec:.4f} s/image; bitwise the unweighted image: {same}"
+        + (" ok" if same else " FAIL"))
+    if not same:
+        raise AssertionError("unit token weights changed the image")
+    n_win = len(sd.tokenizer.encode_weighted_long(LONG_PROMPT, window=77)[0]) // 77
+    img, sec, _, _ = run("2win", lambda: sd.generate(LONG_PROMPT, prompt_weighting=True, **kw))
+    check_image("2win", img, 512)
+    log(f"2win ({n_win} windows, weighted): {sec:.4f} s/image")
+    if n_win != 2:
+        raise AssertionError(f"the long prompt takes {n_win} windows, not 2")
+
+    # every A/C call configuration of the phase against its plain version
+    merged = {key: Counter() for key in phase_calls[0]}
+    for calls in phase_calls:
+        for key, cs in calls.items():
+            merged[key].update(cs)
+    out["shapes_held"] = hold_shapes(torch, gen, "phase 18's requests", merged, held)
+
+    # (d) four weighted requests through the engine on the gate's weights
+    # (GATE_STEPS Euler steps): one batch, each row within the gate's
+    # envelope of its solo weighted image
+    gate = StableDiffusionPipeline(pcfg, card_normal_tree(torch, sd.params, 1818),
+                                   byte_tokenizer(), device="cuda")
+    del sd
+    torch.cuda.empty_cache()
+    sizes = []
+    batch_fn = gate.generate_batch
+
+    def spy(prompts, *a, **k):
+        sizes.append(len(prompts))
+        return batch_fn(prompts, *a, **k)
+
+    prompts = [PW_PROMPT, "a (blue:1.3) sphere", "[a green] (pyramid:1.2)", "a cube ((red))"]
+    bkw = dict(num_inference_steps=GATE_STEPS, sampler="euler", image_size=512)
+    gate.generate_batch = spy
+    engine = ServingEngine(gate, max_batch_size=4, max_wait_ms=200)
+    try:
+        t0 = time.perf_counter()
+        futs = [engine.submit(p, seed=50 + i, prompt_weighting=True, **bkw)
+                for i, p in enumerate(prompts)]
+        imgs = [f.result(timeout=600) for f in futs]
+        eng_s = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    gate.generate_batch = batch_fn
+    gaps = []
+    for i, p in enumerate(prompts):
+        solo = gate.generate_batch([p], seeds=[50 + i], prompt_weighting=True, **bkw)[0]
+        gap = check_batch_invariance.row_gap(imgs[i], solo)
+        level, frac = gap["max_level_diff"], gap["mismatched_frac"]
+        ok = level <= INV_LEVEL and frac <= INV_FRAC
+        log(f"engine weighted row {i}: against its solo image max {level} level(s), "
+            f"{frac:.4%} of values differ (envelope {INV_LEVEL}, {INV_FRAC:.0%})"
+            + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"engine weighted row {i} is off its solo image")
+        gaps.append({"row": i, "max_level_diff": level, "mismatched_frac": frac})
+    log(f"engine: 4 weighted requests ({GATE_STEPS} Euler steps) in batches of {sizes}, "
+        f"{eng_s:.4f} s" + (" ok" if sizes == [4] else " FAIL"))
+    if sizes != [4]:
+        raise AssertionError(f"the weighted requests did not coalesce: batches {sizes}")
+    out["engine"] = {"batch_sizes": sizes, "s": eng_s, "gaps": gaps}
+    del gate
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
         f"versions: {len(held)}")
     return out
 

@@ -9,6 +9,8 @@
         [--controlnet PATH --control-image PNG [--controlnet-scale S]]...
         [--pag-scale S] [--freeu B1,B2,S1,S2] [--guidance-rescale R]
         [--encoder-cache K] [--hires-base PX [--hires-strength S]]
+        [--lora PATH[:SCALE]]... [--textual-inversion PATH[:TOKEN]]...
+        [--prompt-weighting]
 
 Without ``--model-dir`` it runs seeded random weights (the structured
 noise is the expected output); ``--model-dir`` loads a local diffusers
@@ -20,25 +22,21 @@ or directory; repeated for several nets, each with its ``--control-image``
 and optionally its ``--controlnet-scale``), ``--pag-scale``, ``--freeu``,
 ``--guidance-rescale`` and ``--encoder-cache`` go to ``generate``;
 ``--hires-base`` runs ``generate_hires`` from that base size (plain
-txt2img only).  Without a tokenizer the prompt hashes to fixed token ids,
-as in the JAX demo.  Images are read and written as PNG by
-``utils/image.py`` (8-bit grey, RGB or RGBA in).  The JAX demo's flags for
-features the port does not have yet (``--lora``, ``--textual-inversion``,
-``--prompt-weighting``) raise NotImplementedError naming the slice that
-brings them.  On the card by default; ``--device cpu`` is for the tests.
+txt2img only).  ``--lora`` fuses an adapter (kohya or diffusers-peft
+safetensors) at SCALE (default 1; repeated, adapters stack),
+``--textual-inversion`` appends an embedding's vectors under TOKEN (the
+file's own key where it has one), each printing what it loaded, before
+``--int8``; ``--prompt-weighting`` parses ``(word:1.3)`` / ``[word]``
+emphasis and needs a tokenizer.  Without a tokenizer the prompt hashes to
+fixed token ids, as in the JAX demo.  Images are read and written as PNG by
+``utils/image.py`` (8-bit grey, RGB or RGBA in).  On the card by default;
+``--device cpu`` is for the tests.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-
-# the JAX demo's flags of later slices: (flag, its default, the slice)
-LATER = (
-    ("lora", [], "text-features slice"),
-    ("textual_inversion", [], "text-features slice"),
-    ("prompt_weighting", False, "text-features slice"),
-)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -92,11 +90,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="one per --controlnet (default 1)")
     ap.add_argument("--encoder-cache", type=int, default=1, metavar="K",
                     help="run the UNet's encoder once per K steps")
-    # the JAX demo's flags of later slices: parsed, then refused
-    ap.add_argument("--lora", action="append", default=[], metavar="PATH[:SCALE]")
+    ap.add_argument("--lora", action="append", default=[], metavar="PATH[:SCALE]",
+                    help="fuse a LoRA adapter safetensors (kohya or diffusers-peft layout) "
+                         "into the weights; repeatable, adapters stack")
     ap.add_argument("--textual-inversion", action="append", default=[],
-                    metavar="PATH[:TOKEN]")
-    ap.add_argument("--prompt-weighting", action="store_true")
+                    metavar="PATH[:TOKEN]",
+                    help="append a textual-inversion embedding; TOKEN names the placeholder "
+                         "of the emb_params and dual-encoder layouts; repeatable")
+    ap.add_argument("--prompt-weighting", action="store_true",
+                    help="parse (word:1.3) / [word] emphasis in the prompts (needs a "
+                         "tokenizer)")
     ap.add_argument("--refiner", default=None, metavar="DIR_OR_PRESET",
                     help="SDXL refiner checkpoint dir or preset (sdxl-refiner): the base "
                          "model runs the high-noise head, the refiner finishes from its "
@@ -133,10 +136,6 @@ def hashed_ids(prompt: str, text_config):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    for name, default, where in LATER:
-        if getattr(args, name) != default:
-            raise NotImplementedError(f"demo --{name.replace('_', '-')} belongs to the {where}")
-
     from sdtpu_torch import StableDiffusionPipeline
     from sdtpu_torch.utils.image import load_image, save_png
 
@@ -146,6 +145,21 @@ def main(argv=None) -> None:
     else:
         print("no --model-dir: running seeded random weights")
         pipe = StableDiffusionPipeline.from_random(args.preset, device=args.device)
+    for spec in args.lora:
+        path, _, s = spec.rpartition(":")
+        try:
+            path, scale = (path, float(s)) if path else (spec, 1.0)
+        except ValueError:
+            path, scale = spec, 1.0
+        report = pipe.load_lora(path, scale=scale)
+        print(f"lora {path} (scale {scale}): {report['applied']} modules"
+              + (f", skipped {len(report['skipped'])}" if report["skipped"] else ""))
+    for spec in args.textual_inversion:
+        path, _, tok = spec.rpartition(":")
+        path, tok = (path, tok) if path else (spec, None)
+        reg = pipe.load_textual_inversion(path, token=tok)
+        print(f"textual inversion {path}: "
+              + ", ".join(f"{t} -> {ids}" for t, ids in reg.items()))
     if args.int8:
         pipe.quantize_int8(transformer=args.int8_transformer, vae=args.int8_vae)
     cn_scales = args.controlnet_scale or [1.0] * len(args.controlnet)
@@ -157,6 +171,9 @@ def main(argv=None) -> None:
     control = [load_image(p) for p in args.control_image]
     token_ids = None
     if pipe.tokenizer is None:
+        if args.prompt_weighting:
+            raise SystemExit("demo: error: --prompt-weighting needs a tokenizer (a "
+                             "--model-dir with tokenizer/, or the default assets)")
         print("no tokenizer assets: hashing the prompt to fixed token ids")
         token_ids = hashed_ids(args.prompt, pipe.config.text_config)
     refiner = None
@@ -182,6 +199,7 @@ def main(argv=None) -> None:
         image_size=args.image_size,
         token_ids=token_ids,
         sampler=args.sampler, clip_skip=args.clip_skip,
+        prompt_weighting=args.prompt_weighting,
         image_guidance_scale=args.image_guidance_scale,
         guidance_rescale=args.guidance_rescale, pag_scale=args.pag_scale,
         freeu=tuple(float(v) for v in args.freeu.split(",")) if args.freeu else None,

@@ -49,6 +49,12 @@ PAG site), FreeU, CFG rescale (:func:`rescale_noise_cfg`) and the encoder
 cache (the UNet's encoder once per group of k steps, the decoder every
 step).  ``generate_hires`` chains a txt2img request and an img2img one.
 
+The text features: LoRA adapters fused into the weights (``load_lora``,
+``unload_loras``: the same kernels at the same shapes), textual-inversion
+rows appended to the token tables (``load_textual_inversion``), and
+weighted prompts (``prompt_weighting``, ``token_weights``: each encoder's
+states scaled per token, :func:`apply_token_weights`).
+
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
 ``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
 ``vae_decode``, ``to_uint8``.  With ``output="device"`` a request makes no
@@ -233,6 +239,26 @@ class PendingImages:
         return self.device_images.cpu().numpy()
 
 
+def apply_token_weights(hidden: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """Each token's encoded states ``hidden`` (rows, L, D) scaled by its
+    weight ``tw`` (rows, L), then renormalized so that a row's mean
+    magnitude mean(|h|) stays what it was (the JAX package's
+    ``apply_token_weights``, ``sdtpu/pipeline/pipeline.py:1476``).
+
+    The weighted statistic is ``prev + mean(|h| (|w| - 1))``, not a second
+    mean(|h w|): with w == 1 the added term is exactly zero, the ratio
+    exactly 1, and unit weights give the unweighted states bitwise."""
+    h32 = hidden.float()
+    w = tw[..., None]
+    habs = h32.abs()
+    prev = habs.mean(dim=(-2, -1), keepdim=True)
+    new_mean = prev + (habs * (w.abs() - 1.0)).mean(dim=(-2, -1), keepdim=True)
+    one = torch.ones_like(prev)
+    ratio = torch.where(new_mean == 0.0, one, prev / new_mean)
+    ratio = torch.where(prev == new_mean, one, ratio)
+    return (h32 * w * ratio).to(hidden.dtype)
+
+
 def later(checks) -> None:
     """Raise NotImplementedError for the first used feature of a later
     slice: ``checks`` is [(name, used, slice)]."""
@@ -266,6 +292,8 @@ class StableDiffusionPipeline:
         self.controlnet = None
         # a request's draws on a card: one CUDA graph replay per request
         self._draws = prng.NormalGraphs() if self.device.type == "cuda" else None
+        # load_lora's pre-fuse kernels, first write wins per module
+        self._lora_originals = {}
 
     @classmethod
     def from_random(cls, preset: Union[str, PipelineConfig], *, seed: int = 0,
@@ -394,6 +422,63 @@ class StableDiffusionPipeline:
         return [(net, np.concatenate([self._prep_control(r[0][k], size) for r in rows]),
                  rows[0][1][k]) for k, net in enumerate(nets)]
 
+    def load_lora(self, lora, *, scale: float = 1.0) -> dict:
+        """Fuse a LoRA adapter into the weights (``utils/lora.py``: kohya or
+        diffusers-peft keys) and return the report: ``applied`` modules,
+        ``skipped`` names, ``unrecognized`` keys.  ``lora``: a safetensors
+        path (read by the port's reader) or a mapping of names to tensors
+        or arrays; ``scale``: the adapter's strength.  A fused request runs
+        the same kernels at the same shapes as the base one; adapters stack
+        by repeated calls.  Fuse before :meth:`quantize_int8` (an int8 leaf
+        raises).
+
+        The pre-fuse kernel of each touched module (first load wins) is kept
+        for :meth:`unload_loras` on the leaf's own device, in its dtype, as
+        the replaced tensor itself (a clone of the row for a stacked CLIP
+        leaf): as many bytes as the adapted kernels themselves (for an
+        adapter over every module, about the UNet's and CLIP's kernels
+        again), held until :meth:`unload_loras`."""
+        from sdtpu_torch.utils.lora import apply_lora
+        from sdtpu_torch.utils.weights import load_safetensors
+
+        sd = load_safetensors(lora) if isinstance(lora, str) else lora
+        self.params, report = apply_lora(self.params, sd, scale=scale)
+        for key, orig in report.pop("originals").items():
+            self._lora_originals.setdefault(key, orig)
+        return report
+
+    def unload_loras(self) -> int:
+        """Remove every fused adapter, putting back the pre-fuse kernels that
+        :meth:`load_lora` kept (bitwise the tree before the first load);
+        returns the number of modules restored, 0 when none is loaded."""
+        if not self._lora_originals:
+            return 0
+        from sdtpu_torch.utils.lora import restore_weights
+
+        self.params = restore_weights(self.params, self._lora_originals)
+        n = len(self._lora_originals)
+        self._lora_originals = {}
+        return n
+
+    def load_textual_inversion(self, embeds, *, token: Optional[str] = None) -> dict:
+        """Append textual-inversion vectors to the token table(s)
+        (``utils/textual_inversion.py``) and register each placeholder with
+        the tokenizer, when one is installed, so that prompts can use it (a
+        multi-vector concept expands to one id per vector).  ``embeds``: a
+        safetensors path or a mapping; ``token`` names the placeholder of
+        the ``emb_params`` and dual-encoder layouts.  Returns
+        ``{placeholder: [token ids]}``, which a ``token_ids`` caller splices
+        in itself."""
+        from sdtpu_torch.utils.textual_inversion import apply_textual_inversion
+        from sdtpu_torch.utils.weights import load_safetensors
+
+        sd = load_safetensors(embeds) if isinstance(embeds, str) else embeds
+        self.params, registered = apply_textual_inversion(self.params, sd, token=token)
+        if self.tokenizer is not None:
+            for placeholder, ids in registered.items():
+                self.tokenizer.add_placeholder(placeholder, ids)
+        return registered
+
     # -- public API -----------------------------------------------------------
 
     def generate(
@@ -447,7 +532,13 @@ class StableDiffusionPipeline:
         the JAX package ignores them).
 
         ``token_ids`` bypasses the tokenizer (one cond row, or cond and
-        uncond rows); ``latents`` (B, H/8, W/8, 4) replaces the drawn
+        uncond rows).  ``prompt_weighting`` parses ``(word:1.3)`` /
+        ``[word]`` emphasis in both prompts (``utils/prompt_weighting.py``;
+        needs the tokenizer) and scales each token's encoded states by its
+        weight, renormalized to the row's unweighted mean magnitude
+        (:func:`apply_token_weights`); ``token_weights`` is the same for
+        ``token_ids``, one float per id (rows it does not cover weigh 1).
+        ``latents`` (B, H/8, W/8, 4) replaces the drawn
         initial noise (scaled by the sampler's ``init_sigma`` as a drawn
         one is; txt2img only).  ``seed`` in [0, 2^32) draws the JAX
         package's latents and noise (``utils/prng.py``); ``rng="torch"``
@@ -519,11 +610,21 @@ class StableDiffusionPipeline:
                 image_guidance_scale=image_guidance_scale, guidance_rescale=guidance_rescale,
                 pag_scale=pag_scale, freeu=freeu,
                 encoder_cache_interval=encoder_cache_interval)
-        later([("generate(prompt_weighting=...)", bool(prompt_weighting), "text-features slice"),
-               ("generate(token_weights=...)", token_weights is not None,
-                "text-features slice")])
+        weights = None
         with stage("tokenize"):
-            ids = self._tokenize(prompt, negative_prompt, cfg, token_ids)
+            ids = self._tokenize(prompt, negative_prompt, cfg, token_ids,
+                                 weighted=prompt_weighting)
+            if prompt_weighting:
+                ids, weights = ids
+            elif token_weights is not None:
+                if token_ids is None:
+                    raise ValueError("token_weights requires token_ids")
+                tw = np.asarray(token_weights, np.float32)
+                if tw.ndim == 1:
+                    tw = tw[None]
+                # the rows it does not cover (a synthesized uncond) weigh 1
+                weights = np.ones(ids.shape, np.float32)
+                weights[:tw.shape[0]] = tw
         is_img2img = init_image is not None
         if mask_image is not None and not is_img2img:
             raise ValueError("mask_image requires init_image (inpainting)")
@@ -556,7 +657,7 @@ class StableDiffusionPipeline:
             sampler=sampler, strength=strength, image_guidance_scale=image_guidance_scale,
             images=self._prep_image(init_image, size) if is_img2img else None,
             masks=self._prep_mask(mask_image, size) if mask_image is not None else None,
-            latents=latents, output=output, clip_skip=clip_skip,
+            latents=latents, output=output, clip_skip=clip_skip, token_weights=weights,
             denoising_end=denoising_end, denoising_start=denoising_start,
             control=(self._control_rows([control_image], controlnet_scale, size)
                      if has_control else None), **features)
@@ -658,19 +759,15 @@ class StableDiffusionPipeline:
         it); without them ``seed`` keys the whole batch.  ``init_images``
         and ``mask_images`` hold one image per prompt, ``control_images``
         one entry per prompt (a map, or one map per net; the scales are the
-        batch's), the other features as in :meth:`generate`.  ``output`` as
-        in :meth:`generate`, but ``"latents"`` returns the decoded float
-        images, as the JAX package's ``generate_batch`` does.  ``mesh``,
-        ``prompt_weighting`` and ``token_weights`` raise
-        NotImplementedError."""
-        later([
-            ("generate_batch(mesh=...)", mesh is not None,
-             "multi-card slice (dp/tp meshes, global_mesh)"),
-            ("generate_batch(prompt_weighting=...)", bool(prompt_weighting),
-             "text-features slice"),
-            ("generate_batch(token_weights=...)", token_weights is not None,
-             "text-features slice"),
-        ])
+        batch's), the other features as in :meth:`generate`.
+        ``prompt_weighting`` parses the emphasis of every prompt and
+        negative prompt; ``token_weights`` are (B, L) floats aligned with
+        ``token_ids`` (the uncond rows weigh 1).  ``output`` as in
+        :meth:`generate`, but ``"latents"`` returns the decoded float
+        images, as the JAX package's ``generate_batch`` does.  ``mesh``
+        raises NotImplementedError."""
+        later([("generate_batch(mesh=...)", mesh is not None,
+                "multi-card slice (dp/tp meshes, global_mesh)")])
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         cfg = self.config.default_cfg if cfg is None else cfg
@@ -686,17 +783,40 @@ class StableDiffusionPipeline:
         if cfg:
             negs = (list(negative_prompt) if isinstance(negative_prompt, (list, tuple))
                     else [negative_prompt] * len(prompts))
-        uncond = None
+        uncond = cond_w = uncond_w = None
+        n_prompts = len(prompts)
         with stage("tokenize"):
-            if token_ids is not None:
+            if prompt_weighting:
+                if token_ids is not None:
+                    raise ValueError("prompt_weighting parses the prompt strings — with "
+                                     "token_ids pass token_weights instead")
+                if self.tokenizer is None:
+                    raise ValueError("prompt_weighting needs a tokenizer — provide assets "
+                                     "via tools/prepare_tokenizer.py")
+                ids_all, w_all = self._encode_rows(prompts + (negs or []), max_len,
+                                                   weighted=True)
+                cond, cond_w = ids_all[:n_prompts], w_all[:n_prompts]
+                if negs is not None:
+                    uncond, uncond_w = ids_all[n_prompts:], w_all[n_prompts:]
+            elif token_ids is not None:
                 cond = np.asarray(token_ids)
+                if token_weights is not None:
+                    cond_w = np.asarray(token_weights, np.float32)
+                    if cond_w.ndim == 1:
+                        cond_w = cond_w[None]
+                    if cond_w.shape != cond.shape:
+                        raise ValueError(f"token_weights {cond_w.shape} must match "
+                                         f"token_ids {cond.shape}")
             else:
+                if token_weights is not None:
+                    raise ValueError("token_weights requires token_ids")
                 if self.tokenizer is None:
                     raise ValueError("no tokenizer installed: pass token_ids")
                 ids_all = self._encode_rows(prompts + (negs or []), max_len)
-                cond = ids_all[:len(prompts)]
+                cond = ids_all[:n_prompts]
                 if negs is not None:
-                    uncond = ids_all[len(prompts):]
+                    uncond = ids_all[n_prompts:]
+            weights = cond_w
             if cfg:
                 if len(negs) != cond.shape[0]:
                     raise ValueError("negative_prompt list must match the number of prompts")
@@ -714,6 +834,10 @@ class StableDiffusionPipeline:
                         uncond = np.tile(np.tile(self._uncond_row(), n_win)[None],
                                          (cond.shape[0], 1))
                 ids = np.concatenate([cond, uncond])  # [cond..., uncond...]
+                if cond_w is not None:
+                    if uncond_w is None:
+                        uncond_w = np.ones(uncond.shape, np.float32)
+                    weights = np.concatenate([cond_w, uncond_w])
             else:
                 ids = cond
             ids = np.asarray(ids, dtype=np.int32)
@@ -747,7 +871,7 @@ class StableDiffusionPipeline:
                              sampler=sampler, strength=strength,
                              image_guidance_scale=image_guidance_scale, images=images,
                              masks=masks, output="float" if output == "latents" else output,
-                             clip_skip=clip_skip,
+                             clip_skip=clip_skip, token_weights=weights,
                              control=(self._control_rows(control_images, controlnet_scale, size)
                                       if has_control else None), **features)
 
@@ -789,7 +913,8 @@ class StableDiffusionPipeline:
     def txt2img(self, ids, latents: torch.Tensor, noise: Optional[torch.Tensor], *, cfg: bool,
                 cfg_scale: float, output: str = "uint8", clip_skip: int = 0,
                 sampler: str = "ddpm", steps: Optional[int] = None, schedule=None,
-                continuation: bool = False, image_size: Optional[int] = None, **features):
+                continuation: bool = False, image_size: Optional[int] = None,
+                token_weights=None, **features):
         """The whole request with its noise given: ``ids`` (rows, L) token
         ids (``[cond..., uncond...]`` under CFG), ``latents`` (B, h, w, 4)
         float32 N(0, 1) initial noise (scaled here by the schedule's
@@ -801,8 +926,10 @@ class StableDiffusionPipeline:
         ``continuation``: ``latents`` are a base model's carry already at
         the (sliced) schedule's first step, taken as they are.
         ``image_size`` (SDXL's time ids) defaults to the latents' size.
-        ``features``: :meth:`denoise`'s ``control``, ``guidance_rescale``,
-        ``pag_scale``, ``freeu`` and ``encoder_cache_interval``."""
+        ``token_weights``: (rows, L) float32 weights of ``ids``
+        (:func:`apply_token_weights`), or None.  ``features``:
+        :meth:`denoise`'s ``control``, ``guidance_rescale``, ``pag_scale``,
+        ``freeu`` and ``encoder_cache_interval``."""
         sdef = get_sampler(sampler)
         if schedule is None:
             if steps is None:
@@ -812,7 +939,8 @@ class StableDiffusionPipeline:
             schedule = sdef.make_schedule(self.config.scheduler, steps, device=self.device)
         self._check_noise(sdef, sampler, noise, schedule)
         size = image_size or latents.shape[1] * self.config.vae.downscale_factor
-        context, added = self._encode(ids, clip_skip, size=size, cfg=cfg)
+        context, added = self._encode(ids, clip_skip, size=size, cfg=cfg,
+                                      token_weights=token_weights)
         lat = latents.float()
         if hasattr(schedule, "init_sigma") and not continuation:
             lat = lat * schedule.init_sigma  # sigma-space samplers start at sigma_max
@@ -826,7 +954,7 @@ class StableDiffusionPipeline:
                 cfg_scale: float, schedule, strength: float, sampler: str = "ddpm", masks=None,
                 masked_noise: Optional[torch.Tensor] = None,
                 image_guidance_scale: float = 1.5, output: str = "uint8", clip_skip: int = 0,
-                **features):
+                token_weights=None, **features):
         """The image-conditioned request with its draws given (the JAX
         program's img2img branch, ``sdtpu/pipeline/pipeline.py:1911-2017``):
         ``images`` (B, H, W, 3) float32 in [-1, 1] at the request's size,
@@ -837,13 +965,14 @@ class StableDiffusionPipeline:
         starts from pure noise).  ``masks``: (B, h, w, 1) on the latent
         grid for the latent blend, (B, H, W, 1) on the pixel grid for a
         9-channel inpaint UNet, which also takes ``masked_noise``.
-        ``features`` as in :meth:`txt2img`."""
+        ``token_weights`` and ``features`` as in :meth:`txt2img`."""
         sdef = get_sampler(sampler)
         self._check_noise(sdef, sampler, noise, schedule)
         cdt = self.config.compute_dtype
         vae = dict(attention_impl=self.attention_impl, conv_impl=self.conv_impl)
         init_sigma = getattr(schedule, "init_sigma", 1.0)
-        context, added = self._encode(ids, clip_skip, size=images.shape[1], cfg=cfg)
+        context, added = self._encode(ids, clip_skip, size=images.shape[1], cfg=cfg,
+                                      token_weights=token_weights)
         images = images.float()
         extra = inpaint = None
         guidance = None
@@ -1034,8 +1163,8 @@ class StableDiffusionPipeline:
     @torch.inference_mode()
     def _request(self, ids, key, *, size, steps, cfg, cfg_scale, sampler, strength,
                  image_guidance_scale, images=None, masks=None, latents=None,
-                 output="uint8", clip_skip=0, denoising_end=None, denoising_start=None,
-                 **features):
+                 output="uint8", clip_skip=0, token_weights=None, denoising_end=None,
+                 denoising_start=None, **features):
         """Draw a request's noise from ``key`` (scalar or per-request) as the
         JAX program does, then run :meth:`txt2img` or :meth:`img2img` with
         ``features`` (:meth:`denoise`'s).  The schedule is cut at
@@ -1074,7 +1203,8 @@ class StableDiffusionPipeline:
         heads = draws[:n_head]
         noise = draws[n_head:] if sdef.stochastic else None
         run = dict(cfg=cfg, cfg_scale=cfg_scale, sampler=sampler, schedule=schedule,
-                   output=output, clip_skip=clip_skip, **features)
+                   output=output, clip_skip=clip_skip, token_weights=token_weights,
+                   **features)
         if not is_img2img:
             lat0 = heads[0] if latents is None else to_device(latents, self.device)
             return self.txt2img(ids, lat0, noise, continuation=denoising_start is not None,
@@ -1086,7 +1216,7 @@ class StableDiffusionPipeline:
                             masked_noise=heads[2] if program == "inpaint" else None,
                             image_guidance_scale=image_guidance_scale, **run)
 
-    def _encode(self, ids, clip_skip: int, *, size: int, cfg: bool):
+    def _encode(self, ids, clip_skip: int, *, size: int, cfg: bool, token_weights=None):
         """Token rows -> ``(context, added_cond)``.  SD 1.x: one encoder's
         hidden states and no ``added_cond``.  SDXL: CLIP-L's and bigG's
         penultimate states concatenated (768 + 1280), or bigG's alone for a
@@ -1095,20 +1225,28 @@ class StableDiffusionPipeline:
         size, crop, target size); under ``requires_aesthetics_score`` ``[size,
         size, 0, 0, score]``, the score the preset's on the cond rows and its
         negative one on the uncond rows (rows ``[cond..., uncond...]``).
-        Both encoders take the same ids, as in the JAX package."""
+        Both encoders take the same ids, as in the JAX package.
+        ``token_weights`` (rows, L) scale each encoder's states apart
+        (:func:`apply_token_weights`)."""
         config = self.config
         cdt = config.compute_dtype
         with stage("clip"):
             ids = to_device(np.asarray(ids, np.int64), self.device)
+            tw = (None if token_weights is None
+                  else to_device(np.asarray(token_weights, np.float32), self.device))
             parts = []
             if config.clip is not None:
                 hidden, _ = clip_encode_windows(ids, self.params["clip"], config.clip,
                                                 clip_skip=clip_skip)
+                if tw is not None:
+                    hidden = apply_token_weights(hidden, tw)
                 parts.append(hidden.to(cdt))
             if config.clip_2 is None:
                 return parts[0], None
             hidden2, pooled2 = clip_encode_windows(ids, self.params["clip_2"], config.clip_2,
                                                    clip_skip=clip_skip)
+            if tw is not None:
+                hidden2 = apply_token_weights(hidden2, tw)
             parts.append(hidden2.to(cdt))
             context = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
             rows = ids.shape[0]
@@ -1165,18 +1303,39 @@ class StableDiffusionPipeline:
         row[0] = vocab - 2
         return row
 
-    def _encode_rows(self, texts, max_len: int) -> np.ndarray:
+    def _encode_rows(self, texts, max_len: int, *, weighted: bool = False):
         """Tokenize texts to one window count (the most any row needs):
-        (B, n * max_len) int32."""
+        (B, n * max_len) int32, and with ``weighted`` the (B, n * max_len)
+        float32 weights of their emphasis syntax beside them."""
         tok = self.tokenizer
+        if weighted:
+            enc = [tok.encode_weighted_long(t, window=max_len) for t in texts]
+            n = max(len(e[0]) // max_len for e in enc)
+            enc = [e if len(e[0]) == n * max_len
+                   else tok.encode_weighted_long(t, window=max_len, num_windows=n)
+                   for e, t in zip(enc, texts)]
+            return (np.asarray([e[0] for e in enc], np.int32),
+                    np.asarray([e[1] for e in enc], np.float32))
         enc = [tok.encode_long(t, window=max_len) for t in texts]
         n = max(len(e) // max_len for e in enc)
         enc = [e if len(e) == n * max_len else tok.encode_long(t, window=max_len, num_windows=n)
                for e, t in zip(enc, texts)]
         return np.asarray(enc, np.int32)
 
-    def _tokenize(self, prompt, negative_prompt, cfg, token_ids) -> np.ndarray:
+    def _tokenize(self, prompt, negative_prompt, cfg, token_ids, weighted: bool = False):
+        """The request's token rows ``[cond(, uncond)]`` (int32); with
+        ``weighted`` the (ids, weights) of both prompts' emphasis syntax."""
         max_len = self.config.text_config.max_length
+        if weighted:
+            if token_ids is not None:
+                raise ValueError("prompt_weighting parses the prompt string — with "
+                                 "token_ids pass token_weights instead")
+            if self.tokenizer is None:
+                raise ValueError("prompt_weighting needs a tokenizer — provide assets via "
+                                 "tools/prepare_tokenizer.py (or pass token_ids + "
+                                 "token_weights)")
+            return self._encode_rows([prompt] + ([negative_prompt] if cfg else []), max_len,
+                                     weighted=True)
         if token_ids is not None:
             ids = np.asarray(token_ids)
             if ids.ndim == 1:

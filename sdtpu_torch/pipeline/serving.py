@@ -3,8 +3,9 @@
 
 :class:`ServingEngine` runs a background worker thread: requests that share
 a bucket (image size, steps, sampler, CFG and its scale, img2img with its
-strength and mask flag, CLIP skip, window count, CFG rescale, PAG, FreeU,
-the ControlNet scale(s), the encoder cache) are coalesced up to
+strength and mask flag, CLIP skip, the weighting mode, window count, CFG
+rescale, PAG, FreeU, the ControlNet scale(s), the encoder cache) are
+coalesced up to
 ``max_batch_size`` or until one global ``max_wait_ms`` window passes, run
 as ``generate_batch`` requests of at most ``device_batch_size`` rows, and
 resolved to per-request futures.  Per-request keys and per-row negative
@@ -17,8 +18,6 @@ most 3% of values).
 The worker keeps two batches in flight: it dispatches batch N+1
 (``output="device"``) before it fetches batch N.  A transient error
 retries a batch once; a ValueError or TypeError fails its futures at once.
-A request field of a later slice (prompt weighting, token weights) raises
-at ``submit``.
 """
 
 from __future__ import annotations
@@ -32,8 +31,6 @@ from concurrent.futures import Future
 from typing import List, Optional
 
 import numpy as np
-
-from sdtpu_torch.pipeline.pipeline import later
 
 _FAILED = object()  # dispatch sentinel: the batch is already resolved with an error
 
@@ -67,6 +64,10 @@ class _Request:
     controlnet_scale: float = 1.0
     encoder_cache_interval: int = 1
     clip_skip: int = 0
+    # prompt emphasis: the (word:1.3) syntax parsed per row, or per-token
+    # weights aligned with token_ids
+    prompt_weighting: bool = False
+    token_weights: Optional[np.ndarray] = None
     # rows with different CLIP window counts do not coalesce: padded empty
     # windows would make a row's context depend on its batch
     n_windows: int = 1
@@ -78,6 +79,9 @@ class _Request:
         # per row; the mask flag, strength, image guidance, the step
         # features and the control scale(s) pick the request's program
         img2img = self.init_image is not None
+        # weighted rows feed generate_batch differently: three modes
+        weighting = ("pw" if self.prompt_weighting
+                     else "tw" if self.token_weights is not None else None)
         scales = (self.controlnet_scale if isinstance(self.controlnet_scale, (list, tuple))
                   else [self.controlnet_scale])
         return (self.image_size, self.steps, self.sampler, self.cfg,
@@ -86,7 +90,7 @@ class _Request:
                 round(self.image_guidance_scale, 6) if img2img else None,
                 round(self.guidance_rescale, 6), round(self.pag_scale, 6),
                 None if self.freeu is None else tuple(round(float(v), 6) for v in self.freeu),
-                self.clip_skip,
+                self.clip_skip, weighting,
                 (tuple(round(float(v), 6) for v in scales)
                  if self.control_image is not None else None),
                 self.n_windows, self.encoder_cache_interval)
@@ -150,14 +154,12 @@ class ServingEngine:
                encoder_cache_interval: int = 1) -> Future:
         """Enqueue one txt2img request (img2img with ``init_image``,
         inpainting with ``mask_image`` too; a control map after the
-        pipeline's ``load_controlnet``); the future resolves to an (H, W, 3)
-        uint8 image.  Unset knobs resolve to the preset's defaults here, so
-        that the bucket is well defined."""
+        pipeline's ``load_controlnet``; emphasis with ``prompt_weighting``,
+        or ``token_weights`` beside ``token_ids``); the future resolves to an
+        (H, W, 3) uint8 image.  Unset knobs resolve to the preset's defaults
+        here, so that the bucket is well defined."""
         if self._shutdown.is_set():
             raise RuntimeError("engine is shut down")
-        later([(f"ServingEngine.submit({name}=...)", used, "text-features slice")
-               for name, used in (("prompt_weighting", bool(prompt_weighting)),
-                                  ("token_weights", token_weights is not None))])
         if mask_image is not None and init_image is None:
             raise ValueError("mask_image requires init_image (inpainting)")
         if control_image is not None and getattr(self.pipeline, "controlnet", None) is None:
@@ -171,6 +173,10 @@ class ServingEngine:
             n_windows = max(1, np.asarray(token_ids).shape[-1] // w)
         elif tok is None:
             n_windows = 1
+        elif prompt_weighting:
+            texts = [prompt] + ([negative_prompt] if use_cfg else [])
+            n_windows = max(len(tok.encode_weighted_long(t, window=w)[0]) // w
+                            for t in texts)
         else:
             texts = [prompt] + ([negative_prompt] if use_cfg else [])
             n_windows = max(tok.num_windows(t, window=w) for t in texts)
@@ -184,7 +190,8 @@ class ServingEngine:
             image_guidance_scale=image_guidance_scale, guidance_rescale=guidance_rescale,
             pag_scale=pag_scale, freeu=freeu, control_image=control_image,
             controlnet_scale=controlnet_scale, encoder_cache_interval=encoder_cache_interval,
-            clip_skip=clip_skip, n_windows=n_windows, t_submit=time.monotonic())
+            clip_skip=clip_skip, prompt_weighting=prompt_weighting,
+            token_weights=token_weights, n_windows=n_windows, t_submit=time.monotonic())
         self._queue.put(req)
         return req.future
 
@@ -246,6 +253,12 @@ class ServingEngine:
                   token_ids=token_ids, sampler=first.sampler, clip_skip=first.clip_skip,
                   guidance_rescale=first.guidance_rescale, pag_scale=first.pag_scale,
                   freeu=first.freeu, encoder_cache_interval=first.encoder_cache_interval)
+        if first.prompt_weighting:
+            kw["prompt_weighting"] = True
+        elif first.token_weights is not None:
+            # one bucket: every row carries weights (and token_ids)
+            kw["token_weights"] = np.stack([np.asarray(r.token_weights, np.float32)
+                                            for r in batch])
         if first.init_image is not None:
             kw["init_images"] = [r.init_image for r in batch]
             kw["strength"] = first.strength

@@ -14,12 +14,17 @@ the layout changes done on the host, each result contiguous:
 * linear ``(O, I)`` -> ``(I, O)``;
 * a 1x1 conv used as a projection (Transformer2D proj_in/out, the VAE mid
   attention of older checkpoints) -> a linear ``(I, O)``.
+
+``save_converted`` / ``load_converted`` cache a converted tree as one
+safetensors file (the port's own writer, ``save_safetensors``), each leaf
+under its tree path.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -426,6 +431,96 @@ def load_pipeline_params(model_dir: str, config: PipelineConfig, *, dtype=None,
             model_dir, "text_encoder_2",
             lambda sd: clip_params_from_state_dict(sd, config.clip_2), dtype, device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Writing safetensors; the converted-tree cache
+# ---------------------------------------------------------------------------
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str,
+                     metadata: Optional[Mapping[str, str]] = None) -> int:
+    """Write ``tensors`` as one standard ``.safetensors`` file: the 8-byte
+    little-endian header length, the JSON header (space-padded to 8 bytes),
+    then each tensor's raw little-endian bytes in order.  Returns the bytes
+    written.  (The ``safetensors`` package is not a dependency.)"""
+    from sdtpu_torch.utils.native_safetensors import DTYPES
+
+    names = {dtype: name for name, dtype in DTYPES.items()}
+    header, offset, flat = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        if t.dtype not in names:
+            raise ValueError(f"{name}: no safetensors dtype for {t.dtype}")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        flat.append(t.reshape(-1).view(torch.uint8).numpy())
+        offset += nbytes
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for arr in flat:
+            f.write(arr.data)
+    return 8 + len(raw) + offset
+
+
+def _tree_items(tree, path=()):
+    """``("a/b/0/kernel", leaf)`` for every leaf: dict keys and list
+    indices joined by ``/``."""
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        if not tree:
+            raise ValueError(f"{'/'.join(map(str, path))}: an empty container has no "
+                             "leaf to store")
+        for k, v in items:
+            yield from _tree_items(v, path + (str(k),))
+    elif isinstance(tree, torch.Tensor):
+        yield "/".join(path), tree
+    else:
+        raise TypeError(f"{'/'.join(path)}: a {type(tree).__name__} leaf is not a tensor")
+
+
+def _rebuild(node):
+    """The nested dicts of :func:`load_converted` with integer keys turned
+    back into lists."""
+    if not isinstance(node, dict):
+        return node
+    if all(k.isdigit() for k in node):
+        return [_rebuild(node[str(i)]) for i in range(len(node))]
+    return {k: _rebuild(v) for k, v in node.items()}
+
+
+def save_converted(params: dict, path: str) -> int:
+    """Cache a converted parameter tree (any dtypes: bf16, an int8-quantized
+    tree's codes and scales, SDXL's two encoders) as one safetensors file,
+    each leaf under its tree path, so that a later load skips the
+    checkpoint's mapping.  Returns the bytes written.  The counterpart of
+    the JAX package's orbax cache."""
+    return save_safetensors(dict(_tree_items(params)), path,
+                            metadata={"format": "sdtpu_torch parameter tree"})
+
+
+def load_converted(path: str, *, device="cuda") -> dict:
+    """The tree :func:`save_converted` wrote, every leaf bitwise in its
+    dtype and shape, on ``device``; the file is mapped by the native reader
+    and each tensor copied once to ``device``."""
+    from sdtpu_torch.utils.native_safetensors import NativeSafetensors
+
+    root: dict = {}
+    with NativeSafetensors(path) as f:
+        for name in f.keys():
+            *parents, last = name.split("/")
+            node = root
+            for p in parents:
+                node = node.setdefault(p, {})
+            view = f.tensor(name)
+            node[last] = view.to(device, copy=True)
+            del view
+    return _rebuild(root)
 
 
 # ---------------------------------------------------------------------------

@@ -376,20 +376,22 @@ def test_edit_checks_raise_as_jax_does(pipes8, method, kw):
 @pytest.mark.parametrize("kw,slice_name", [
     ({"mesh": object()}, "multi-card"),
     ({"control_images": [INIT, INIT]}, "load_controlnet"),
-    ({"prompt_weighting": True}, "text-features"),
-    ({"token_weights": np.ones((2, 16))}, "text-features"),
+    # the text features run now; their refusals are the JAX package's
+    pytest.param({"prompt_weighting": True}, "parses the prompt strings",
+                 id="kw2-text-features"),
+    pytest.param({"token_weights": np.ones((2, 8))}, "must match", id="kw3-text-features"),
     ({"pag_scale": -2.0}, "pag_scale must be >= 0"),
     ({"freeu": (1.5, 1.6)}, "freeu must be"),
     ({"guidance_rescale": 1.5}, r"guidance_rescale must be in \[0, 1\]"),
     ({"encoder_cache_interval": 0}, "encoder_cache_interval must be >= 1"),
 ])
 def test_generate_batch_later_slices_raise(pipes, kw, slice_name):
-    """A mesh and prompt or token weights belong to later slices
-    (NotImplementedError naming the slice); the step features raise the
-    JAX package's ValueError for an invalid value, in both packages, as
-    control maps do with no ControlNet loaded."""
+    """A mesh belongs to a later slice (NotImplementedError naming it); the
+    step features raise the JAX package's ValueError for an invalid value,
+    in both packages, as control maps do with no ControlNet loaded, and
+    prompt weights with token ids or token weights of another shape."""
     j, t = pipes
-    later = "mesh" in kw or "prompt_weighting" in kw or "token_weights" in kw
+    later = "mesh" in kw
     with pytest.raises(NotImplementedError if later else ValueError, match=slice_name):
         t.generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1, **kw)
     if not later:
@@ -464,10 +466,12 @@ def test_demo_img2img_inpaint_and_refused_flags(tmp_path, monkeypatch, capsys):
     assert "wrote" in capsys.readouterr().out
     demo.main(base + ["--no-cfg", "--sampler", "euler", "--seed", "5", "--image-size", "16"])
     assert read_png(out).shape == (16, 16, 3)
-    for flags, slice_name in ((["--prompt-weighting"], "text-features"),
-                              (["--textual-inversion", "x.safetensors"], "text-features"),
-                              (["--lora", "x.safetensors"], "text-features")):
-        with pytest.raises(NotImplementedError, match=slice_name):
+    # the text-feature flags run now (tests/test_torch_text_features.py):
+    # without a tokenizer --prompt-weighting is refused, a missing file raises
+    with pytest.raises(SystemExit, match="needs a tokenizer"):
+        demo.main(base + ["--prompt-weighting"])
+    for flags in (["--textual-inversion", "x.safetensors"], ["--lora", "x.safetensors"]):
+        with pytest.raises(OSError, match="x.safetensors"):
             demo.main(base + flags)
     # --refiner is no longer refused; as in the JAX demo it is txt2img only
     with pytest.raises(SystemExit) as e:

@@ -162,7 +162,9 @@ def test_injected_latents_replace_the_draw(port_pipe):
      ValueError, "latents injection is txt2img-only"),
     ({"mask_image": np.zeros((32, 32), np.uint8)}, ValueError, "mask_image requires init_image"),
     ({"control_image": np.zeros((32, 32, 3), np.uint8)}, ValueError, "load_controlnet"),
-    ({"prompt_weighting": True}, NotImplementedError, "text-features"),
+    # prompt weighting runs now; with token ids it is the JAX package's ValueError
+    pytest.param({"prompt_weighting": True}, ValueError, "parses the prompt string",
+                 id="kwargs3-NotImplementedError-text-features"),
     ({"pag_scale": -3.0}, ValueError, "pag_scale must be >= 0"),
     ({"freeu": (1.5, 1.6)}, ValueError, "freeu must be"),
     ({"encoder_cache_interval": 0}, ValueError, "encoder_cache_interval must be >= 1"),
@@ -170,9 +172,8 @@ def test_injected_latents_replace_the_draw(port_pipe):
     ({"sampler": "heun"}, ValueError, "unknown sampler"),
 ])
 def test_later_slices_raise(port_pipe, kwargs, error, match):
-    """A feature of a later slice (prompt weighting) raises
-    NotImplementedError naming it; the step features of this slice take the
-    JAX package's checks, which raise its ValueError for an invalid value
+    """The features take the JAX package's checks, which raise its
+    ValueError for an invalid value (prompt weighting with token ids too)
     (also through ``num_images``, which runs ``generate_batch``), as do a
     control map with no ControlNet loaded, img2img and inpainting misuse and
     a sampler name the JAX package does not have."""

@@ -240,24 +240,23 @@ def test_retry_policy(pipe, exc, fails, ok, retries, calls):
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"control_image": INIT}, "load_controlnet"),
-    ({"prompt_weighting": True}, "text-features"),
-    ({"token_weights": np.ones(16)}, "text-features"),
+    # the weighted fields run now; a batch refuses prompt weights with
+    # token ids, and token weights of another shape, as the JAX package does
+    pytest.param({"prompt_weighting": True}, "parses the prompt strings",
+                 id="kw1-text-features"),
+    pytest.param({"token_weights": np.ones(8)}, "must match", id="kw2-text-features"),
     ({"guidance_rescale": 1.5}, r"guidance_rescale must be in \[0, 1\]"),
     ({"pag_scale": -2.0}, "pag_scale must be >= 0"),
     ({"freeu": (1.5, 1.6)}, "freeu must be"),
     ({"encoder_cache_interval": 0}, "encoder_cache_interval must be >= 1"),
 ])
 def test_submit_refuses_fields_of_later_slices(pipe, kw, slice_name):
-    """Prompt and token weights belong to a later slice: ``submit`` raises
-    NotImplementedError naming it.  A control map with no ControlNet loaded
-    raises the JAX engine's ValueError at ``submit``; an invalid step
-    feature fails its future with the JAX package's ValueError."""
+    """A control map with no ControlNet loaded raises the JAX engine's
+    ValueError at ``submit``; an invalid step feature, or weights the batch
+    refuses, fail the future with the JAX package's ValueError."""
     engine = ServingEngine(pipe, max_wait_ms=5)
     try:
-        if "prompt_weighting" in kw or "token_weights" in kw:
-            with pytest.raises(NotImplementedError, match=slice_name):
-                engine.submit("p", token_ids=IDS, **kw)
-        elif "control_image" in kw:
+        if "control_image" in kw:
             with pytest.raises(ValueError, match=slice_name):
                 engine.submit("p", token_ids=IDS, **kw)
         else:
