@@ -221,6 +221,29 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               ``ServingEngine`` on the gate's weights (4 Euler steps): one
               batch of 4, each row within the gate's envelope of its solo
               image.  The phase's seconds are printed, and the script's.
+19. mesh   -- the dp/tp mesh (``sdtpu_torch.parallel``) on ``tiny-sd`` at
+              full width on the gate's weights (0.04 x normals drawn on
+              the card), 512x512, 4 Euler steps, CFG, two requests with
+              their own seeds: (a) one process, ``make_mesh(1, 1)``:
+              ``generate_batch(mesh=)`` and ``ServingEngine(mesh=)`` give
+              bitwise the images and exactly the launches of the same calls
+              without a mesh, and ``health_check(mesh)`` is ok; (b) two
+              gloo processes that both drive the card (the kernels from
+              phase 2's ``build/``, the tree written once by
+              ``save_converted`` and read by each rank with
+              ``load_converted``; which collectives gloo takes on CUDA
+              tensors printed): dp = 2, each rank's row bitwise the request
+              alone at batch 1 and within the gate's envelope of the
+              one-process batch of 2; tp = 2 on ``shard_params_tp``'s tree,
+              the image within the envelope of the one-process image, C on
+              4 of the 8 heads on each rank and the VAE's single head
+              gathered, A, B and C launched as without a mesh; the same
+              with kernel G as the partial product; every C and G call
+              shape of the shards held to its plain version.  Each run's
+              launches are held to its recorded calls; the phase's seconds
+              are printed.  The ``kernels`` line's A, B, C and G rows carry
+              the phase's launches as ``mesh_launches``.  About 25 s, the
+              two ranks' processes ~22 s of it.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -575,7 +598,7 @@ def cudnn_call(torch, x, k, bias, kw):
         y = y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y_nchw = y.permute(0, 3, 1, 2)  # channels_last memory
     w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    b16 = bias.to(torch.bfloat16)
+    b16 = 0 if bias is None else bias.to(torch.bfloat16)
     return lambda: F.conv2d(y_nchw, w_oihw, b16, padding=1)
 
 
@@ -761,11 +784,12 @@ def flash_stats_case(torch, gen, q_shape, lk):
     return errs[0][0], t_k, t_p, t_l, dev
 
 
-def out_proj_case(torch, gen, o_shape, c):
+def out_proj_case(torch, gen, o_shape, c, partial=False):
     """Kernel G at one call shape against its plain version (and a second
     call bitwise equal to the first), then the times.  Library: the default
     route's einsum + bias + residual in bf16 (three roundings where G rounds
-    once)."""
+    once).  ``partial``: the form tp launches, the partial product before
+    the sum over tp (no bias, a zero residual)."""
     from sdtpu_torch.kernels.flash_attention import (
         out_proj_packed,
         out_proj_packed_plain,
@@ -777,19 +801,22 @@ def out_proj_case(torch, gen, o_shape, c):
     w = (torch.randn((h, d, c), generator=gen, device="cuda") * (h * d) ** -0.5).to(torch.bfloat16)
     bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
     res = torch.randn((b, l, c), generator=gen, device="cuda").to(torch.bfloat16)
+    if partial:
+        bias, res = None, torch.zeros_like(res)
     got = out_proj_packed(o, w, bias, res)
     want = out_proj_packed_plain(o, w, bias, res)
     torch.cuda.synchronize()
     err, ref = max_err(got, want)
     same = bool(torch.equal(out_proj_packed(o, w, bias, res), got))
     ok = err <= TOL_REL * ref and same
-    log(f"check out_proj_packed o={tuple(o_shape)} c={c} (bn, splits)="
+    log(f"check out_proj_packed{' partial' if partial else ''} o={tuple(o_shape)} c={c} "
+        f"(bn, splits)="
         f"{plan_out_proj(*o_shape, c)}: max_abs_err={err:.4g} (max|plain|={ref:.4g}, rel "
         f"{err / ref:.3g}, tol {TOL_REL:g}); two calls bitwise equal {same}"
         + (" ok" if ok else " FAIL"))
     if not ok:
         raise AssertionError("out_proj_packed disagrees with its plain version or itself")
-    b16 = bias.to(torch.bfloat16)
+    b16 = 0 if bias is None else bias.to(torch.bfloat16)
     t_k = event_ms(lambda: out_proj_packed(o, w, bias, res), 20)
     t_p = event_ms(lambda: out_proj_packed_plain(o, w, bias, res), 5)
     t_l = event_ms(lambda: torch.einsum("bhld,hdc->blc", o, w) + b16 + res, 20)
@@ -1040,10 +1067,16 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--trace-dir", default="build/trace",
                     help="where phase 13 writes its profiler trace (trace.json)")
+    ap.add_argument("--mesh-worker", nargs=5, metavar=("TREE", "DIR", "RANK", "WORLD", "URL"),
+                    help=argparse.SUPPRESS)  # one rank of phase 19 (b)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
     import torch
+
+    if args.mesh_worker:
+        tree, out_dir, rank, world, url = args.mesh_worker
+        return mesh_worker(tree, out_dir, int(rank), int(world), url)
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1669,10 +1702,18 @@ def main() -> int:
     details["text"] = text_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts)
     del sd15_host
     t9 = time.perf_counter()
+
+    # phase 19: the dp/tp mesh (tiny-sd on the gate's weights): one process,
+    # then two gloo processes on the one card
+    torch.cuda.empty_cache()
+    details["mesh"] = mesh_phase(torch, np, launch_counts, reset_launch_counts)
+    t10 = time.perf_counter()
+    log(f"phase 19 (mesh): {t10 - t9:.1f} s")
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
                           "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
-                          "sdxl": t7 - t6, "features": t8 - t7, "text": t9 - t8}
-    log("phases 10-18 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "sdxl": t7 - t6, "features": t8 - t7, "text": t9 - t8,
+                          "mesh": t10 - t9}
+    log("phases 10-19 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -1694,6 +1735,8 @@ def main() -> int:
             "bound_by": "bytes" if tot["byte_ms"] > tot["op_ms"] else "operations",
             "library_ms": tot["library_ms"],
         })
+        if name in MESH_KERNELS:  # phase 19's launches: 1x1 mesh, then per rank
+            kernels[-1]["mesh_launches"] = details["mesh"]["mesh_launches"][name]
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['total_s']:.1f} s in all, the kernels' build included")
@@ -3762,6 +3805,328 @@ def text_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 18: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
         f"versions: {len(held)}")
+    return out
+
+
+# ------------------------------------------------------------------ mesh --
+
+MESH_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "flash_attention", "out_proj_packed")
+
+
+def mesh_request(np, config, seeds):
+    """Phase 19's ``generate_batch`` arguments: request i's token ids (a
+    fixed row of its own) and seed i, the gate's settings."""
+    ids = np.random.default_rng(7).integers(1, config.clip.vocab_size,
+                                            (2, config.clip.max_length))
+    return dict(token_ids=ids[list(seeds)], seeds=list(seeds), num_inference_steps=GATE_STEPS,
+                image_size=512, sampler="euler", cfg=True)
+
+
+def gloo_collectives(torch):
+    """Which collectives gloo takes on CUDA tensors, each tried on card 0:
+    {name: "ok" or the error}.  The mesh layer uses all_reduce, all_gather,
+    broadcast and broadcast_object_list on the card's tensors."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+
+    def gather(dtype):
+        t = torch.ones(4, device=dev, dtype=dtype)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t)
+        return all(bool((p == 1).all()) for p in parts)
+
+    def reduce(dtype):
+        t = torch.ones(4, device=dev, dtype=dtype)
+        dist.all_reduce(t)
+        return bool((t == dist.get_world_size()).all())
+
+    def bcast(dtype):
+        t = torch.full((4,), dist.get_rank(), device=dev, dtype=dtype)
+        dist.broadcast(t, src=0)
+        return bool((t == 0).all())
+
+    def gather_into():
+        t = torch.ones(4, device=dev)
+        out = torch.empty(4 * dist.get_world_size(), device=dev)
+        dist.all_gather_into_tensor(out, t)
+        return bool((out == 1).all())
+
+    def objects():
+        msg = [dist.get_rank()]
+        dist.broadcast_object_list(msg, src=0)
+        return msg == [0]
+
+    report = {}
+    for name, fn in [("all_reduce float32", lambda: reduce(torch.float32)),
+                     ("all_reduce bfloat16", lambda: reduce(torch.bfloat16)),
+                     ("all_gather float32", lambda: gather(torch.float32)),
+                     ("all_gather bfloat16", lambda: gather(torch.bfloat16)),
+                     ("all_gather uint8", lambda: gather(torch.uint8)),
+                     ("all_gather_into_tensor float32", gather_into),
+                     ("broadcast bfloat16", lambda: bcast(torch.bfloat16)),
+                     ("broadcast int8", lambda: bcast(torch.int8)),
+                     ("broadcast_object_list", objects)]:
+        try:
+            report[name] = "ok" if fn() else "wrong values"
+        except RuntimeError as exc:  # gloo refuses a device or dtype so
+            report[name] = f"refused: {exc}"[:200]
+    return report
+
+
+def mesh_worker(tree_path, out_dir, rank, world, url) -> int:
+    """One gloo rank of phase 19 (b) on card 0: the tree ``load_converted``
+    reads; a dp = 2 request of two rows, then one request on a tp = 2 mesh
+    on ``shard_params_tp``'s tree, and the same with kernel G (the partial
+    product); each run's calls recorded (a warm-up too), then run again with
+    its launches counted and held to them.  Rank 0 holds every C and G
+    call shape of the tp runs to its plain version, G in the form tp
+    launches (no bias, a zero residual).  Writes
+    ``rank<r>.json`` and ``rank<r>.npz`` to ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdtpu_torch.parallel import initialize, make_mesh, shard_params_tp
+    from sdtpu_torch.pipeline.pipeline import StableDiffusionPipeline
+    from sdtpu_torch.utils.weights import load_converted
+
+    attn_mod = sys.modules["sdtpu_torch.ops.attention"]
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    initialize(url, world, rank, backend="gloo")
+    rep = {"rank": rank, "collectives": gloo_collectives(torch)}
+    config = get_preset("tiny-sd")
+    t1 = time.perf_counter()
+    pipe = StableDiffusionPipeline(config, load_converted(tree_path, device="cuda"),
+                                   device="cuda")
+    rep["load_converted_s"] = time.perf_counter() - t1
+    dp_mesh, tp_mesh = make_mesh(2, 1), make_mesh(1, 2)
+    sharded = StableDiffusionPipeline(config, shard_params_tp(pipe.params, tp_mesh),
+                                      device="cuda")
+    images = {}
+
+    def run(label, fn, packed=False):
+        attn_mod._PACKED_OUT_PROJ = packed
+        try:
+            calls = record_calls(torch, fn)  # the warm-up too
+            expected = expected_launches(calls, launch_counts)
+            if packed:
+                expected.update(out_proj_packed=sum(calls["out_proj_packed"].values()),
+                                **out_proj_sub_counts(calls))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            images[label] = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            counts = dict(launch_counts)
+        finally:
+            attn_mod._PACKED_OUT_PROJ = False
+        hold_counts(f"mesh rank {rank} {label}", counts, expected)
+        rep[label] = {"seconds": sec, "launches": counts,
+                      "flash_calls": [[list(q), lk, n] for (q, lk), n
+                                      in calls["flash_attention_packed"].items()],
+                      "out_proj_calls": [[list(o), c, n] for (o, c), n
+                                         in calls["out_proj_packed"].items()]}
+        return calls
+
+    run("dp", lambda: pipe.generate_batch(["mesh"] * 2, mesh=dp_mesh,
+                                          **mesh_request(np, config, (0, 1))))
+    one = mesh_request(np, config, (0,))
+    tp_calls = run("tp", lambda: sharded.generate_batch(["mesh"], mesh=tp_mesh, **one))
+    pk_calls = run("tp_packed", lambda: sharded.generate_batch(["mesh"], mesh=tp_mesh, **one),
+                   packed=True)
+    if rank == 0:  # the call shapes the shards give C and G, against plain
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        shapes = sorted(set(tp_calls["flash_attention_packed"])
+                        | set(pk_calls["flash_attention_packed"]))
+        rep["flash_attention_err"] = max(check_flash(torch, gen, q, lk)[1] for q, lk in shapes)
+        rep["out_proj_packed_err"] = max(out_proj_case(torch, gen, o, c, partial=True)[0]
+                                         for o, c in sorted(pk_calls["out_proj_packed"]))
+    rep["seconds"] = time.perf_counter() - t0
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **images)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, np, launch_counts, reset_launch_counts):
+    """Phase 19: the mesh on the card, tiny-sd 512x512 at full width on the
+    gate's weights (0.04 x normals drawn on the card), 4 Euler steps, CFG.
+    (a) One process, ``make_mesh(1, 1)``: ``generate_batch(mesh=)`` and
+    ``ServingEngine(mesh=)`` with 2 requests give bitwise the images and
+    exactly the launches of the same calls without a mesh;
+    ``health_check(mesh)``.  (b) Two gloo processes that both drive card 0
+    (the kernels from phase 2's ``build/``, the tree written once with
+    ``save_converted`` and read by each rank with ``load_converted``):
+    dp = 2 over two requests, each rank's row bitwise the request alone at
+    batch 1 and within the gate's envelope of the one-process batch of 2;
+    tp = 2, the image within the envelope of the one-process image, C on
+    4 of tiny-sd's 8 heads per rank (the VAE's single head gathered), A
+    and B launched as without a mesh; the same with kernel G as the
+    partial product.  Which collectives gloo takes on CUDA tensors is
+    printed."""
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.parallel import health_check, make_mesh
+    from sdtpu_torch.pipeline.pipeline import StableDiffusionPipeline
+    from sdtpu_torch.pipeline.serving import ServingEngine
+    from sdtpu_torch.tools.check_batch_invariance import row_gap
+    from sdtpu_torch.tools.dryrun_multichip import run_ranks
+    from sdtpu_torch.utils import hostrng
+    from sdtpu_torch.utils.weights import init_pipeline_params, save_converted
+
+    attn_mod = sys.modules["sdtpu_torch.ops.attention"]
+    out = {}
+    config = get_preset("tiny-sd")
+    with hostrng.shapes_only():
+        shapes = init_pipeline_params(0, config, device="meta")
+    pipe = StableDiffusionPipeline(config, card_normal_tree(torch, shapes, 1234), device="cuda")
+    heads = config.unet.num_attention_heads
+
+    def counted_run(fn, timed=None):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        if timed:
+            out[timed] = time.perf_counter() - t
+        return res, {k: n for k, n in launch_counts.items() if n}
+
+    def serve(mesh):
+        engine = ServingEngine(pipe, max_batch_size=2, max_wait_ms=2000.0,
+                               device_batch_size=2, mesh=mesh)
+        try:
+            kw = mesh_request(np, config, (0, 1))
+            futs = [engine.submit("mesh", token_ids=kw["token_ids"][i], seed=i,
+                                  num_inference_steps=GATE_STEPS, image_size=512,
+                                  sampler="euler", cfg=True) for i in range(2)]
+            return np.stack([f.result(timeout=300) for f in futs])
+        finally:
+            engine.shutdown()
+
+    # (a) one process, a 1x1 mesh
+    one = make_mesh()
+    two = mesh_request(np, config, (0, 1))
+    pipe.generate_batch(["mesh"] * 2, **two)  # warm-up
+    batch2, c_plain = counted_run(lambda: pipe.generate_batch(["mesh"] * 2, **two))
+    got, c_mesh = counted_run(lambda: pipe.generate_batch(["mesh"] * 2, mesh=one, **two))
+    served, c_served = counted_run(lambda: serve(None))
+    served_mesh, c_served_mesh = counted_run(lambda: serve(one))
+    report = health_check(one)
+    ok = (np.array_equal(got, batch2) and c_mesh == c_plain
+          and np.array_equal(served_mesh, served) and c_served_mesh == c_served
+          and report["ok"])
+    log(f"mesh (a) 1x1: generate_batch(mesh=) == no mesh bitwise "
+        f"{np.array_equal(got, batch2)}, launches {c_mesh} == {c_plain}; ServingEngine(mesh=) "
+        f"== no mesh bitwise {np.array_equal(served_mesh, served)}, launches "
+        f"{c_served_mesh} == {c_served}; health_check(mesh) {report}" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("a 1x1 mesh changed the images or the launches")
+    out["one_rank"] = {"launches": c_mesh, "engine_launches": c_served_mesh,
+                       "health_check": report}
+
+    # the one-process yardsticks of (b): each request alone at batch 1, and
+    # request 0 with kernel G
+    solo, c_solo = zip(*[counted_run(lambda i=i: pipe.generate_batch(
+        ["mesh"], **mesh_request(np, config, (i,))), f"solo{i}_s") for i in (0, 1)])
+    attn_mod._PACKED_OUT_PROJ = True
+    try:
+        pipe.generate_batch(["mesh"], **mesh_request(np, config, (0,)))  # warm-up
+        solo_pk, c_solo_pk = counted_run(lambda: pipe.generate_batch(
+            ["mesh"], **mesh_request(np, config, (0,))), "solo_packed_s")
+    finally:
+        attn_mod._PACKED_OUT_PROJ = False
+
+    # (b) two gloo processes on card 0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh")
+    os.makedirs(root, exist_ok=True)
+    tree_path = os.path.join(root, "tree.safetensors")
+    try:
+        t0 = time.perf_counter()
+        out["tree_bytes"] = save_converted(pipe.params, tree_path)
+        out["save_converted_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks([sys.executable, os.path.abspath(__file__), "--mesh-worker", tree_path, root],
+                  2, timeout=600)
+        out["ranks_s"] = time.perf_counter() - t0
+        reps, imgs = [], []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+            with np.load(os.path.join(root, f"rank{r}.npz")) as z:
+                imgs.append({k: z[k] for k in z.files})
+    finally:
+        for name in os.listdir(root):
+            os.remove(os.path.join(root, name))
+        os.rmdir(root)
+    log(f"mesh (b): gloo on CUDA tensors (torch {torch.__version__}): {reps[0]['collectives']}; "
+        f"one process, a request alone {out['solo0_s']:.3f}, {out['solo1_s']:.3f} s, packed "
+        f"{out['solo_packed_s']:.3f} s; the ranks' processes {out['ranks_s']:.1f} s")
+    refused = [k for k, v in reps[0]["collectives"].items() if v != "ok"]
+    if refused:
+        raise AssertionError(f"gloo refused collectives the mesh layer uses: {refused}")
+
+    def envelope(label, got, want):
+        gap = row_gap(want, got)
+        ok = gap["max_level_diff"] <= 1 and gap["mismatched_frac"] <= 0.03
+        log(f"mesh {label}: {gap['mismatched_pixels']} values differ "
+            f"({gap['mismatched_frac']:.4%}), max level diff {gap['max_level_diff']} "
+            "(envelope <= 1 level on <= 3%)" + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"mesh {label}: outside the batch-invariance envelope")
+        return gap
+
+    def main3(c):
+        return {k: c.get(k, 0) for k in ("conv3x3_slab", "conv3x3_slab_upsample",
+                                         "flash_attention")}
+
+    checks = []
+    for r in range(2):
+        dp = imgs[r]["dp"]
+        bitwise = all(np.array_equal(dp[i:i + 1], solo[i]) for i in (0, 1))
+        same = np.array_equal(dp, imgs[0]["dp"])
+        checks.append(bitwise and same and main3(reps[r]["dp"]["launches"]) == main3(c_solo[0]))
+        log(f"mesh (b) dp=2 rank {r}: rows == solo batch-1 rows bitwise {bitwise}, == rank 0's "
+            f"{same}; A/B/C {main3(reps[r]['dp']['launches'])} vs solo {main3(c_solo[0])}; "
+            f"{reps[r]['dp']['seconds']:.3f} s")
+    out["dp_vs_batch2"] = [envelope(f"dp=2 row {i} vs the one-process batch of 2",
+                                    imgs[0]["dp"][i:i + 1], batch2[i:i + 1]) for i in (0, 1)]
+    out["tp_vs_solo"] = envelope("tp=2 vs one process", imgs[0]["tp"], solo[0])
+    out["tp_packed_vs_solo"] = envelope("tp=2 packed vs one process packed",
+                                        imgs[0]["tp_packed"], solo_pk)
+    for r in range(2):
+        for label, want in (("tp", c_solo[0]), ("tp_packed", c_solo_pk)):
+            got_c = reps[r][label]["launches"]
+            flash = reps[r][label]["flash_calls"]
+            unet_heads = {q[1] for q, _, _ in flash if q[3] != 512}
+            vae = [q for q, _, _ in flash if q[3] == 512]
+            ab_ok = main3(got_c) == main3(want) and got_c.get(
+                "out_proj_packed", 0) == want.get("out_proj_packed", 0)
+            ok = (ab_ok and unet_heads == {heads // 2} and vae and all(q[1] == 1 for q in vae)
+                  and np.array_equal(imgs[r][label], imgs[0][label]))
+            checks.append(ok)
+            log(f"mesh (b) {label} rank {r}: C on {sorted(unet_heads)} of {heads} heads in the "
+                f"UNet, the VAE's single head gathered (q {vae[0] if vae else None}); A/B/C/G "
+                f"{main3(got_c)} G {got_c.get('out_proj_packed', 0)} vs one process "
+                f"{main3(want)} G {want.get('out_proj_packed', 0)}; "
+                f"{reps[r][label]['seconds']:.3f} s" + (" ok" if ok else " FAIL"))
+    log(f"mesh (b) rank 0: C and G (no bias, a zero residual, as tp launches it) at the "
+        f"shards' call shapes vs plain: max_abs_err "
+        f"{reps[0]['flash_attention_err']:.4g} / {reps[0]['out_proj_packed_err']:.4g}")
+    if not all(checks):
+        raise AssertionError("mesh (b): rows, heads or launches are off")
+    out["ranks"] = reps
+    out["solo_launches"] = c_solo[0]
+    out["solo_packed_launches"] = c_solo_pk
+    out["mesh_launches"] = {k: {"1x1": c_mesh.get(k, 0),
+                                **{f"{label}_rank{r}": reps[r][label]["launches"].get(k, 0)
+                                   for label in ("dp", "tp", "tp_packed") for r in range(2)}}
+                            for k in MESH_KERNELS}
     return out
 
 

@@ -27,13 +27,15 @@ from sdtpu_torch.ops import (
     quick_gelu,
 )
 from sdtpu_torch.ops.embedding import scaled_normal
+from sdtpu_torch.parallel.mesh import like
 from sdtpu_torch.utils import hostrng
 
 
 def _layer(stacked, i: int):
-    """Layer ``i`` of a stacked parameter tree."""
+    """Layer ``i`` of a stacked parameter tree (a tp-sharded projection's
+    dict keeps its split: ``parallel/mesh.py:like``)."""
     if isinstance(stacked, dict):
-        return {k: _layer(v, i) for k, v in stacked.items()}
+        return like(stacked, {k: _layer(v, i) for k, v in stacked.items()})
     return stacked[i]
 
 

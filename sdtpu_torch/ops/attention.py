@@ -38,6 +38,7 @@ from sdtpu_torch.kernels.flash_attention import flash_attention_packed, out_proj
 from sdtpu_torch.ops.activations import geglu
 from sdtpu_torch.ops.linear import init_linear, linear, linear_q8_dyn
 from sdtpu_torch.ops.norm import init_norm, layer_norm
+from sdtpu_torch.parallel.mesh import tp_of
 from sdtpu_torch.parallel.ring_attention import maybe_ring_attention
 from sdtpu_torch.utils import hostrng
 
@@ -57,25 +58,27 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head (self or cross) attention; x: (B, Lq, D), context:
     (B, Lk, Dctx) or None.  ``kv_cache``: precomputed cross-attention
-    ``{"k", "v"}`` (B, Lk, D).  ``residual`` is added to the output."""
+    ``{"k", "v"}`` (B, Lk, D), or this rank's columns of them under tp.
+    ``residual`` is added to the output."""
     b, lq, d = x.shape
     if d % num_heads:
         raise ValueError(f"width {d} not divisible by {num_heads} heads")
     head_dim = d // num_heads
+    heads = _Heads(params, num_heads, d)
     if implementation == "flash" and not causal and context is None:
         return _flash_attention_fused_projections(
-            x, params, num_heads=num_heads, head_dim=head_dim, residual=residual)
+            x, params, heads=heads, head_dim=head_dim, residual=residual)
     if implementation not in ("dense", "flash", "ring", "xla"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
 
     ctx = x if context is None else context
-    q = linear(x, params["q"]).reshape(b, lq, num_heads, head_dim)
+    q = heads.fit(linear(x, params["q"])).reshape(b, lq, heads.n, head_dim)
     if kv_cache is not None:
         k, v = kv_cache["k"], kv_cache["v"]
     else:
         k, v = linear(ctx, params["k"]), linear(ctx, params["v"])
-    k = k.reshape(b, k.shape[1], num_heads, head_dim)
-    v = v.reshape(b, v.shape[1], num_heads, head_dim)
+    k = heads.fit(k).reshape(b, k.shape[1], heads.n, head_dim)
+    v = heads.fit(v).reshape(b, v.shape[1], heads.n, head_dim)
     out = None
     if implementation == "ring" and not causal:
         out = maybe_ring_attention(q, k, v)
@@ -84,24 +87,62 @@ def attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     if out is None:
         out = _dense_attention(q, k, v, causal=causal)
-    out = out.reshape(b, lq, d)
+    out = heads.unfit(out.reshape(b, lq, heads.n * head_dim), params["out"])
     out = linear(out, params["out"])
     return out if residual is None else residual + out
 
 
+class _Heads:
+    """The heads attention runs on.  Without tp: all of them.  Under tp
+    (a projection of ``params`` holds a slice, ``parallel/mesh.py``): this
+    rank's ``num_heads / tp`` where tp divides the heads, else all of them,
+    q, k and v gathered over tp (the VAE's single head; GSPMD computes the
+    same function).  :meth:`fit` brings a projection's output, full width
+    or this rank's columns, to that layout; :meth:`unfit` brings o to what
+    the out-projection takes."""
+
+    def __init__(self, params: dict, num_heads: int, width: int):
+        meshes = [tp_of(params.get(name)) for name in ("q", "k", "v", "out")]
+        self.mesh = next((m for m in meshes if m is not None), None)
+        self.width = width
+        self.local = self.mesh is not None and num_heads % self.mesh.tp == 0
+        self.n = num_heads // self.mesh.tp if self.local else num_heads
+
+    def fit(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        full = t.shape[-1] == self.width
+        if self.local:
+            return self.mesh.tp_local(t) if full else t
+        return t if full else self.mesh.tp_gather(t)
+
+    def unfit(self, o: torch.Tensor, po: dict) -> torch.Tensor:
+        """o (..., n * head_dim): a replicated out-projection (int8) takes
+        every head's columns; a row-parallel one cuts what it needs."""
+        if self.local and getattr(po, "split", None) != "row":
+            return self.mesh.tp_gather(o)
+        return o
+
+
 def _flash_attention_fused_projections(
-    x: torch.Tensor, params: dict, *, num_heads: int, head_dim: int,
+    x: torch.Tensor, params: dict, *, heads: _Heads, head_dim: int,
     residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Self-attention through the flash kernel: the q/k/v projections emit
     (B, H, L, Dh), the kernel returns (B, H, L, Dh), and the out-projection
     contracts heads and head dim with a (H, Dh, C) view of its kernel.
     Quantized q/k/v projections are ``linear_q8`` per output feature (the
-    port keeps the real head dim, so there is no lane pad to keep zero)."""
+    port keeps the real head dim, so there is no lane pad to keep zero).
+
+    Under tp (``heads``) H is this rank's heads, and a row-parallel
+    out-projection contracts them (or, where all heads ran here, this
+    rank's columns of o as one head) into a partial sum -- kernel G with a
+    zero residual and no bias under the packed flag, rounded once per rank
+    -- then sums over tp, adds the bias, then the residual."""
     b, l, c = x.shape
 
     def head_proj(p):
-        out = linear(x, p).reshape(b, l, num_heads, head_dim)
+        out = heads.fit(linear(x, p)).reshape(b, l, heads.n, head_dim)
         return out.permute(0, 2, 1, 3).contiguous()
 
     o = flash_attention_packed(head_proj(params["q"]), head_proj(params["k"]),
@@ -112,9 +153,22 @@ def _flash_attention_fused_projections(
         # heads and lanes -- taken whenever the weight is int8, a calibrated
         # static scale included, as the JAX package's flash route does
         # (sdtpu/ops/attention.py:170-187)
-        out = linear_q8_dyn(o.permute(0, 2, 1, 3).reshape(b, l, c), po)
+        out = linear_q8_dyn(heads.unfit(o.permute(0, 2, 1, 3).reshape(b, l, -1), po), po)
         return out if residual is None else residual + out
-    wo = po["kernel"].to(x.dtype).reshape(num_heads, head_dim, c)
+    mesh = tp_of(po)
+    if mesh is not None and not heads.local:
+        o = mesh.tp_local(o.permute(0, 2, 1, 3).reshape(b, l, c))
+        o = o.reshape(b, l, 1, -1).permute(0, 2, 1, 3).contiguous()
+    wo = po["kernel"].to(x.dtype).reshape(o.shape[1], o.shape[3], c)
+    if mesh is not None:
+        if residual is not None and _PACKED_OUT_PROJ:
+            out = out_proj_packed(o, wo, None, torch.zeros_like(residual))
+        else:
+            out = torch.einsum("bhld,hdc->blc", o, wo)
+        out = mesh.tp_all_reduce(out)
+        if "bias" in po:
+            out = out + po["bias"].to(out.dtype)
+        return out if residual is None else residual + out
     if residual is not None and _PACKED_OUT_PROJ:
         return out_proj_packed(o, wo, po.get("bias"), residual)
     out = torch.einsum("bhld,hdc->blc", o, wo)

@@ -3,7 +3,8 @@ its int8 (W8A8) forms.
 
 Counterpart of ``sdtpu/ops/linear.py``.  ``linear`` dispatches on the dict:
 ``kernel_q`` with ``act_scale`` is the static W8A8 :func:`linear_q8`,
-``kernel_q`` alone the run-time-scaled :func:`linear_q8_dyn`.  The int8
+``kernel_q`` alone the run-time-scaled :func:`linear_q8_dyn`; a
+projection ``shard_params_tp`` split by rows reduces over tp.  The int8
 products are exact integer sums (:func:`int8_matmul`), never accumulated in
 a float type.
 """
@@ -16,6 +17,7 @@ import threading
 import numpy as np
 import torch
 
+from sdtpu_torch.parallel.mesh import tp_of
 from sdtpu_torch.utils import hostrng
 from sdtpu_torch.utils.quant import quantize_act
 
@@ -77,11 +79,29 @@ def int8_matmul(q: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
     _maybe_capture(x, params)
+    mesh = tp_of(params)
+    if mesh is not None and params.split == "row":
+        return _row_parallel(x, params, mesh)
     if "kernel_q" in params:
         if "act_scale" in params:
             return linear_q8(x, params)
         return linear_q8_dyn(x, params)
     out = torch.matmul(x, params["kernel"].to(x.dtype))
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def _row_parallel(x: torch.Tensor, params: dict, mesh) -> torch.Tensor:
+    """A row-parallel projection (``parallel/mesh.py``): this rank's rows of
+    the kernel against its columns of ``x`` (a full-width ``x``, from a
+    replicated producer, is cut to them), the sum over tp, then the bias
+    once."""
+    kernel = params["kernel"]
+    if x.shape[-1] != kernel.shape[0]:
+        x = mesh.tp_local(x)
+    out = mesh.tp_all_reduce(torch.matmul(x, kernel.to(x.dtype)))
     bias = params.get("bias")
     if bias is not None:
         out = out + bias.to(out.dtype)

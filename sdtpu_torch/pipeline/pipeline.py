@@ -82,6 +82,7 @@ from sdtpu_torch.models.unet import (
 from sdtpu_torch.models.vae import vae_decode, vae_encode
 from sdtpu_torch.ops.resize import resize_image
 from sdtpu_torch.ops.embedding import timestep_embedding
+from sdtpu_torch.parallel.mesh import Mesh, sharded_mesh, tp_context
 from sdtpu_torch.samplers import get_sampler, slice_schedule
 from sdtpu_torch.utils import prng
 from sdtpu_torch.utils.image import from_uint8, to_uint8
@@ -259,14 +260,6 @@ def apply_token_weights(hidden: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return (h32 * w * ratio).to(hidden.dtype)
 
 
-def later(checks) -> None:
-    """Raise NotImplementedError for the first used feature of a later
-    slice: ``checks`` is [(name, used, slice)]."""
-    for name, used, where in checks:
-        if used:
-            raise NotImplementedError(f"{name} belongs to the {where}")
-
-
 class StableDiffusionPipeline:
     """Tokenize on the host -> encode, denoise and decode on ``device``."""
 
@@ -367,6 +360,7 @@ class StableDiffusionPipeline:
                 logging.getLogger("sdtpu_torch.pipeline").info(
                     "quantize_int8: few-step preset %s: the int8 VAE decoder path "
                     "is on (pass vae=False to leave it float)", self.config.name)
+        self._refuse_sharded("quantize_int8")
         self.params = quantize_pipeline_int8(self.params, vae=vae, **kw)
         return self
 
@@ -379,10 +373,13 @@ class StableDiffusionPipeline:
         or the JAX package's tree as numpy arrays, each leaf keeping its
         dtype), or a list of either: multi-ControlNet, one control map per
         net, the residuals summed, one scale per net or one for all.  The
-        tree stays float on an int8 pipeline, as in the JAX package."""
+        tree stays float on an int8 pipeline, as in the JAX package.  A tree
+        from ``shard_params_tp`` is kept as it is."""
         from sdtpu_torch.utils.weights import load_controlnet_params, params_from_numpy
 
         def load_one(cn):
+            if sharded_mesh(cn) is not None:  # shard_params_tp's tree, on its device
+                return cn
             if isinstance(cn, str):
                 return load_controlnet_params(cn, self.config.unet,
                                               dtype=self.config.param_dtype, device=self.device)
@@ -441,6 +438,7 @@ class StableDiffusionPipeline:
         from sdtpu_torch.utils.lora import apply_lora
         from sdtpu_torch.utils.weights import load_safetensors
 
+        self._refuse_sharded("load_lora")
         sd = load_safetensors(lora) if isinstance(lora, str) else lora
         self.params, report = apply_lora(self.params, sd, scale=scale)
         for key, orig in report.pop("originals").items():
@@ -472,6 +470,7 @@ class StableDiffusionPipeline:
         from sdtpu_torch.utils.textual_inversion import apply_textual_inversion
         from sdtpu_torch.utils.weights import load_safetensors
 
+        self._refuse_sharded("load_textual_inversion")
         sd = load_safetensors(embeds) if isinstance(embeds, str) else embeds
         self.params, registered = apply_textual_inversion(self.params, sd, token=token)
         if self.tokenizer is not None:
@@ -764,10 +763,21 @@ class StableDiffusionPipeline:
         negative prompt; ``token_weights`` are (B, L) floats aligned with
         ``token_ids`` (the uncond rows weigh 1).  ``output`` as in
         :meth:`generate`, but ``"latents"`` returns the decoded float
-        images, as the JAX package's ``generate_batch`` does.  ``mesh``
-        raises NotImplementedError."""
-        later([("generate_batch(mesh=...)", mesh is not None,
-                "multi-card slice (dp/tp meshes, global_mesh)")])
+        images, as the JAX package's ``generate_batch`` does.
+
+        ``mesh`` (``parallel.make_mesh``/``global_mesh``; every rank of it
+        makes the same call): B must divide by dp, and this rank serves the
+        dp block of requests ``r * B/dp ... (r + 1) * B/dp - 1`` with all of
+        their rows (cond, uncond, images, masks, control maps, weights,
+        keys; a scalar ``seed`` draws the whole batch's noise and keeps the
+        block's), so that a row equals its unsharded row.  A plain tree
+        runs replicated (every tp rank of a dp block computes the same
+        rows); a tree from ``shard_params_tp(params, mesh)`` runs
+        Megatron-style under ``tp_context(mesh)``.  The images are
+        gathered over dp: every rank returns the whole batch."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a sdtpu_torch.parallel mesh (make_mesh, "
+                            f"global_mesh), not {type(mesh).__name__}")
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         cfg = self.config.default_cfg if cfg is None else cfg
@@ -867,13 +877,34 @@ class StableDiffusionPipeline:
                 if len(mask_images) != len(init_images):
                     raise ValueError("mask_images must match init_images in length")
                 masks = np.concatenate([self._prep_mask(m, size) for m in mask_images])
-        return self._request(ids, key, size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
-                             sampler=sampler, strength=strength,
-                             image_guidance_scale=image_guidance_scale, images=images,
-                             masks=masks, output="float" if output == "latents" else output,
-                             clip_skip=clip_skip, token_weights=weights,
-                             control=(self._control_rows(control_images, controlnet_scale, size)
-                                      if has_control else None), **features)
+        control = (self._control_rows(control_images, controlnet_scale, size)
+                   if has_control else None)
+        run = dict(size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale, sampler=sampler,
+                   strength=strength, image_guidance_scale=image_guidance_scale,
+                   clip_skip=clip_skip, **features)
+        if mesh is None:
+            return self._request(ids, key, images=images, masks=masks, token_weights=weights,
+                                 output="float" if output == "latents" else output,
+                                 control=control, **run)
+        self._check_mesh(mesh)
+        n = cond.shape[0]
+        rows = mesh.dp_rows(n)
+
+        def block(a):  # this rank's requests in each n-row block of a
+            return None if a is None else np.concatenate(
+                [a[i:i + n][rows] for i in range(0, a.shape[0], n)])
+
+        if key.ndim == 2:
+            key = key[rows]
+        with tp_context(mesh):
+            out = self._request(block(ids), key, images=block(images), masks=block(masks),
+                                token_weights=block(weights),
+                                output="device" if output in ("uint8", "device") else "float",
+                                control=(None if control is None else
+                                         [(net, block(maps), s) for net, maps, s in control]),
+                                batch_rows=None if key.ndim == 2 else (rows, n), **run)
+        out = mesh.dp_gather(torch.as_tensor(out, device=self.device))
+        return out if output == "device" else out.cpu().numpy()
 
     def warmup(self, *, image_sizes=(512,), step_counts=(25,), batch_sizes=(1,),
                cfg: bool = True, sampler: str = "ddpm", img2img: bool = False,
@@ -1164,11 +1195,13 @@ class StableDiffusionPipeline:
     def _request(self, ids, key, *, size, steps, cfg, cfg_scale, sampler, strength,
                  image_guidance_scale, images=None, masks=None, latents=None,
                  output="uint8", clip_skip=0, token_weights=None, denoising_end=None,
-                 denoising_start=None, **features):
+                 denoising_start=None, batch_rows=None, **features):
         """Draw a request's noise from ``key`` (scalar or per-request) as the
         JAX program does, then run :meth:`txt2img` or :meth:`img2img` with
         ``features`` (:meth:`denoise`'s).  The schedule is cut at
-        ``denoising_start``, then at ``denoising_end``."""
+        ``denoising_start``, then at ``denoising_end``.  ``batch_rows``
+        (rows, n): the request is that block of a batch of n under one
+        scalar key, whose noise is drawn whole and cut to the block."""
         if output not in OUTPUTS:
             raise ValueError(f"unknown output {output!r}")
         sdef = get_sampler(sampler)
@@ -1196,9 +1229,13 @@ class StableDiffusionPipeline:
         else:
             program = "txt2img"
             shape = (ids.shape[0] // 2 if cfg else ids.shape[0], *lat_shape)
+        if batch_rows is not None:
+            shape = (batch_rows[1], *shape[1:])
         with stage("noise"):
             draws = request_noise(key, n_noise, shape, self.device, program=program,
                                   graphs=self._draws)
+        if batch_rows is not None:
+            draws = draws[:, batch_rows[0]]
         n_head = len(PROGRAMS[program])
         heads = draws[:n_head]
         noise = draws[n_head:] if sdef.stochastic else None
@@ -1215,6 +1252,24 @@ class StableDiffusionPipeline:
                             masks=masks,
                             masked_noise=heads[2] if program == "inpaint" else None,
                             image_guidance_scale=image_guidance_scale, **run)
+
+    def _check_mesh(self, mesh: Mesh) -> None:
+        """A tree sharded for another mesh does not run on this one."""
+        trees = [("parameters", self.params)]
+        if self.controlnet is not None:
+            trees += [("ControlNet", net) for net in self._controlnets()]
+        for name, tree in trees:
+            own = sharded_mesh(tree)
+            if own is not None and own != mesh:
+                raise ValueError(f"the {name} were sharded for {own}, not for the "
+                                 f"request's {mesh}")
+
+    def _refuse_sharded(self, what: str) -> None:
+        """Fusing into the leaves needs whole leaves, not tp slices."""
+        own = sharded_mesh(self.params)
+        if own is not None:
+            raise ValueError(f"{what} fuses into whole leaves: call it before "
+                             f"shard_params_tp (these parameters are sharded for {own})")
 
     def _encode(self, ids, clip_skip: int, *, size: int, cfg: bool, token_weights=None):
         """Token rows -> ``(context, added_cond)``.  SD 1.x: one encoder's

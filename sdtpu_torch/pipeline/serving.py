@@ -18,12 +18,26 @@ most 3% of values).
 The worker keeps two batches in flight: it dispatches batch N+1
 (``output="device"``) before it fetches batch N.  A transient error
 retries a batch once; a ValueError or TypeError fails its futures at once.
+
+With a ``mesh`` every device batch runs as ``generate_batch(mesh=)``, its
+rows split over dp; a chunk that does not divide by dp (a lone request, a
+tail) is padded to a multiple of dp with copies of its last request, whose
+extra images are dropped.  The JAX engine lives in one controller process; the
+port's ranks are separate processes (``parallel/mesh.py``), whose own
+timers, retries and pipelining would make different batches.  So on a mesh
+of several ranks every rank builds the engine, rank 0 alone takes requests
+and decides each device batch (its retries and failures too), and
+broadcasts each ``generate_batch`` call to the other ranks, which replay it
+in a follower loop until rank 0's ``shutdown``.  A rank that fails alone
+inside a collective (a lost card) leaves the others waiting in it.  A mesh
+of one rank serves as no mesh does.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import queue
 import threading
 import time
@@ -31,6 +45,9 @@ from concurrent.futures import Future
 from typing import List, Optional
 
 import numpy as np
+import torch.distributed as dist
+
+from sdtpu_torch.parallel.mesh import Mesh
 
 _FAILED = object()  # dispatch sentinel: the batch is already resolved with an error
 
@@ -102,11 +119,18 @@ class ServingEngine:
     def __init__(self, pipeline, *, max_batch_size: int = 8, max_wait_ms: float = 20.0,
                  max_retries: int = 1, device_batch_size: Optional[int] = DEFAULT_DEVICE_BATCH,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) belongs to the multi-card slice (dp/tp meshes)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a sdtpu_torch.parallel mesh (make_mesh, "
+                            f"global_mesh), not {type(mesh).__name__}")
         if device_batch_size is not None and device_batch_size < 1:
             raise ValueError("device_batch_size must be >= 1")
+        if mesh is not None and device_batch_size is not None and device_batch_size % mesh.dp:
+            raise ValueError(f"device_batch_size {device_batch_size} must be a multiple of "
+                             f"dp={mesh.dp}")
+        self.mesh = mesh
+        # several ranks: rank 0 leads, the others replay its calls
+        self._spmd = mesh is not None and mesh.size > 1
+        self._follower = self._spmd and mesh.rank != 0
         self.pipeline = pipeline
         self.max_batch_size = max_batch_size
         # rows per device request: a collected batch larger than this runs
@@ -122,7 +146,8 @@ class ServingEngine:
                        "batch_seconds": 0.0}
         # rolling submit -> resolve latencies (p50/p95 in stats())
         self._latencies: "collections.deque[float]" = collections.deque(maxlen=1024)
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(target=self._follow if self._follower else self._run,
+                                        daemon=True)
         self._worker.start()
 
     def stats(self) -> dict:
@@ -158,6 +183,9 @@ class ServingEngine:
         or ``token_weights`` beside ``token_ids``); the future resolves to an
         (H, W, 3) uint8 image.  Unset knobs resolve to the preset's defaults
         here, so that the bucket is well defined."""
+        if self._follower:
+            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0's batches: submit "
+                               "requests to rank 0")
         if self._shutdown.is_set():
             raise RuntimeError("engine is shut down")
         if mask_image is not None and init_image is None:
@@ -199,6 +227,8 @@ class ServingEngine:
         return self.submit(prompt, **kw).result()
 
     def shutdown(self, wait: bool = True) -> None:
+        """Serve what is queued, then stop; rank 0's also ends the followers
+        (a follower's waits for it)."""
         self._shutdown.set()
         if wait:
             self._worker.join(timeout=60)
@@ -244,6 +274,12 @@ class ServingEngine:
         return batch
 
     def _gen_kwargs(self, batch: List[_Request]) -> tuple:
+        """``generate_batch``'s arguments for ``batch``.  On a mesh, a chunk
+        whose size does not divide by dp is padded with copies of its last
+        request (per-request keys keep the other rows as they are); the
+        padded rows' images are never read."""
+        if self.mesh is not None:
+            batch = batch + batch[-1:] * (-len(batch) % self.mesh.dp)
         first = batch[0]
         token_ids = (None if any(r.token_ids is None for r in batch)
                      else np.stack([np.asarray(r.token_ids) for r in batch]))
@@ -277,7 +313,7 @@ class ServingEngine:
         TypeError has failed the batch's futures."""
         try:
             prompts, kw = self._gen_kwargs(batch)
-            return self.pipeline.generate_batch(prompts, output="device", **kw)
+            return self._generate(prompts, output="device", **kw)
         except (ValueError, TypeError) as exc:  # deterministic: no retry
             with self._lock:
                 self._stats["failures"] += len(batch)
@@ -289,6 +325,31 @@ class ServingEngine:
             with self._lock:
                 self._stats["retries"] += 1
             return None
+
+    def _generate(self, prompts, **kw):
+        """``generate_batch`` on the mesh; rank 0 of several first sends
+        the call to the followers."""
+        if self.mesh is None:
+            return self.pipeline.generate_batch(prompts, **kw)
+        if self._spmd:
+            dist.broadcast_object_list([(prompts, kw)], src=0)
+        return self.pipeline.generate_batch(prompts, mesh=self.mesh, **kw)
+
+    def _follow(self) -> None:
+        """A follower rank: replay rank 0's calls until its shutdown (None).
+        A call that fails here fails on rank 0 too, which resolves its
+        futures; the follower logs it and goes on."""
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is None:
+                return
+            prompts, kw = msg[0]
+            try:
+                self.pipeline.generate_batch(prompts, mesh=self.mesh, **kw)
+            except Exception:  # the loop must keep following
+                logging.getLogger("sdtpu_torch.serving").exception(
+                    "rank %d: a replayed batch failed", self.mesh.rank)
 
     def _record(self, batch: List[_Request], images, t0) -> None:
         now = time.monotonic()
@@ -319,7 +380,7 @@ class ServingEngine:
         prompts, kw = self._gen_kwargs(batch)
         for attempt in range(self.max_retries + 1):
             try:
-                images = self.pipeline.generate_batch(prompts, **kw)
+                images = self._generate(prompts, **kw)
             except Exception as exc:  # resolve the futures; the worker lives on
                 if not isinstance(exc, (ValueError, TypeError)) and attempt < self.max_retries:
                     with self._lock:
@@ -362,3 +423,5 @@ class ServingEngine:
                     self._resolve(*inflight.popleft())
             while len(inflight) > 1:
                 self._resolve(*inflight.popleft())
+        if self._spmd:
+            dist.broadcast_object_list([None], src=0)  # end the followers

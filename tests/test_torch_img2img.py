@@ -374,7 +374,8 @@ def test_edit_checks_raise_as_jax_does(pipes8, method, kw):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"mesh": object()}, "multi-card"),
+    # a mesh runs now (tests/test_torch_mesh.py); one that is no mesh raises
+    pytest.param({"mesh": object()}, "mesh must be", id="kw0-multi-card"),
     ({"control_images": [INIT, INIT]}, "load_controlnet"),
     # the text features run now; their refusals are the JAX package's
     pytest.param({"prompt_weighting": True}, "parses the prompt strings",
@@ -386,15 +387,15 @@ def test_edit_checks_raise_as_jax_does(pipes8, method, kw):
     ({"encoder_cache_interval": 0}, "encoder_cache_interval must be >= 1"),
 ])
 def test_generate_batch_later_slices_raise(pipes, kw, slice_name):
-    """A mesh belongs to a later slice (NotImplementedError naming it); the
-    step features raise the JAX package's ValueError for an invalid value,
-    in both packages, as control maps do with no ControlNet loaded, and
-    prompt weights with token ids or token weights of another shape."""
+    """A mesh that is not the port's raises TypeError; the step features
+    raise the JAX package's ValueError for an invalid value, in both
+    packages, as control maps do with no ControlNet loaded, and prompt
+    weights with token ids or token weights of another shape."""
     j, t = pipes
-    later = "mesh" in kw
-    with pytest.raises(NotImplementedError if later else ValueError, match=slice_name):
+    is_mesh = "mesh" in kw
+    with pytest.raises(TypeError if is_mesh else ValueError, match=slice_name):
         t.generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1, **kw)
-    if not later:
+    if not is_mesh:
         with pytest.raises(ValueError, match=slice_name):
             j.generate_batch(["x", "y"], token_ids=np.stack(TOKENS), num_inference_steps=1,
                              **kw)

@@ -183,9 +183,9 @@ def test_later_slices_raise(port_pipe, kwargs, error, match):
 
 def test_generate_batch_and_other_routes_raise(port_pipe):
     """``"xla"`` is a route now (``test_xla_route_matches_jax_within_one_level``);
-    a name that is no route raises; ``generate_batch`` runs, but a mesh
-    belongs to the multi-card slice."""
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    a name that is no route raises; ``generate_batch`` runs, and a mesh that
+    is not the port's raises TypeError."""
+    with pytest.raises(TypeError, match="mesh must be"):
         port_pipe.generate_batch(["x"], token_ids=TOKENS[:1], mesh=object())
     for impl in ("xla", "flash", "ring", "auto"):
         StableDiffusionPipeline(TTINY.replace(attention_impl=impl), port_pipe.params,

@@ -268,7 +268,7 @@ def test_submit_refuses_fields_of_later_slices(pipe, kw, slice_name):
 
 
 def test_engine_checks_and_shutdown(pipe):
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(TypeError, match="mesh must be"):
         ServingEngine(pipe, mesh=object())
     with pytest.raises(ValueError, match="device_batch_size"):
         ServingEngine(pipe, device_batch_size=0)
