@@ -244,6 +244,50 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               are printed.  The ``kernels`` line's A, B, C and G rows carry
               the phase's launches as ``mesh_launches``.  About 25 s, the
               two ranks' processes ~22 s of it.
+20. fidelity -- the on-card fidelity gates and the presets no earlier phase
+              runs, each part with its own lines and ``details`` entry:
+              (a) ``tools/device_precision`` at tiny-sd 512x512 through its
+              functions: CLIP, one CFG-batched UNet forward and one VAE
+              decode, bf16 through kernels A, B and C against float32 on
+              the library route (TF32 off), gated at the JAX tool's values;
+              (b) ``tools/check_int8`` at tiny-sd 512x512, 25 steps: D
+              against A at (2, 16, 16, 1280), one UNet forward and one
+              decode int8 against bf16, the pipeline's int8-vs-bf16 PSNR
+              against the bf16-vs-float32 control (the library route in
+              float32: the kernels take bf16 only), gated at the JAX tool's
+              values (phase 8's int8 VAE PSNR is printed there, gated
+              here); (c) ``sd21`` at 768x768 (``from_random`` on the host, a
+              warm-up and one timed 25-step v-prediction image, s/image and
+              peak memory), its launches held to its recorded calls beside
+              the configs' reading, every new A/B/C call configuration held
+              to its plain version, one UNet forward (b2 96x96) kernels vs
+              plain vs float32; (d) ``sdxl`` in int8 on phase 16's shapes
+              with the int8 gate's weights drawn on the card (norm scales
+              ones, biases zeros): ``quantize_int8(transformer=True,
+              vae=True)``'s host seconds, one 10-step 1024x1024 image with
+              its launches held and D's count read from the tree, kernel D
+              checked and timed at every call configuration phase 8 did not
+              run (beside its bound, plain version, kernel A and cuDNN
+              bf16), then ``check_int8``'s gates on the tool's own int8
+              tree (the UNet's convs): the UNet forward (b2 128x128, the
+              add-embedding) measured, not gated (gate 2 at SDXL is open:
+              PERF.md section 6), beside its bf16-vs-float32 yardstick and
+              its split by part (int8 in the encoder's, the mid block's or
+              the decoder's resnets alone), the 1024x1024 decode and the
+              10-step pipeline margin gated; the margin of the served
+              ``transformer=True`` tree printed beside it; (e) ``sdxl-inpaint`` on phase 16's tree with a
+              9-channel conv_in drawn from ``init_unet``'s key for it
+              (= its ``from_random``), one 1024x1024 10-step request at
+              strength 1 with an init image and a mask (two 1024x1024 VAE
+              encodes), launches held, new shapes held to plain; (f) one
+              ControlNet at 1024x1024, its encoder half phase 16's UNet
+              leaves (checked key by key against ``init_controlnet``'s
+              shapes), its cond embedding drawn from its key, the zero
+              convs and conv_out drawn on the card: a 10-step image with
+              its launches held beside the configs' reading, one step's
+              residuals and the UNet output with them kernels vs plain vs
+              float32, the new A/C shapes held to plain.  Phase 16 keeps
+              its ``sdxl`` tree for (d)-(f).
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -878,13 +922,14 @@ def record_main_path_calls(torch, pipe, ids):
 
 
 def expected_launches(calls, keys):
-    """The launches of every kernel that a bf16 run's recorded calls
-    (:func:`record_calls`) make: one A, B or C a call, the pre-passes,
+    """The launches of every kernel that a run's recorded calls
+    (:func:`record_calls`) make: one A, B, C or D a call, the pre-passes,
     split-K reductions and merges from the plans, 0 for the rest of
     ``keys``."""
     slab = calls["conv3x3_slab"]
     expected = dict.fromkeys(keys, 0)
-    expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4])
+    expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4] and not c[6])
+    expected["conv3x3_slab_int8"] = sum(n for c, n in slab.items() if c[6])
     expected["conv3x3_slab_upsample"] = sum(n for c, n in slab.items() if c[4])
     expected["flash_attention"] = sum(calls["flash_attention_packed"].values())
     expected.update(conv_sub_counts(slab), **flash_sub_counts(calls))
@@ -1567,12 +1612,7 @@ def main() -> int:
         f"{counterparts['cudnn_bf16_ms']:.3f} ms; D {totals['conv3x3_slab_int8']['ms']:.3f} ms")
     details["int8_float_counterparts_per_image"] = counterparts
 
-    uparams = pipe_q.params["unet"]
-    n_unet = sum(len(b["resnets"]) for b in uparams["down_blocks"] + uparams["up_blocks"])
-    n_unet += len(uparams["mid_block"]["resnets"]) if "mid_block" in uparams else 0
-    vparams = pipe_q.params["vae_decoder"]
-    n_vae = len(vparams["mid_block"]["resnets"]) + sum(len(b["resnets"])
-                                                       for b in vparams["up_blocks"])
+    n_unet, n_vae = unet_resnets(pipe_q.params["unet"]), unet_resnets(pipe_q.params["vae_decoder"])
     d_expected = 2 * n_unet * STEPS + 2 * n_vae
     log(f"int8: {n_unet} UNet resnets x 2 convs x {STEPS} steps + {n_vae} VAE resnets x 2 "
         f"convs = {d_expected} int8 slab convs per image")
@@ -1631,7 +1671,7 @@ def main() -> int:
     mse = float((kq_vae - k_vae).square().mean())
     vae_psnr = 10.0 * math.log10(4.0 / mse) if mse > 0 else float("inf")
     log(f"int8 VAE decode vs bf16 decode (kernels, same latents): PSNR {vae_psnr:.2f} dB "
-        f"(range 2, for information)")
+        f"(range 2, for information; phase 20 (b) gates it on check_int8's weights)")
     q_control["vae_decode_psnr_db"] = vae_psnr
     details["int8_control"] = q_control
 
@@ -1685,8 +1725,8 @@ def main() -> int:
     # phase 16: the SDXL family and LCM's guidance embedding
     pipe.params = None
     torch.cuda.empty_cache()
-    details["sdxl"] = sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts,
-                                 kind, exp_rate)
+    details["sdxl"], xl_params, xl_held = sdxl_phase(torch, np, gen, sd15_host, launch_counts,
+                                                     reset_launch_counts, kind, exp_rate)
     t7 = time.perf_counter()
 
     # phase 17: ControlNet and the denoise step's features (sd15; tiny-sd's
@@ -1709,11 +1749,21 @@ def main() -> int:
     details["mesh"] = mesh_phase(torch, np, launch_counts, reset_launch_counts)
     t10 = time.perf_counter()
     log(f"phase 19 (mesh): {t10 - t9:.1f} s")
+
+    # phase 20: the fidelity gates (device_precision, check_int8) and the
+    # presets no earlier phase ran (sd21, sdxl in int8, sdxl-inpaint, an
+    # SDXL ControlNet) on phase 16's tree
+    torch.cuda.empty_cache()
+    int8_held = {(tuple(c["x"]), c["co"], c["res"], c["stats"]) for c in details["int8_configs"]}
+    details["fidelity"] = fidelity_phase(torch, np, gen, xl_params, xl_held, int8_held,
+                                         launch_counts, reset_launch_counts)
+    del xl_params
+    t11 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
                           "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
                           "sdxl": t7 - t6, "features": t8 - t7, "text": t9 - t8,
-                          "mesh": t10 - t9}
-    log("phases 10-19 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "mesh": t10 - t9, "fidelity": t11 - t10}
+    log("phases 10-20 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
 
     kernels = []
@@ -2919,19 +2969,23 @@ def held_run(torch, label, run, calls, launch_counts, reset_launch_counts, predi
     return out, sec, counts, peak
 
 
-def card_normal_tree(torch, like, seed, scale=0.04):
+def card_normal_tree(torch, like, seed, scale=0.04, norms=False):
     """The batch-invariance gate's weights (``tools/check_batch_invariance``:
     ``scale`` x standard normals, rounded to each leaf's dtype) for the tree
     of ``like``, drawn on the card by a seeded torch generator: the JAX
     tool's numpy draws of SDXL's 3.5 G values cost tens of seconds of host
-    time."""
+    time.  ``norms``: the int8 gate's rule (``tools/check_int8.py``), a 1-D
+    ``scale`` leaf ones and a 1-D ``bias`` leaf zeros."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def draw(t):
+    def draw(t, name=None):
         if isinstance(t, dict):
-            return {k: draw(v) for k, v in t.items()}
+            return {k: draw(v, k) for k, v in t.items()}
         if isinstance(t, list):
             return [draw(v) for v in t]
+        if norms and t.ndim == 1 and name in ("scale", "bias"):
+            return (torch.ones if name == "scale" else torch.zeros)(
+                t.shape, dtype=t.dtype, device="cuda")
         return (torch.randn(t.shape, generator=gen, device="cuda") * scale).to(t.dtype)
 
     return draw(like)
@@ -3033,7 +3087,8 @@ def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, ki
     (a request, ``generate_batch`` of 4 and the ServingEngine on the gate's
     weights), the base -> refiner handoff, ``lcm-sd15`` (each later
     request's new A/B/C call shapes held to their plain versions), and the
-    bench's SDXL lines."""
+    bench's SDXL lines.  Returns its details, the ``sdxl`` tree (kept for
+    phase 20) and the A/B/C call configurations it held."""
     from sdtpu_torch import StableDiffusionPipeline, bench
     from sdtpu_torch.config import get_preset
     from sdtpu_torch.models.unet import init_unet, unet_forward
@@ -3227,8 +3282,6 @@ def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, ki
                                              "vae_encoder": base.params["vae_encoder"],
                                              "vae_decoder": base.params["vae_decoder"]},
                                       device="cuda")
-    base.params.pop("unet")
-    torch.cuda.empty_cache()
     log(f"sdxl-refiner: its UNet drawn in {r_s:.3f} s on the host")
     rkw = dict(kw, latents=head, denoising_start=SPLIT)
     rcalls = request_calls(torch, refiner, rkw, n_tail)
@@ -3244,6 +3297,7 @@ def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, ki
     out["handoff"] = {"head_steps": n_head, "tail_steps": n_tail, "head_s": sec_h,
                       "tail_s": sec_r, "refiner_unet_s": r_s, "head_launches": hcounts,
                       "tail_launches": rcounts, "peak_bytes": peak}
+    xl_params = base.params  # phase 20's SDXL int8, inpaint and ControlNet requests
     del refiner, base, r_unet
     torch.cuda.empty_cache()
 
@@ -3294,7 +3348,7 @@ def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, ki
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 16: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
         f"versions: {out['shapes_held']} ({len(held)} in all)")
-    return out
+    return out, xl_params, held
 
 
 # --------------------------------------------- ControlNet and step features --
@@ -4127,6 +4181,363 @@ def mesh_phase(torch, np, launch_counts, reset_launch_counts):
                                 **{f"{label}_rank{r}": reps[r][label]["launches"].get(k, 0)
                                    for label in ("dp", "tp", "tp_packed") for r in range(2)}}
                             for k in MESH_KERNELS}
+    return out
+
+
+# ----------------------------------- fidelity and the presets no card ran --
+
+FID_STEPS = 25             # check_int8's pipeline gate at tiny-sd (the tool's default)
+XL_STEPS = 10              # the SDXL int8, sdxl-inpaint and SDXL ControlNet images (cut from 25)
+# A/B/C per UNet step, read from the configs (the recorded calls decide):
+# sd21 has sd15's topology (22 resnets, 3 upsamplers, 16 transformer blocks)
+# at head dim 64, but at 768x768 its deepest level's map is 12 x 12, no
+# multiple of 8, so that level's 7 resnets (down 2, mid 2, up 3) take the
+# op path, not the slab; an SDXL ControlNet's encoder copy 8 resnets and
+# 4 + 20 + 10 transformer blocks
+SD21_STEP = {"conv3x3_slab": 30, "conv3x3_slab_upsample": 3, "flash_attention": 16}
+XL_CN_STEP = {"conv3x3_slab": 16, "conv3x3_slab_upsample": 0, "flash_attention": 34}
+
+
+def gate_values(values, gates):
+    """Each ``(name, gate, "lt"|"gt")`` of ``gates`` held on ``values``
+    (``tools.verdict``): logs them and fails on any that does not hold."""
+    from sdtpu_torch.tools import verdict
+
+    res = verdict(values, gates, 4, {})
+    log("  " + ", ".join(f"{name} {values[name]:.4f} ({'<' if d == 'lt' else '>'} {gate})"
+                         for name, gate, d in gates) + (" ok" if res["pass"] else " FAIL"))
+    if not res["pass"]:
+        raise AssertionError(f"gates failed: {res}")
+
+
+def same_shapes(a, b) -> bool:
+    """The same dict/list structure with the same shapes and dtypes."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            same_shapes(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(same_shapes, a, b))
+    return tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+
+
+def unet_resnets(params) -> int:
+    """The UNet's resnets, each two slab convs a step."""
+    n = sum(len(b["resnets"]) for b in params.get("down_blocks", []) + params["up_blocks"])
+    return n + (len(params["mid_block"]["resnets"]) if "mid_block" in params else 0)
+
+
+def fidelity_phase(torch, np, gen, xl_params, xl_held, int8_held, launch_counts,
+                   reset_launch_counts):
+    """Phase 20: ``device_precision`` and ``check_int8`` at tiny-sd 512x512
+    through the ported tools' functions, gated; ``sd21`` at 768x768;
+    ``sdxl`` in int8 (kernel D at SDXL's shapes, ``check_int8``'s gates 2b
+    and 3, gate 2 measured); ``sdxl-inpaint`` and one ControlNet at 1024x1024 on phase
+    16's tree (``xl_params``).  Every request's launches held to its
+    recorded calls, every new A/B/C call configuration (beyond
+    ``xl_held``) and D call configuration (beyond phase 8's ``int8_held``)
+    held to its plain version."""
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.models.controlnet import (
+        controlnet_cond_embed,
+        controlnet_forward,
+        init_cond_embedding,
+        init_controlnet,
+    )
+    from sdtpu_torch.models.unet import unet_forward
+    from sdtpu_torch.ops import init_conv2d
+    from sdtpu_torch.tools import check_int8, device_precision
+    from sdtpu_torch.tools import no_tf32
+    from sdtpu_torch.utils import hostrng
+
+    out = {"shapes_held": {}}
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    held = set(xl_held)
+
+    # (a) device_precision at tiny-sd 512x512: bf16 through A/B/C against
+    # float32 on the library route, per stage
+    t0 = time.perf_counter()
+    res = device_precision.run("tiny-sd", 64, cuda)
+    out["device_precision"] = dict(res, s=time.perf_counter() - t0)
+    log(f"device_precision (tiny-sd, 64x64 latents): {out['device_precision']['s']:.1f} s, "
+        f"pass {res['pass']}")
+    gate_values(res, device_precision.GATES)
+    torch.cuda.empty_cache()
+
+    # (b) check_int8 at tiny-sd 512x512, FID_STEPS steps
+    t0 = time.perf_counter()
+    res = check_int8.run(check_int8.parse_args(["--steps", str(FID_STEPS)]), cuda)
+    out["check_int8"] = dict(res, s=time.perf_counter() - t0)
+    log(f"check_int8 (tiny-sd 512x512, {FID_STEPS} steps): {out['check_int8']['s']:.1f} s, "
+        f"pass {res['pass']} (control: {res['control_path']})")
+    gate_values(res, check_int8.GATES)
+    torch.cuda.empty_cache()
+
+    # (c) sd21 at 768x768: v-prediction, head dim 64, the OpenCLIP ViT-H encoder
+    t0 = time.perf_counter()
+    sd21 = StableDiffusionPipeline.from_random("sd21", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    fr_s = time.perf_counter() - t0
+    ids = np.random.default_rng(20).integers(1, 49408, (2, 77))
+    kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=768)
+    calls = request_calls(torch, sd21, kw, STEPS)
+    predicted = {k: STEPS * v + VAE_DECODE[k] for k, v in SD21_STEP.items()}
+    t0 = time.perf_counter()
+    sd21.generate(**kw)
+    warm_s = time.perf_counter() - t0
+    img, sec, counts, peak = held_run(torch, "sd21", lambda: sd21.generate(**kw), calls,
+                                      launch_counts, reset_launch_counts, predicted)
+    check_image("sd21", img, 768)
+    log(f"sd21 (768x768, {STEPS} DDPM steps, v-prediction, CFG 7.5, UNet batch 2): "
+        f"from_random {fr_s:.3f} s on the host, warm-up {warm_s:.3f} s, {sec:.4f} s/image, "
+        f"peak memory above the tree {peak / 2**30:.3f} GiB")
+    out["shapes_held"]["sd21"] = hold_shapes(torch, gen, "sd21 768x768", calls, held)
+    ucfg = sd21.config.unet
+    lat = torch.randn((2, 96, 96, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+    with torch.inference_mode():
+        k_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), sd21.params["unet"],
+                             ucfg).float()
+        with routed(**plain_routes()):
+            p_out = unet_forward(lat.bfloat16(), ts, ctx.bfloat16(), sd21.params["unet"],
+                                 ucfg).float()
+            f_out = unet_forward(lat, ts, ctx, to_dtype(sd21.params["unet"], torch.float32),
+                                 ucfg).float()
+    out["sd21"] = {"from_random_s": fr_s, "s_per_image": sec, "peak_bytes": peak,
+                   "launches": counts, "predicted": predicted,
+                   "attention_shapes": sorted([list(q), lk] for q, lk in
+                                              calls["flash_attention_packed"]),
+                   **judge_rel(torch, "sd21 unet_forward b2 96x96", k_out, p_out, f_out)}
+    del sd21, k_out, p_out, f_out
+    torch.cuda.empty_cache()
+
+    # (d) sdxl in int8 on the int8 gate's weights (drawn on the card in phase
+    # 16's shapes: norm scales ones, biases zeros)
+    xcfg = get_preset("sdxl")
+    t0 = time.perf_counter()
+    gate = card_normal_tree(torch, xl_params, 1234, norms=True)
+    qpipe = StableDiffusionPipeline(xcfg, gate, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qpipe.quantize_int8(transformer=True, vae=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    log(f"sdxl int8: the gate's weights drawn on the card in {draw_s:.3f} s; "
+        f"quantize_int8(transformer=True, vae=True) {quant_s:.3f} s on the host")
+    xids = np.random.default_rng(21).integers(1, 49408, (2, 77))
+    qkw = dict(token_ids=xids, num_inference_steps=XL_STEPS, seed=40, image_size=1024)
+    qcalls = request_calls(torch, qpipe, qkw, XL_STEPS)
+    n_unet, n_vae = unet_resnets(qpipe.params["unet"]), unet_resnets(qpipe.params["vae_decoder"])
+    d_expected = 2 * n_unet * XL_STEPS + 2 * n_vae
+    img, sec, qcounts, peak = held_run(torch, f"sdxl int8 ({XL_STEPS} steps)",
+                                       lambda: qpipe.generate(**qkw), qcalls, launch_counts,
+                                       reset_launch_counts)
+    check_image("sdxl int8", img, 1024)
+    log(f"sdxl int8: {n_unet} UNet resnets x 2 convs x {XL_STEPS} steps + {n_vae} VAE resnets "
+        f"x 2 convs = {d_expected} int8 slab convs; launched {qcounts['conv3x3_slab_int8']}; "
+        f"{sec:.4f} s/image, peak memory above the trees {peak / 2**30:.3f} GiB")
+    if qcounts["conv3x3_slab_int8"] != d_expected or qcounts["conv3x3_slab"] != 0:
+        raise AssertionError("sdxl int8: not every resnet conv ran kernel D")
+    out["sdxl_int8"] = {"draw_s": draw_s, "quantize_s": quant_s, "s_per_image": sec,
+                        "peak_bytes": peak, "launches": qcounts, "d_expected": d_expected,
+                        "configs": []}
+    # kernel D at every call configuration phase 8 did not run
+    for (x_shape, co, _, res, _, stats, quant), n in sorted(qcalls["conv3x3_slab"].items()):
+        if not quant or (x_shape, co, res, stats) in int8_held:
+            continue
+        c = int8_case(torch, gen, x_shape, co, res, stats)
+        cost = int8_conv_cost(x_shape, co, res=res, stats=stats)
+        b_ms, b_by = bound_ms(cost, PEAK_INT8_OPS)
+        desc = f"x={x_shape} co={co} res={int(res)} st={int(stats)} S={c['splits']}"
+        log(f"time conv3x3_slab_int8 {desc} x{n}/image: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); float counterparts "
+            f"(not the same function): kernel A {c['kernel_A_ms']:.4f} ms, cuDNN bf16 "
+            f"{c['cudnn_ms']:.4f} ms")
+        out["sdxl_int8"]["configs"].append(
+            {"config": desc, "per_image": n, "ms": c["ms"], "plain_ms": c["plain_ms"],
+             "bound_ms": b_ms, "bound_by": b_by, "kernel_A_ms": c["kernel_A_ms"],
+             "cudnn_ms": c["cudnn_ms"], "max_abs_err": c["err"], "device_ms": c["device"]})
+        int8_held.add((x_shape, co, res, stats))
+    per_image = {k: sum(r["per_image"] * r[k] for r in out["sdxl_int8"]["configs"])
+                 for k in ("ms", "plain_ms", "bound_ms", "kernel_A_ms", "cudnn_ms")}
+    log(f"sdxl int8: kernel D over its {len(out['sdxl_int8']['configs'])} new call "
+        f"configurations per image: {json.dumps(per_image)}")
+    out["sdxl_int8"]["per_image"] = per_image
+    # check_int8's gates at SDXL's shapes (UNet b2 128x128 with the
+    # add-embedding, a 1024x1024 decode, XL_STEPS-step images) on the tool's
+    # own int8 tree: quantize_pipeline_int8 at its defaults (the UNet's
+    # convs; gate 3's int8 image keeps the float VAE)
+    qparams, tparams = check_int8.quantized(gate), qpipe.params
+    del qpipe
+    host = np.random.default_rng(1234)
+    added = {"text_embeds": torch.randn((2, 1280), generator=gen, device="cuda").bfloat16(),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda")}
+    state = host.bit_generator.state
+    values = {"unet_forward_rel_int8_vs_bf16": check_int8.unet_gate(
+        xcfg, gate, qparams, host, latent=128, added_cond=added)}
+    # beside gate 2, the same forward's yardsticks: the bf16 kernels against
+    # float32 on the library route, the plain route's int8 against its bf16,
+    # the transformer=True tree of the image above, and int8 in one part's
+    # resnets alone
+    host.bit_generator.state = state
+    lat = torch.from_numpy(host.standard_normal((2, 128, 128, 4))).to("cuda", torch.bfloat16)
+    ctx = torch.from_numpy(host.standard_normal((2, 77, 2048))).to("cuda", torch.bfloat16)
+    ts = torch.full((2,), 500.0, device="cuda")
+
+    def fwd(unet, dt=torch.bfloat16, **kw):
+        a = {"text_embeds": added["text_embeds"].to(dt), "time_ids": added["time_ids"]}
+        with torch.inference_mode():
+            return unet_forward(lat.to(dt), ts, ctx.to(dt), unet, xcfg.unet, added_cond=a,
+                                **kw).float()
+
+    u16 = fwd(gate["unet"])
+    with no_tf32():
+        control = rel_l2(torch, u16, fwd(to_dtype(gate["unet"], torch.float32), torch.float32,
+                                         attention_impl="xla", conv_impl="xla"))
+    with routed(**plain_routes()):
+        plain = rel_l2(torch, fwd(qparams["unet"]), fwd(gate["unet"]))
+    t_rel = rel_l2(torch, fwd(tparams["unet"]), u16)
+    split = {part: rel_l2(torch, fwd(dict(gate["unet"], **{part: qparams["unet"][part]})), u16)
+             for part in ("down_blocks", "mid_block", "up_blocks")}
+    values["vae_decode_psnr_db_int8_vs_bf16"] = check_int8.vae_gate(xcfg, gate, host,
+                                                                    image_size=1024)
+    trees = {"bf16": gate, "int8": dict(qparams, vae_decoder=gate["vae_decoder"])}
+    del qparams
+    p = check_int8.pipeline_gate(xcfg, trees, host, steps=XL_STEPS, image_size=1024,
+                                 device=cuda)
+    del trees
+    values["psnr_margin_db_vs_chaos_control"] = (p["pipeline_psnr_db_int8_vs_bf16"]
+                                                 - p["control_psnr_db_bf16_vs_f32"])
+    # the served tree (transformer=True, the int8 VAE): its margin, printed
+    served = check_int8.pipeline_gate(xcfg, {"bf16": gate, "int8": tparams}, host,
+                                      steps=XL_STEPS, image_size=1024, device=cuda)
+    del tparams
+    served_margin = (served["pipeline_psnr_db_int8_vs_bf16"]
+                     - served["control_psnr_db_bf16_vs_f32"])
+    log(f"sdxl check_int8 (UNet b2 128x128, 1024x1024 decode, {XL_STEPS}-step images "
+        f"{p['seconds']}): pipeline PSNR int8-vs-bf16 {p['pipeline_psnr_db_int8_vs_bf16']:.2f} "
+        f"dB, control bf16-vs-f32 {p['control_psnr_db_bf16_vs_f32']:.2f} dB "
+        f"({check_int8.CONTROL_PATH})")
+    name, gate2, _ = check_int8.GATES[1]
+    log(f"sdxl gate 2, measured, not gated (open: PERF.md section 6), the JAX tool's gate "
+        f"{gate2}: {name} {values[name]:.4f}; the same forward's bf16 kernels vs float32 "
+        f"{control:.4f}, the plain route's int8 vs bf16 {plain:.4f}, transformer=True's int8 "
+        f"vs bf16 {t_rel:.4f}; int8 in one part's resnets alone: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"sdxl served int8 tree (transformer=True, int8 VAE), {XL_STEPS}-step images "
+        f"{served['seconds']}: pipeline PSNR int8-vs-bf16 "
+        f"{served['pipeline_psnr_db_int8_vs_bf16']:.2f} dB, control "
+        f"{served['control_psnr_db_bf16_vs_f32']:.2f} dB, margin {served_margin:.4f} dB "
+        "(printed, not gated: gate 3 holds the tool's own tree)")
+    out["sdxl_int8"]["gates"] = dict(values, **{k: p[k] for k in (
+        "pipeline_psnr_db_int8_vs_bf16", "control_psnr_db_bf16_vs_f32", "seconds")},
+        bf16_vs_f32=control, plain_int8_vs_bf16=plain, transformer_int8_vs_bf16=t_rel,
+        int8_in_one_part=split, served_margin_db=served_margin,
+        served={k: served[k] for k in ("pipeline_psnr_db_int8_vs_bf16",
+                                       "control_psnr_db_bf16_vs_f32", "seconds")})
+    gate_values(values, check_int8.GATES[2:])
+    del gate
+    torch.cuda.empty_cache()
+
+    # (e) sdxl-inpaint: phase 16's tree with a 9-channel conv_in drawn from
+    # init_unet's own key for it (= from_random("sdxl-inpaint"), leaf for leaf)
+    icfg = get_preset("sdxl-inpaint")
+    k_unet = hostrng.split(hostrng.ensure_key(0), 5)[1]
+    conv_in = tree_to(init_conv2d(hostrng.split(k_unet, 256)[0], icfg.unet.in_channels,
+                                  icfg.unet.block_out_channels[0], 3, dtype=icfg.param_dtype),
+                      "cuda")
+    inp = StableDiffusionPipeline(icfg, dict(xl_params, unet=dict(xl_params["unet"],
+                                                                  conv_in=conv_in)),
+                                  device="cuda")
+    rng = np.random.default_rng(22)
+    init = rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    mask = np.zeros((1024, 1024), np.uint8)
+    mask[:, 512:] = 255
+    ikw = dict(token_ids=xids, num_inference_steps=XL_STEPS, seed=40, image_size=1024,
+               init_image=init, mask_image=mask, strength=1.0)
+    img, sec, counts, expected, icalls, peak = counted(torch, lambda: inp.generate(**ikw),
+                                                       launch_counts, reset_launch_counts)
+    hold_counts("sdxl-inpaint", counts, expected)
+    check_image("sdxl-inpaint", img, 1024)
+    log(f"sdxl-inpaint (1024x1024, {XL_STEPS} DDPM steps, strength 1.0, mask, CFG 7.5, UNet "
+        f"batch 2, 9 channels): {sec:.4f} s/image, peak memory above the trees "
+        f"{peak / 2**30:.3f} GiB")
+    out["sdxl-inpaint"] = {"s_per_image": sec, "peak_bytes": peak, "launches": counts}
+    out["shapes_held"]["sdxl-inpaint"] = hold_shapes(torch, gen, "sdxl-inpaint", icalls, held)
+    del inp, conv_in
+    torch.cuda.empty_cache()
+
+    # (f) one ControlNet at 1024x1024: the encoder half is phase 16's UNet
+    # leaves (diffusers' ControlNetModel.from_unet), checked key by key
+    # against init_controlnet's shapes; the cond embedding drawn from its
+    # key, its conv_out and the zero convs drawn on the card
+    with hostrng.shapes_only():
+        cn_shapes = init_controlnet(1, xcfg.unet, dtype=xcfg.param_dtype)
+    copied = [k for k in cn_shapes if k in xl_params["unet"]]
+    bad = [k for k in copied if not same_shapes(cn_shapes[k], xl_params["unet"][k])]
+    log(f"sdxl controlnet: encoder keys {copied} from the UNet"
+        + (f"; shapes differ at {bad} FAIL" if bad else ", shapes and dtypes as init_controlnet's"))
+    if bad:
+        raise AssertionError(f"the SDXL ControlNet's encoder keys {bad} differ")
+    cn = dict(cn_shapes, **{k: xl_params["unet"][k] for k in copied})
+    cn["cond_embedding"] = tree_to(init_cond_embedding(
+        hostrng.split(hostrng.ensure_key(1))[1], xcfg.unet.block_out_channels[0],
+        dtype=xcfg.param_dtype), "cuda")
+    cn = nonzero_controlnet(torch, cn, 201)
+    xl = StableDiffusionPipeline(xcfg, xl_params, device="cuda").load_controlnet(cn)
+    ctrl = rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    ckw = dict(token_ids=xids, num_inference_steps=XL_STEPS, seed=40, image_size=1024,
+               control_image=ctrl)
+    predicted = {k: XL_STEPS * (PREDICTED_STEP["sdxl"][k] + XL_CN_STEP[k]) + VAE_DECODE[k]
+                 for k in XL_CN_STEP}
+    img, sec, counts, expected, ccalls, peak = counted(torch, lambda: xl.generate(**ckw),
+                                                       launch_counts, reset_launch_counts)
+    hold_counts("sdxl controlnet", counts, expected)
+    main_counts = {k: counts[k] for k in predicted}
+    log(f"sdxl controlnet A/B/C {main_counts}; predicted from the configs {predicted}: "
+        + ("agree" if main_counts == predicted else "DIFFER (the recorded calls decide)"))
+    check_image("sdxl controlnet", img, 1024)
+    log(f"sdxl controlnet (1024x1024, {XL_STEPS} DDPM steps, CFG 7.5, UNet and ControlNet "
+        f"batch 2): {sec:.4f} s/image, peak memory above the trees {peak / 2**30:.3f} GiB")
+    out["sdxl controlnet"] = {"s_per_image": sec, "peak_bytes": peak, "launches": counts,
+                              "predicted": predicted}
+    ucfg = xcfg.unet
+    lat = torch.randn((2, 128, 128, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device="cuda")
+    cond = torch.rand((2, 1024, 1024, 3), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+    added = {"text_embeds": torch.randn((2, 1280), generator=gen, device="cuda"),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda")}
+
+    def step(unet, net, dt):
+        a = {"text_embeds": added["text_embeds"].to(dt), "time_ids": added["time_ids"]}
+        emb = controlnet_cond_embed(cond.to(dt), net["cond_embedding"])
+        res = controlnet_forward(lat.to(dt), ts, ctx.to(dt), emb, net, ucfg,
+                                 conditioning_scale=0.8, added_cond=a)
+        flat = torch.cat([r.float().flatten() for r in res["down"] + [res["mid"]]])
+        return flat, unet_forward(lat.to(dt), ts, ctx.to(dt), unet, ucfg, control=res,
+                                  added_cond=a).float()
+
+    with torch.inference_mode():
+        k_res, k_out = step(xl_params["unet"], cn, torch.bfloat16)
+        with routed(**plain_routes()):
+            p_res, p_out = step(xl_params["unet"], cn, torch.bfloat16)
+            f_res, f_out = step(to_dtype(xl_params["unet"], torch.float32),
+                                to_dtype(cn, torch.float32), torch.float32)
+    out["sdxl controlnet"]["residuals"] = judge_rel(
+        torch, "sdxl controlnet residuals of one step (b2 128x128)", k_res, p_res, f_res)
+    out["sdxl controlnet"]["unet_control"] = judge_rel(
+        torch, "sdxl unet_forward b2 128x128 with the residuals", k_out, p_out, f_out)
+    del k_res, p_res, f_res, k_out, p_out, f_out, xl, cn
+    torch.cuda.empty_cache()
+    out["shapes_held"]["sdxl controlnet"] = hold_shapes(torch, gen, "sdxl controlnet", ccalls,
+                                                        held)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: {out['phase_s']:.1f} s; A/B/C call configurations held to their plain "
+        f"versions beyond phase 16's: {out['shapes_held']}")
     return out
 
 

@@ -172,19 +172,34 @@ def init_controlnet(
         if level < config.num_levels - 1:
             zero_convs.append(_zero_conv1x1(ch, dtype=dtype))
     params["zero_convs"] = zero_convs
-    keys = iter(hostrng.split(k_cond, 2 * len(cond_channels)))
+    params["cond_embedding"] = init_cond_embedding(
+        k_cond, config.block_out_channels[0], dtype=dtype, cond_channels=cond_channels,
+        conditioning_channels=conditioning_channels)
+    return params
+
+
+def init_cond_embedding(
+    key,
+    out_channels: int,
+    *,
+    dtype=torch.float32,
+    cond_channels: Tuple[int, ...] = COND_EMBED_CHANNELS,
+    conditioning_channels: int = 3,
+) -> dict:
+    """The cond embedding of :func:`init_controlnet` from its key (the
+    second half of the ControlNet's): its convs drawn as the JAX package
+    draws them, ``conv_out`` zeros."""
+    keys = iter(hostrng.split(hostrng.ensure_key(key), 2 * len(cond_channels)))
     blocks = []
     for i in range(len(cond_channels) - 1):
         blocks.append(init_conv2d(next(keys), cond_channels[i], cond_channels[i], 3,
                                   dtype=dtype))
         blocks.append(init_conv2d(next(keys), cond_channels[i], cond_channels[i + 1], 3,
                                   dtype=dtype))
-    ch0 = config.block_out_channels[0]
-    params["cond_embedding"] = {
+    return {
         "conv_in": init_conv2d(next(keys), conditioning_channels, cond_channels[0], 3,
                                dtype=dtype),
         "blocks": blocks,
-        "conv_out": {"kernel": _zeros((3, 3, cond_channels[-1], ch0), dtype),
-                     "bias": _zeros((ch0,), dtype)},
+        "conv_out": {"kernel": _zeros((3, 3, cond_channels[-1], out_channels), dtype),
+                     "bias": _zeros((out_channels,), dtype)},
     }
-    return params

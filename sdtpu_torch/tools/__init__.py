@@ -9,6 +9,11 @@ shapes::
     python -m sdtpu_torch.tools.probe_int8_dot [chain]             # kernel J, int8 against bf16
     python -m sdtpu_torch.tools.ab_flash TREE [TREE ...]            # C and F of source trees
     python -m sdtpu_torch.tools.profile_stages [preset] [size]     # CLIP, UNet step, VAE times
+    python -m sdtpu_torch.tools.probe_int8_slab [chain]            # kernel D against A per shape
+    python -m sdtpu_torch.tools.ab_unet [preset] [size] [chain]    # UNet-step routes, one process
+    python -m sdtpu_torch.tools.ab_quant [--variants ...]          # quantization variants
+    python -m sdtpu_torch.tools.device_precision                   # bf16 drift gates per stage
+    python -m sdtpu_torch.tools.check_int8                         # int8 fidelity gates
 
 Each variant runs ``chain`` back-to-back calls on the same inputs, timed two
 ways: CUDA events around the chain (which, for calls shorter than their
@@ -23,8 +28,10 @@ caller can hold the launch counters to it.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import sys
+import time
 from collections import Counter
 
 import torch
@@ -46,6 +53,79 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def device_arg(tool: str, name: str):
+    """``torch.device(name)``; for ``cuda`` it exits non-zero unless a card
+    is present (:func:`require_cuda`)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        require_cuda(tool)
+    return device
+
+
+def shapes_tree(config) -> dict:
+    """``init_pipeline_params``' tree for ``config`` as meta tensors, drawn
+    at no cost: the shapes and dtypes of every leaf."""
+    from sdtpu_torch.utils import hostrng
+    from sdtpu_torch.utils.weights import init_pipeline_params
+
+    with hostrng.shapes_only():
+        return init_pipeline_params(0, config, device="meta")
+
+
+def map_jax_order(fn, tree, path=()):
+    """``fn(path, leaf)`` for every leaf of a dict/list tree, called in the
+    order jax's tree functions visit the leaves (dict keys sorted, lists in
+    order), so that draws from one numpy generator land on the leaves the
+    JAX package's tools give them; the tree's structure is kept."""
+    if isinstance(tree, dict):
+        out = {k: map_jax_order(fn, tree[k], path + (k,)) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, list):
+        return [map_jax_order(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def verdict(values: dict, gates, digits: int, results: dict) -> dict:
+    """``results`` with each gated value of ``values`` (rounded to
+    ``digits`` places), its gate, and the overall ``pass``, as the JAX
+    fidelity tools write them; ``gates`` holds ``(name, gate, "lt"|"gt")``:
+    the value must stay under or exceed its gate."""
+    ok = True
+    for name, gate, d in gates:
+        val = values[name]
+        ok &= val < gate if d == "lt" else val > gate
+        results[name] = round(float(val), digits)
+        results[name + "_gate"] = gate
+    results["pass"] = bool(ok)
+    return results
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off in cuBLAS and cuDNN for a float32 reference; restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def seconds(fn, device) -> float:
+    """Seconds of one ``fn()`` call: CUDA events around it on a card (its
+    last kernel included), the host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
 
 
 def chain_arg(argv, default: int) -> int:

@@ -58,15 +58,13 @@ def normal_tree(shapes, rng, device, scale: float = 0.04):
     import numpy as np
     import torch
 
-    if isinstance(shapes, dict):
-        out = {}
-        for k in sorted(shapes):
-            out[k] = normal_tree(shapes[k], rng, device, scale)
-        return {k: out[k] for k in shapes}
-    if isinstance(shapes, list):
-        return [normal_tree(v, rng, device, scale) for v in shapes]
-    draw = torch.from_numpy(rng.standard_normal(tuple(shapes.shape), dtype=np.float32))
-    return draw.to(device).to(shapes.dtype) * scale
+    from sdtpu_torch.tools import map_jax_order
+
+    def draw(_, s):
+        d = torch.from_numpy(rng.standard_normal(tuple(s.shape), dtype=np.float32))
+        return d.to(device).to(s.dtype) * scale
+
+    return map_jax_order(draw, shapes)
 
 
 def row_gap(solo, batched) -> dict:
@@ -87,14 +85,12 @@ def gate_pipeline(preset: str, device):
 
     from sdtpu_torch.config import get_preset
     from sdtpu_torch.pipeline.pipeline import StableDiffusionPipeline
-    from sdtpu_torch.utils import hostrng
-    from sdtpu_torch.utils.weights import init_pipeline_params
+    from sdtpu_torch.tools import shapes_tree
 
     config = get_preset(preset)
-    with hostrng.shapes_only():
-        shapes = init_pipeline_params(0, config, device="meta")
-    return StableDiffusionPipeline(config, normal_tree(shapes, np.random.default_rng(1234),
-                                                       device), device=device)
+    return StableDiffusionPipeline(config, normal_tree(shapes_tree(config),
+                                                       np.random.default_rng(1234), device),
+                                   device=device)
 
 
 def run_gate(pipe, args) -> dict:

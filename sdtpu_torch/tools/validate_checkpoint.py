@@ -26,13 +26,14 @@ runs the port's plain route for it).  It exits non-zero when asked for
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib.util
 import os
 import sys
 
 import numpy as np
 import torch
+
+from sdtpu_torch.tools import no_tf32
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TORCH_REF = os.path.join(REPO, "tests", "torch_ref.py")
@@ -152,16 +153,6 @@ def run_port(params: dict, config, inputs: dict, *, dtype, device) -> dict:
         }
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def run_mirror(models: dict, config, inputs: dict, *, device) -> dict:
     """The mirror's three forwards in float32 (TF32 off), NHWC outputs.
     ``device`` is the default device meanwhile: the mirror makes its
@@ -172,7 +163,7 @@ def run_mirror(models: dict, config, inputs: dict, *, device) -> dict:
     def nhwc(x):
         return x.permute(0, 2, 3, 1).contiguous()
 
-    with torch.inference_mode(), _no_tf32(), torch.device(device):
+    with torch.inference_mode(), no_tf32(), torch.device(device):
         return {
             "unet": nhwc(models["unet"](
                 nchw("lat"), torch.from_numpy(inputs["ts"]).to(device),
