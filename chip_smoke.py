@@ -99,14 +99,21 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               conv_impl="xla"`` (SDPA and cuDNN) in turns; the library route
               launches no kernel.
 13. stages -- ``tools/profile_stages`` at tiny-sd 512; one ``profiling.trace``
-              of a warm bf16 image: wall, device-busy time (the union of
-              the card's activity intervals), idle share, device time by
-              kind (hand-written kernels, library GEMMs/convs, PyTorch's
-              elementwise and reductions, copies), the ten device ops with
-              the most time, the five longest device-idle gaps with the
-              host stage each falls in (the library route's image traced
-              and summarised beside it); ``StageTimer``'s split of the same
-              request.
+              of a warm bf16 image, read back from its ``trace.json`` by
+              ``tools/summarize_trace.trace_split``: wall, device-busy time
+              (the union of the card's activity intervals), idle share,
+              device time by kind (hand-written kernels, library
+              GEMMs/convs, PyTorch's elementwise and reductions, copies),
+              the ten device ops with the most time, the five longest
+              device-idle gaps with the host stage each falls in (the
+              library route's image traced and summarised beside it);
+              ``StageTimer``'s split of the same request; then
+              ``tools/capture_trace`` at tiny-sd 512 (1 repeat: 2
+              pipelined images of the bench's workload) and
+              ``summarize_trace`` on its file: the unet_step window's
+              device and host self time, and its split, whose kinds must
+              be the bf16 image's and whose idle share must lie within
+              CAPTURE_IDLE_TOL of it (~15-18 s).
 14. checkpoint -- a full-width tiny-sd directory in diffusers' fp16 layout
               written under ``build/`` (``tests/torch_ref.py``'s UNet and
               VAE with seeded random weights, the CLIP keys from the port's
@@ -128,7 +135,10 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               ``tools/convert_checkpoint`` (bf16, on the card) and
               ``load_converted`` onto the card, held bitwise to
               ``from_pretrained``'s tree (the cache's bytes, both load
-              times).  The directory and its cache are deleted at the end.
+              times); ``tools/generate_grid --model-dir`` on the directory
+              (1 prompt x 2 seeds, 4 dpm++ steps at 512x512), each tile
+              bitwise its seed's row of the same ``generate_batch`` (~2-3 s).
+              The directory, its cache and the grid are deleted at the end.
 15. conditioned -- on the seed-0 tiny-sd tree again: (a) img2img and
               latent-blend inpainting at 512x512, 25 DDPM steps at strength
               0.75 (18 steps), CFG 7.5: exact launches (recorded calls,
@@ -288,6 +298,29 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               residuals and the UNet output with them kernels vs plain vs
               float32, the new A/C shapes held to plain.  Phase 16 keeps
               its ``sdxl`` tree for (d)-(f).
+21. last tools -- the last tools of ``tools/`` on the card, ~45 s: (a) the probes'
+              ``main()`` at a chain of 2 (``probe_slab_halo``: A at the
+              five large maps and B against nearest upsample + A;
+              ``probe_out_proj``: G at the six out-projection shapes, real
+              head dims; ``probe_flash_blocks``, ``probe_flash_int8``,
+              ``probe_head_packing``: C under every plan it takes, beside
+              SDPA, traced and summarized; ``ab_slab_grid``: A under every
+              split S up to the plan's cap), each variant held by the tool
+              to its plain version within TOL_REL and each tool's launches
+              to the calls it made; (b) the A/B chains at tiny-sd 512,
+              chain 2 (``ab_conv_stats`` UNet and ``--vae``,
+              ``ab_packed_proj``, ``ab_flash_nq``), their launches held to
+              one recorded chain of each variant times its runs; (c) C
+              under every plan at the probes' shapes against its plain
+              version; (d) ``CONV_STATS_CHAIN`` off against on on the
+              seed-0 tree: a full-width UNet forward and VAE decode through
+              the kernels within max(2 x the plain route's bf16-vs-f32,
+              1e-2) of each other (phase 4's rule), and one 512x512 25-step
+              image each, finite, with the bf16 image's launches and its
+              s/image (the images are not held to each other: a rounding
+              change moves the seed-0 image by levels).  Phase 21 with the
+              additions to phases 13 and 14 is printed; it should stay
+              within 90 s.
 
 A flash kernel's bound counts one exponential per score at 16 per clock
 per SM (``nvidia-smi`` clocks.max.sm) beside its bytes and tensor
@@ -302,11 +335,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
-import glob
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -314,13 +345,26 @@ from collections import Counter
 
 # event_ms: CUDA events around back-to-back calls; device_ms: the kernels'
 # own time under torch.profiler, so that a call whose kernel is shorter than
-# its host-side enqueue is not timed by the host
-from sdtpu_torch.tools import device_ms, event_ms
+# its host-side enqueue is not timed by the host; the card's peaks and rates
+# (H100 SXM data sheet), TOL_REL (max |kernel - plain| <= TOL_REL * max
+# |plain|), the bound of a call's cost, the plain attention by query rows
+from sdtpu_torch.tools import (
+    EXP_PER_CLOCK_SM,
+    PEAK_BF16_FLOPS,
+    PEAK_INT8_OPS,
+    SMS,
+    TOL_REL,
+    bound_ms,
+    bound_terms,
+    by_rows,
+    device_ms,
+    event_ms,
+    flash_cost,
+)
+# the stage spans of a profiler trace and its split into device-busy and
+# idle time (phases 13 and 16)
+from sdtpu_torch.tools.summarize_trace import STAGES, trace_split
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
-TOL_REL = 2e-2            # max |kernel - plain| <= TOL_REL * max |plain|
 STEPS = 25                # the main path's DDPM steps (bench.py's default workload)
 # the bf16 image's launches of each wrapper; the slab conv's pre-pass and
 # split-K reduction (conv3x3_slab_prologue, conv3x3_slab_splitk, and the
@@ -335,8 +379,6 @@ E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_in
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
               "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0, "dot_int8_transpose": 0,
               "dot_int8_splitk": 0}
-EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
-SMS = 132                 # H100 SXM
 RING = 4                  # shards of the sequence-parallel ring on the one card
 SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replaces)
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
@@ -469,13 +511,6 @@ def conv_cost(x_shape, co, *, pro, res, up, stats):
     return by, 2.0 * b * h * w * co * 9 * ci
 
 
-def flash_cost(q_shape, lk):
-    """(bytes, tensor operations, exponentials): one exponential per score."""
-    b, h, lq, d = q_shape
-    return (2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d,
-            float(b * h * lq * lk))
-
-
 def flash_stats_cost(q_shape, lk):
     """Kernel C's bytes and operations plus the m and l rows it writes."""
     b, h, lq, _ = q_shape
@@ -498,20 +533,6 @@ def int8_conv_cost(x_shape, co, *, res, stats):
     by += b * h * w * co * 2 * (2 if res else 1)
     by += b * 2 * co * 4 if stats else 0
     return by, 2.0 * b * h * w * co * 9 * ci
-
-
-def bound_terms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
-    """(byte ms, operation ms): bytes / PEAK_BYTES, and the larger of
-    operations / ``peak_ops`` and, for a flash kernel's (bytes, ops, exps),
-    exponentials / ``exp_rate`` (per second)."""
-    t_ops = max(cost[1] / peak_ops, cost[2] / exp_rate if len(cost) > 2 else 0.0)
-    return cost[0] / PEAK_BYTES * 1e3, t_ops * 1e3
-
-
-def bound_ms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
-    """(ms, "bytes" or "operations"): the larger of the two bound terms."""
-    t_by, t_ops = bound_terms(cost, peak_ops, exp_rate)
-    return max(t_by, t_ops), "bytes" if t_by > t_ops else "operations"
 
 
 def max_err(a, b):
@@ -1734,7 +1755,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["features"] = features_phase(torch, np, gen, host_params, sd15_host, launch_counts,
                                          reset_launch_counts, kind)
-    del host_params
     t8 = time.perf_counter()
 
     # phase 18: the text features (sd15)
@@ -1759,12 +1779,25 @@ def main() -> int:
                                          launch_counts, reset_launch_counts)
     del xl_params
     t11 = time.perf_counter()
+
+    # phase 21: the last tools, C's plans at the probes' shapes, and the
+    # GroupNorm statistics chaining off against on (tiny-sd's seed-0 tree)
+    torch.cuda.empty_cache()
+    details["last_tools"] = last_tools_phase(torch, np, gen, host_params, ids, args.trace_dir,
+                                             launch_counts, reset_launch_counts, e2e_expected)
+    del host_params
+    t12 = time.perf_counter()
     details["phase_s"] = {"seeds": t1 - t0, "bench": t2 - t1, "library": t3 - t2,
                           "stages": t4 - t3, "checkpoint": t5 - t4, "conditioned": t6 - t5,
                           "sdxl": t7 - t6, "features": t8 - t7, "text": t9 - t8,
-                          "mesh": t10 - t9, "fidelity": t11 - t10}
-    log("phases 10-20 wall s: " + ", ".join(f"{k} {v:.1f}"
+                          "mesh": t10 - t9, "fidelity": t11 - t10, "last_tools": t12 - t11}
+    log("phases 10-21 wall s: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in details["phase_s"].items()))
+    added = (details["last_tools"]["phase_s"] + details["stages"]["capture_phase_s"]
+             + details["checkpoint"]["grid"]["s"])
+    details["added_s"] = added
+    log(f"phase 21 with the additions to phases 13 (capture_trace, summarize_trace) and 14 "
+        f"(generate_grid): {added:.1f} s")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -1833,14 +1866,6 @@ def judge_probe(torch, name, desc, got, want, *, exact=False):
     return err
 
 
-def by_rows(torch, fn, q, k, v, elems=1 << 28):
-    """``fn(q, k, v)`` over blocks of q's rows, each block's f32 scores at
-    most ``elems``: query rows are independent, so this is the plain
-    attention over the whole of q at shapes whose score matrix is tens of GB."""
-    step = max(1, elems // (q.shape[0] * q.shape[1] * k.shape[2]))
-    return torch.cat([fn(q[:, :, i:i + step], k, v) for i in range(0, q.shape[2], step)], dim=2)
-
-
 def tool_checks(torch, errs):
     """Every kernel variant that the tools run, on the tools' own inputs and
     shapes, against its plain version (``errs[name]`` collects the errors):
@@ -1879,10 +1904,10 @@ def tool_checks(torch, errs):
         q, k, v = qkv_inputs(b, h, l, d)
         desc = f"{label} q=k=v={(b, h, l, d)}"
         judge_probe(torch, "flash_attention", desc, flash_attention_packed(q, k, v),
-                    by_rows(torch, flash_attention_plain, q, k, v))
+                    by_rows(flash_attention_plain, q, k, v))
         # flash_2q_plain is legacy_flash_plain behind its Lq check, so one
         # reference serves H and every variant of I (on its first lq rows)
-        want = by_rows(torch, legacy_flash_plain, q, k, v)
+        want = by_rows(legacy_flash_plain, q, k, v)
         errs["flash_attention_legacy"].append(judge_probe(
             torch, "flash_attention_legacy", desc, legacy_flash(q, k, v), want))
         for nq, bq in CARD_VARIANTS:
@@ -2124,7 +2149,6 @@ def run_image(torch, np, pipe, ids, label, launch_counts, reset_launch_counts):
 
 # ------------------------------------------------- measurement phases --
 
-STAGES = ("tokenize", "noise", "clip", "precompute", "unet_step", "vae_decode", "to_uint8")
 ULP_MAX = 4           # device normals against numpy's
 BENCH_REPEATS = 3
 
@@ -2313,6 +2337,8 @@ def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
 
 # the samplers of phase 14, after the main path's ddpm as the yardstick
 SAMPLER_RUNS = ("ddpm", "ddim", "euler", "euler-a", "dpm++-karras", "dpm++-sde", "unipc", "lcm")
+GRID_PROMPT = "a cat flying a spaceship"  # generate_grid's default prompt
+GRID_STEPS = 4                            # phase 14's grid: 1 prompt x 2 seeds
 # the JSON configs of a diffusers tiny-sd directory, as diffusers and
 # transformers write them (widths of the port's tiny-sd preset)
 TINY_SD_JSON = {
@@ -2412,7 +2438,7 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
     from sdtpu_torch.config import get_preset
     from sdtpu_torch.kernels._build import BUILD_DIR
     from sdtpu_torch.models.vae import vae_encoder
-    from sdtpu_torch.tools import convert_checkpoint
+    from sdtpu_torch.tools import convert_checkpoint, generate_grid
     from sdtpu_torch.tools import validate_checkpoint as vc
     from sdtpu_torch.utils import native_safetensors
     from sdtpu_torch.utils.weights import load_converted
@@ -2598,7 +2624,37 @@ def checkpoint_phase(torch, np, gen, exp_rate, ids, clip_tree, launch_counts,
                 raise AssertionError(f"sampler {name}: {problems}")
             runs[name] = {"s_per_image": sec, "launches": counts}
         out["samplers"] = runs
-        del pipe
+
+        # tools/generate_grid on the directory: 1 prompt x 2 seeds, GRID_STEPS
+        # dpm++ steps at 512x512; each tile bitwise its seed's row of the
+        # same generate_batch on the pipeline the tool loads (the preset's
+        # config over the directory's weights)
+        t0 = time.perf_counter()
+        grid_png = os.path.join(os.path.dirname(root), "grid.png")
+        argv = ["--model-dir", root, "--preset", "tiny-sd", "--prompts", GRID_PROMPT,
+                "--seeds", "0", "1", "--steps", str(GRID_STEPS), "--image-size", "512",
+                "--out", grid_png]
+        log(f"tool: python -m sdtpu_torch.tools.generate_grid {' '.join(argv)}")
+        grid = generate_grid.main(argv)
+        grid_s = time.perf_counter() - t0
+        gpipe = StableDiffusionPipeline.from_pretrained(root, preset="tiny-sd", device="cuda")
+        ids_g = None
+        if gpipe.tokenizer is None:
+            ids_g = generate_grid.prompt_ids(GRID_PROMPT, gpipe.config.clip.vocab_size,
+                                             gpipe.config.clip.max_length, 2)
+        rows = gpipe.generate_batch([GRID_PROMPT] * 2, seeds=[0, 1],
+                                    num_inference_steps=GRID_STEPS, image_size=512,
+                                    sampler="dpm++", cfg_scale=7.5, token_ids=ids_g)
+        same = [bool(np.array_equal(grid[:, 512 * j:512 * (j + 1)], rows[j])) for j in range(2)]
+        ok = grid.shape == (512, 1024, 3) and all(same) and float(grid.std()) > 0.0
+        log(f"generate_grid: {grid_s:.1f} s (the directory loaded, two 512x512 "
+            f"{GRID_STEPS}-step rows), grid {grid.shape}, tokenizer "
+            f"{gpipe.tokenizer is not None}; each tile bitwise its generate_batch row: {same}"
+            + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError("generate_grid's tiles are not the generate_batch rows")
+        out["grid"] = {"s": grid_s, "shape": list(grid.shape), "tiles_bitwise": same}
+        del pipe, gpipe
     finally:
         shutil.rmtree(os.path.dirname(root), ignore_errors=True)
 
@@ -2991,18 +3047,22 @@ def card_normal_tree(torch, like, seed, scale=0.04, norms=False):
     return draw(like)
 
 
-def kineto_events(prof):
-    """A profiler run's activities as :func:`trace_split` reads them (name,
-    device type, user-annotation flag, time range in us), taken straight
-    from kineto's results: building the profiler's event tree costs seconds
-    a step at an SDXL step's ~8.5k device activities."""
-    from types import SimpleNamespace
-
-    return [SimpleNamespace(name=e.name(), device_type=e.device_type(),
-                            is_user_annotation=e.is_user_annotation(),
-                            time_range=SimpleNamespace(start=e.start_ns() / 1e3,
-                                                       end=(e.start_ns() + e.duration_ns()) / 1e3))
-            for e in prof.profiler.kineto_results.events()]
+def kineto_events(torch, prof):
+    """A profiler run's activities as the Chrome-trace records that
+    ``summarize_trace.trace_split`` reads (``ph``, ``cat``, ``name``, ``ts``
+    and ``dur`` in us), taken straight from kineto's results: building the
+    profiler's event tree, or exporting and reading its trace file, costs
+    seconds a step at an SDXL step's ~8.5k device activities."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            cat = "gpu_user_annotation" if e.is_user_annotation() else "kernel"
+        else:
+            cat = "user_annotation" if e.is_user_annotation() or e.name() in STAGES else "cpu_op"
+        out.append({"ph": "X", "cat": cat, "name": e.name(), "ts": e.start_ns() / 1e3,
+                    "dur": e.duration_ns() / 1e3})
+    return out
 
 
 def check_image(label, img, size, rows=1):
@@ -3144,7 +3204,7 @@ def sdxl_phase(torch, np, gen, sd15_host, launch_counts, reset_launch_counts, ki
         base.generate(**dict(kw, num_inference_steps=SDXL_SHORT_STEPS))
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    split = trace_split(torch, kineto_events(prof), wall)
+    split = trace_split(kineto_events(torch, prof), wall)
     del prof
     log(f"trace of one sdxl image ({SDXL_SHORT_STEPS} steps, read in {time.perf_counter() - t0:.1f}"
         f" s): wall {split['wall_ms']:.1f} ms, window {split['window_ms']:.1f} ms, device busy "
@@ -4541,112 +4601,221 @@ def fidelity_phase(torch, np, gen, xl_params, xl_held, int8_held, launch_counts,
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def hand_kernel_names() -> tuple:
-    """The ``__global__`` functions of ``sdtpu_torch/csrc/*.cu``."""
-    import sdtpu_torch
+# ------------------------------------------------------------ last tools --
 
-    names = set()
-    for path in glob.glob(os.path.join(os.path.dirname(sdtpu_torch.__file__), "csrc", "*.cu")):
-        with open(path) as f:
-            names.update(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))? (\w+)",
-                                    f.read()))
-    return tuple(sorted(names))
+LAST_TOOL_CHAIN = 2  # phase 21's chains and repeats per timed call
 
 
-def device_category(name: str) -> str:
-    """A device activity's kind: the port's hand-written kernels (the
-    ``__global__`` functions of ``sdtpu_torch/csrc``, in its anonymous
-    namespaces), the libraries' GEMMs, convolutions and attention,
-    PyTorch's own elementwise and reduction kernels, copies."""
-    # the qualified function name: up to its template arguments or parameters
-    head = re.sub(r"\(anonymous namespace\)", "anon", name.removeprefix("void "))
-    head = re.split(r"[<(]", head, maxsplit=1)[0]
-    if (head.startswith("anon::")
-            and any(head.endswith(f"::{k}") for k in hand_kernel_names())):
-        return "hand-written kernels"
-    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "cudnn", "conv", "sm90",
-                                       "fmha", "flash", "attention")):
-        return "library GEMM, conv and attention"
-    if "Memcpy" in name or "Memset" in name:
-        return "copies and sets"
-    if "at::native" in name:
-        return "PyTorch elementwise and reductions"
-    return "other"
+def chain_expected(torch, fn, launch_counts):
+    """The launches of one ``fn()`` from its recorded kernel calls
+    (:func:`record_calls`, :func:`expected_launches`, G and its split-K
+    reductions), the zero counts dropped."""
+    calls = record_calls(torch, fn)
+    expected = expected_launches(calls, launch_counts)
+    expected["out_proj_packed"] = sum(calls["out_proj_packed"].values())
+    expected.update(out_proj_sub_counts(calls))
+    return Counter({k: n for k, n in expected.items() if n})
 
 
-def trace_split(torch, events, wall_s):
-    """From a profiler trace of one image: the window (first stage start to
-    last event end), the device-busy time (the union of the card's activity
-    intervals), the idle share, the device time by kind of activity, the
-    ten device ops with the most total time, and the five longest
-    device-idle gaps with the host stage each falls in."""
-    cuda = torch.autograd.DeviceType.CUDA
-    dev, spans = [], []
-    for e in events:
-        tr = e.time_range
-        if e.name in STAGES and e.device_type != cuda:
-            spans.append((tr.start, tr.end, e.name))
-        elif (e.device_type == cuda and e.name not in STAGES
-              and not getattr(e, "is_user_annotation", False)):
-            dev.append((tr.start, tr.end, e.name))
-    if not spans:
-        raise AssertionError("the trace holds none of the pipeline's stages")
-    lo = min(s[0] for s in spans)
-    hi = max([s[1] for s in spans] + [d[1] for d in dev])
-    merged = []
-    for a, b, _ in sorted(dev):
-        a, b = max(a, lo), min(b, hi)
-        if b <= a:
-            continue
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    busy = sum(b - a for a, b in merged)
-    window = hi - lo
-    edges = [lo] + [x for ab in merged for x in ab] + [hi]
-    gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)
-                   if edges[i + 1] > edges[i]), reverse=True)[:5]
+def held_tool(torch, mod, argv, expected, launch_counts, reset_launch_counts):
+    """``mod.main(argv)`` with the counts zeroed just before it and read just
+    after, held to ``expected`` (the calls it returns where None)."""
+    tool = mod.__name__.rsplit(".", 1)[1]
+    log(f"tool: python -m sdtpu_torch.tools.{tool} {' '.join(argv)}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: n for k, n in launch_counts.items() if n}
+    want = {k: n for k, n in (res if expected is None else expected).items() if n}
+    log(f"tool {tool}: {secs:.1f} s; launches {counts}, calls of each wrapper {want}"
+        + (" ok" if counts == want else " FAIL"))
+    if counts != want or not counts:
+        raise AssertionError(f"{tool}: launches {counts} != its calls {want}")
+    return {"tool": tool, "argv": argv, "s": secs, "launches": counts}
 
-    def stage_at(t):
-        names = [n for a, b, n in spans if a <= t <= b]
-        return names[-1] if names else "between stages"
 
-    by_name = {}
-    for a, b, n in dev:
-        tot, cnt = by_name.get(n, (0.0, 0))
-        by_name[n] = (tot + (b - a), cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    stage_sum = {}
-    for a, b, n in spans:
-        stage_sum[n] = stage_sum.get(n, 0.0) + (b - a)
-    kinds = {}
-    for n, (t, c) in by_name.items():
-        k = kinds.setdefault(device_category(n), [0.0, 0])
-        k[0] += t / 1e3
-        k[1] += c
-    return {
-        "device_ms_by_kind": {k: {"ms": v[0], "count": v[1]} for k, v in kinds.items()},
-        "wall_ms": wall_s * 1e3, "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-        "idle_share": 1.0 - busy / window if window > 0 else None,
-        "device_events": len(dev),
-        "top_device_ops": [{"name": n, "total_ms": t / 1e3, "count": c} for n, (t, c) in top],
-        "longest_idle_gaps": [{"ms": g / 1e3, "at_ms": (t - lo) / 1e3,
-                               "stage": stage_at(t + g / 2)} for g, t in gaps],
-        "host_stage_ms": {n: v / 1e3 for n, v in stage_sum.items()},
-    }
+def last_tools_phase(torch, np, gen, host_params, ids, trace_dir, launch_counts,
+                     reset_launch_counts, e2e_expected):
+    """Phase 21: the last tools' ``main()`` at a chain of LAST_TOOL_CHAIN, each
+    one's launches held to its calls (the A/B chains' to one recorded chain
+    per variant times its runs); C under every plan it takes at the probes'
+    shapes against its plain version; ``CONV_STATS_CHAIN`` off against on
+    (a full-width tiny-sd UNet forward and VAE decode through the kernels,
+    then one 512x512 image each with its launches)."""
+    import importlib
+
+    import sdtpu_torch.kernels.conv2d as conv_kernels
+    import sdtpu_torch.kernels.flash_attention as fa
+    from sdtpu_torch import StableDiffusionPipeline
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.models.unet import unet_forward
+    from sdtpu_torch.models.vae import vae_decode
+    from sdtpu_torch.tools import (
+        ab_conv_stats,
+        ab_flash_nq,
+        ab_packed_proj,
+        ab_slab_grid,
+        ab_unet,
+        by_rows,
+        probe_flash_blocks,
+        probe_flash_int8,
+        probe_head_packing,
+        probe_out_proj,
+        probe_slab_halo,
+        swapped,
+    )
+    from sdtpu_torch.tools.probe_flash_vpu import qkv_inputs
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    chain = str(LAST_TOOL_CHAIN)
+    out = {"tools": []}
+
+    # (a) the probes, each holding its own variants to their plain versions
+    for mod, argv in ((probe_slab_halo, [chain]), (probe_out_proj, [chain]),
+                      (probe_flash_blocks, [chain]), (probe_flash_int8, [chain]),
+                      (probe_head_packing, ["--chain", chain, "--out", trace_dir]),
+                      (ab_slab_grid, [chain])):
+        out["tools"].append(held_tool(torch, mod, argv, None, launch_counts,
+                                      reset_launch_counts))
+        torch.cuda.empty_cache()
+
+    # (b) the A/B chains: one chain of each variant recorded, times its runs
+    config = get_preset("tiny-sd")
+    with torch.inference_mode():
+        unet_fn = ab_conv_stats.unet_case("tiny-sd", 512, LAST_TOOL_CHAIN, cuda)
+        vae_fn = ab_conv_stats.vae_case(512, LAST_TOOL_CHAIN, cuda)
+        plain_fn = ab_unet.make_chain(config, *ab_unet.chain_inputs(config, 512, cuda),
+                                      attn="flash", conv="gemm", hoist=False,
+                                      chain=LAST_TOOL_CHAIN)
+
+        def ab_expected(fn, wrap, runs):
+            total = Counter()
+            for on in (False, True):
+                total.update(chain_expected(torch, wrap(fn, on), launch_counts))
+            return Counter({k: n * runs for k, n in total.items()})
+
+        runs = 1 + ab_conv_stats.REPEATS
+        nq_names = ["plan", "bq=64", "bq=128", "plan"]
+        nq_expected = Counter()
+        for name in nq_names:
+            with swapped(fa, "plan_flash", ab_flash_nq.plan_rule(name, fa.plan_flash)):
+                one = chain_expected(torch, plain_fn, launch_counts)
+            nq_expected.update({k: n * (1 + ab_flash_nq.TIMED) for k, n in one.items()})
+        cases = ((ab_conv_stats, ["tiny-sd", "512", chain],
+                  ab_expected(unet_fn, ab_conv_stats.with_chaining, runs)),
+                 (ab_conv_stats, ["--vae", "512", chain],
+                  ab_expected(vae_fn, ab_conv_stats.with_chaining, runs)),
+                 (ab_packed_proj, ["tiny-sd", "512", chain],
+                  ab_expected(unet_fn, ab_packed_proj.with_packed,
+                              1 + ab_packed_proj.REPEATS)),
+                 (ab_flash_nq, ["tiny-sd", "512", chain] + nq_names, nq_expected))
+        del unet_fn, vae_fn, plain_fn
+    for mod, argv, expected in cases:
+        out["tools"].append(held_tool(torch, mod, argv, expected, launch_counts,
+                                      reset_launch_counts))
+    if importlib.import_module("sdtpu_torch.ops.attention")._PACKED_OUT_PROJ \
+            or not conv_kernels.CONV_STATS_CHAIN or fa.plan_flash.__name__ != "plan_flash":
+        raise AssertionError("a tool left its switch or plan swapped")
+    tools_s = time.perf_counter() - t_phase
+
+    # (c) C under every plan it takes at the probes' shapes, against its plain version
+    shapes = [(b, h, l, d, l) for _, b, h, l, d in probe_flash_blocks.SHAPES]
+    shapes += [(b, h, l, d, l) for _, b, h, l, d in probe_flash_int8.SHAPES]
+    for _, b, h, l, d, g in probe_head_packing.CASES:
+        shapes += [(b, h, l, d, l), (b, h // g, l, g * d, g * l)]
+    plans_held = 0
+    for b, h, l, d, lk in shapes:
+        q, _, _ = qkv_inputs(b, h, l, d)
+        k, v, _ = qkv_inputs(b, h, lk, d, seed=1)
+        want = by_rows(fa.flash_attention_plain, q, k, v)
+        for plan in fa.flash_plans(b * h, l, lk, d):
+            with swapped(fa, "plan_flash", lambda *_, p=plan: p):
+                judge_probe(torch, "flash_attention", f"plan {plan} q={(b, h, l, d)} lk={lk}",
+                            fa.flash_attention_packed(q, k, v), want)
+            plans_held += 1
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t_phase - tools_s
+
+    # (d) CONV_STATS_CHAIN off against on at full width: one UNet forward and
+    # one VAE decode through the kernels, beside the plain route's
+    # bf16-vs-f32 difference (phase 4's rule); then one image each
+    params = tree_to(host_params, "cuda")
+    lat = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
+    ts = torch.full((2,), 501.0, device="cuda")
+    dec_in = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
+
+    def both(p, dt):
+        return (unet_forward(lat.to(dt), ts, ctx.to(dt), p["unet"], config.unet).float(),
+                vae_decode(dec_in.to(dt), p["vae_decoder"], config.vae).float())
+
+    res = {}
+    with torch.inference_mode():
+        outs = {}
+        for on in (False, True):
+            with swapped(conv_kernels, "CONV_STATS_CHAIN", on):
+                outs[on] = both(params, torch.bfloat16)
+        with routed(**plain_routes()):
+            p16 = both(params, torch.bfloat16)
+            p32 = both({k: to_dtype(params[k], torch.float32) for k in ("unet", "vae_decoder")},
+                       torch.float32)
+    for i, what in enumerate(("unet_forward", "vae_decode")):
+        d_oo = rel_l2(torch, outs[False][i], outs[True][i])
+        d_pf = rel_l2(torch, p16[i], p32[i])
+        finite = bool(torch.isfinite(outs[False][i]).all())
+        ok = finite and d_oo <= max(2.0 * d_pf, 1e-2)
+        log(f"conv stats chain off vs on, {what} (kernels, bf16): rel L2 {d_oo:.4g}; plain "
+            f"bf16-vs-f32 {d_pf:.4g}; finite {finite}; tol max(2x bf16-vs-f32, 1e-2)"
+            + (" ok" if ok else " FAIL"))
+        res[what] = {"off_vs_on": d_oo, "plain_bf16_vs_f32": d_pf}
+        if not ok:
+            raise AssertionError(f"CONV_STATS_CHAIN off moves the {what} beyond the bf16 yardstick")
+    del outs, p16, p32
+    pipe = StableDiffusionPipeline(config, params, device="cuda")
+    images = {}
+    for on in (False, True):
+        with swapped(conv_kernels, "CONV_STATS_CHAIN", on):
+            counts, e2e = run_image(torch, np, pipe, ids,
+                                    f"conv stats chain {'on' if on else 'off'}", launch_counts,
+                                    reset_launch_counts)
+        images["on" if on else "off"] = e2e
+        if counts != e2e_expected:
+            raise AssertionError(f"CONV_STATS_CHAIN={on}: launches {counts} != {e2e_expected}")
+    log(f"conv stats chain: s/image off {images['off']['s_per_image']:.4f}, on "
+        f"{images['on']['s_per_image']:.4f}; launches equal (the bf16 image's); the two "
+        "images are not compared (a rounding change moves the seed-0 image by levels)")
+    res["images"] = images
+    del pipe, params
+    torch.cuda.empty_cache()
+    out.update(conv_stats=res, plans_held=plans_held, tools_s=tools_s, checks_s=checks_s,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"phase 21: {out['phase_s']:.1f} s (tools {tools_s:.1f} s, {plans_held} plan checks "
+        f"{checks_s:.1f} s, conv stats chain {out['phase_s'] - tools_s - checks_s:.1f} s)")
+    return out
+
+
+CAPTURE_IDLE_TOL = 0.1  # capture_trace's idle share against the bf16 image's, absolute
 
 
 def stages_phase(torch, pipe, ids, trace_dir):
     """``tools/profile_stages`` at tiny-sd 512; one profiler trace of a warm
     bf16 image split into device-busy and idle time by stage (and, for
-    comparison, the library route's image summarised the same way); the
-    StageTimer split of the same request."""
+    comparison, the library route's image summarised the same way), each
+    read back from its ``trace.json`` by ``tools/summarize_trace``; the
+    StageTimer split of the same request; then ``tools/capture_trace``'s
+    trace of the bench's workload (2 pipelined images) summarized and split
+    the same way, its categories those of the bf16 image and its idle share
+    within ``CAPTURE_IDLE_TOL`` of it."""
     from sdtpu_torch import StableDiffusionPipeline
-    from sdtpu_torch.tools import profile_stages
+    from sdtpu_torch.tools import capture_trace, profile_stages, summarize_trace
     from sdtpu_torch.utils import profiling
 
+    t_phase = time.perf_counter()
     out = {"profile_stages": profile_stages.main(["tiny-sd", "512", "--steps", str(STEPS),
                                                   "--n", "5"])}
     kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512)
@@ -4655,11 +4824,11 @@ def stages_phase(torch, pipe, ids, trace_dir):
     for route, p in (("library", lib), ("bf16", pipe)):
         p.generate(**kw)
         torch.cuda.synchronize()
-        with profiling.trace(f"{trace_dir}/{route}") as prof:
+        with profiling.trace(f"{trace_dir}/{route}"):
             t0 = time.perf_counter()
             p.generate(**kw)
             wall = time.perf_counter() - t0
-        split = trace_split(torch, prof.events(), wall)
+        split = trace_split(summarize_trace.load_trace(f"{trace_dir}/{route}"), wall)
         out[f"trace_{route}"] = split
         log(f"trace of one {route} image ({trace_dir}/{route}/trace.json): wall "
             f"{split['wall_ms']:.1f} ms, window {split['window_ms']:.1f} ms, device busy "
@@ -4678,6 +4847,43 @@ def stages_phase(torch, pipe, ids, trace_dir):
         pipe.generate(**kw)
     log("StageTimer (each stage ended by a device sync):\n" + timer.report())
     out["stage_timer_ms"] = {k: v * 1e3 for k, v in timer.totals.items()}
+    out["phase_s_before_capture"] = time.perf_counter() - t_phase
+
+    # capture_trace at tiny-sd 512 with 1 repeat (2 pipelined images), then
+    # summarize_trace on its stored file: the unet_step window's self time
+    # and the split of the whole trace
+    t0 = time.perf_counter()
+    argv = ["--preset", "tiny-sd", "--image-size", "512", "--repeats", "1",
+            "--out", f"{trace_dir}/capture"]
+    log(f"tool: python -m sdtpu_torch.tools.capture_trace {' '.join(argv)}")
+    path = capture_trace.main(argv)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = summarize_trace.load_trace(path)
+    res = summarize_trace.summarize(events, top=10, steps=2 * STEPS)
+    cap = trace_split(events, 0.0)
+    summary_s = time.perf_counter() - t0
+    bf16 = out["trace_bf16"]
+    d_idle = abs(cap["idle_share"] - bf16["idle_share"])
+    same = set(cap["device_ms_by_kind"]) == set(bf16["device_ms_by_kind"])
+    log(f"capture_trace: {capture_s:.1f} s; summarize_trace {summary_s:.1f} s; the unet_step "
+        f"window's device self ms {sum(res['device'][0].values()):.1f} and host self ms "
+        f"{sum(res['host'][0].values()):.1f} over {res['spans']} steps")
+    log(f"capture_trace split: window {cap['window_ms']:.1f} ms, device busy "
+        f"{cap['device_busy_ms']:.1f} ms ({cap['device_events']} device activities), idle share "
+        f"{cap['idle_share']:.4f} against the bf16 image's {bf16['idle_share']:.4f} (|delta| "
+        f"{d_idle:.4f}, tol {CAPTURE_IDLE_TOL}); device ms by kind: " + ", ".join(
+            f"{k} {v['ms']:.1f} (x{v['count']})" for k, v in cap["device_ms_by_kind"].items())
+        + f"; the bf16 image's kinds: {same}" + (" ok" if same and d_idle <= CAPTURE_IDLE_TOL
+                                                  else " FAIL"))
+    if not same or d_idle > CAPTURE_IDLE_TOL or res["spans"] != 2 * STEPS:
+        raise AssertionError("capture_trace's split is not the bf16 image's")
+    out["capture"] = {"split": cap, "s": capture_s, "summary_s": summary_s,
+                      "window_device_ms": sum(res["device"][0].values()),
+                      "window_host_ms": sum(res["host"][0].values()),
+                      "device_by_kind": res["device_by_kind"]}
+    out["capture_phase_s"] = capture_s + summary_s
+    log(f"phase 13: capture_trace and summarize_trace {out['capture_phase_s']:.1f} s")
     return out
 
 

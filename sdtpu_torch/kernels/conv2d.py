@@ -42,11 +42,22 @@ Layouts are the JAX package's: NHWC activations, HWIO kernels.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
 
 from sdtpu_torch.kernels import _build, launch_counts
+
+# conv1 -> GN2 statistics chaining inside the slab resnets (the UNet's
+# ``resnet_block`` and the VAE's ``vae_resnet`` read it at call time): on,
+# conv1 emits its output's moments and norm2 derives its statistics from
+# them; off (``SDTPU_CONV_STATS=0``, or set at run time, as the A/B tool
+# ``tools/ab_conv_stats.py`` does), as in ``sdtpu/kernels/conv2d.py:27-30``,
+# no conv emits moments and every GroupNorm of the chain computes its own
+# statistics from the map, E[x^2] - mean^2 unclamped (the cancellation at a
+# large mean that the port reproduces, ROADMAP Queue C).
+CONV_STATS_CHAIN = os.environ.get("SDTPU_CONV_STATS", "1") not in ("0", "false")
 
 
 def _check_int8_args(kernel, prologue_scale, upsample, act_inv_scale, w_scale) -> bool:

@@ -214,6 +214,20 @@ def plan_flash(bh: int, lq: int, lk: int, d: int) -> tuple:
     return FLASH_WIDE_BQ, min(cands, key=lambda s: (-(-rows * s // SMS) / s, s))
 
 
+def flash_plans(bh: int, lq: int, lk: int, d: int) -> list:
+    """Every ``(bq, splits)`` that C's launch takes at this shape, the one
+    :func:`plan_flash` picks among them: at D <= 160 the 64-row tile, and
+    the 128-row tile where the padded depth is at most
+    ``FLASH_MT2_MAX_DP``, one split; past it the 64-row tile with 1 up to
+    the ``plan_flash`` cap of key splits."""
+    if min(bh, lq, lk, d) <= 0 or d % 8 or d > FLASH_WIDE_DP:
+        raise ValueError(f"flash_plans: no plan for bh={bh} lq={lq} lk={lk} d={d}")
+    if flash_depth(d) <= FLASH_DEPTHS[-1]:
+        return [(64, 1)] + ([(128, 1)] if flash_depth(d) <= FLASH_MT2_MAX_DP else [])
+    cap = max(1, min(MAX_SPLITS, -(-lk // FLASH_WIDE_BKV) // MIN_SPLIT_TILES))
+    return [(FLASH_WIDE_BQ, s) for s in range(1, cap + 1)]
+
+
 def flash_launches(key: str, q_shape, lk: int) -> dict:
     """The launch counters one call of C (``key="flash_attention"``) or F
     (``"flash_attention_stats"``) adds one to on the card: its own, and the

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+import sdtpu_torch.kernels.conv2d as conv_kernels
 from sdtpu_torch.config import UNetConfig
 from sdtpu_torch.kernels.conv2d import gn_silu_conv3x3_slab
 from sdtpu_torch.ops import (
@@ -186,8 +187,9 @@ def resnet_block(
     + shortcut.  ``temb`` is already SiLU'd; ``t_pre`` the precomputed
     (B, C_out) time projection.  ``emit_stats=True`` returns ``(out,
     moments)``, the per-channel output moments for the next GroupNorm
-    (None off the slab path, as in the JAX package).  With ``conv_impl=
-    "gemm"`` routed as the JAX package's kernel program (``utils/quant.py:
+    (None off the slab path, and with ``kernels/conv2d.py:CONV_STATS_CHAIN``
+    off, as in the JAX package).  With ``conv_impl="gemm"`` routed as the
+    JAX package's kernel program (``utils/quant.py:
     resnet_takes_slab``): the slab kernels, int8 where quantized, or else
     the op path of ``sdtpu/models/unet.py:287-295`` with the float or
     dequantized kernels.  ``conv_impl="xla"`` is that op path everywhere,
@@ -206,13 +208,16 @@ def resnet_block(
         h = conv2d(h, k2, b2, padding=1, impl=conv_impl)
         out = _shortcut(x, params) + h
         return (out, None) if emit_stats else out
-    h, hstats = gn_silu_conv3x3_slab(
-        x, params["norm1"], k1, b1, num_groups=num_groups, emit_stats=True, **q1,
+    chain = conv_kernels.CONV_STATS_CHAIN  # off: sdtpu/models/unet.py:268-283's choices
+    h = gn_silu_conv3x3_slab(
+        x, params["norm1"], k1, b1, num_groups=num_groups, emit_stats=chain, **q1,
     )
-    return gn_silu_conv3x3_slab(
+    h, hstats = h if chain else (h, None)
+    out = gn_silu_conv3x3_slab(
         h, params["norm2"], k2, b2, num_groups=num_groups, temb=t,
-        residual=_shortcut(x, params), stats=hstats, emit_stats=emit_stats, **q2,
+        residual=_shortcut(x, params), stats=hstats, emit_stats=chain and emit_stats, **q2,
     )
+    return (out, None) if emit_stats and not chain else out
 
 
 def attention_block(

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+import sdtpu_torch.kernels.conv2d as conv_kernels
 from sdtpu_torch.config import VAEConfig
 from sdtpu_torch.kernels.conv2d import gn_silu_conv3x3_slab
 from sdtpu_torch.ops import (
@@ -47,9 +48,11 @@ def vae_resnet(
     """Resnet without the time branch (eps 1e-6).  ``stats``: producer
     moments of ``x`` for norm1 (ignored if the channel count differs);
     ``emit_stats=True`` returns ``(out, moments)`` of the post-residual
-    output (None off the slab path).  Routed as the UNet resnet; the op
-    path is ``sdtpu/models/vae.py:125-135``, and with ``conv_impl="xla"``
-    every resnet takes it with ``F.conv2d``."""
+    output (None off the slab path, and with ``kernels/conv2d.py:
+    CONV_STATS_CHAIN`` off, which also leaves ``stats`` unused there).
+    Routed as the UNet resnet; the op path is ``sdtpu/models/vae.py:
+    125-135``, and with ``conv_impl="xla"`` every resnet takes it with
+    ``F.conv2d``."""
     if stats is not None and stats.shape[-1] != x.shape[-1]:
         stats = None
     if conv_impl == "xla":
@@ -64,14 +67,17 @@ def vae_resnet(
         h = conv2d(h, k2, b2, padding=1, impl=conv_impl)
         out = _shortcut(x, params) + h
         return (out, None) if emit_stats else out
-    h, hstats = gn_silu_conv3x3_slab(
-        x, params["norm1"], k1, b1, num_groups=num_groups, eps=1e-6, stats=stats,
-        emit_stats=True, **q1,
+    chain = conv_kernels.CONV_STATS_CHAIN  # off: sdtpu/models/vae.py:102-122's choices
+    h = gn_silu_conv3x3_slab(
+        x, params["norm1"], k1, b1, num_groups=num_groups, eps=1e-6,
+        stats=stats if chain else None, emit_stats=chain, **q1,
     )
-    return gn_silu_conv3x3_slab(
+    h, hstats = h if chain else (h, None)
+    out = gn_silu_conv3x3_slab(
         h, params["norm2"], k2, b2, num_groups=num_groups, eps=1e-6,
-        residual=_shortcut(x, params), stats=hstats, emit_stats=emit_stats, **q2,
+        residual=_shortcut(x, params), stats=hstats, emit_stats=chain and emit_stats, **q2,
     )
+    return (out, None) if emit_stats and not chain else out
 
 
 def vae_attention(

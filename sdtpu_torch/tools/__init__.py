@@ -14,6 +14,18 @@ shapes::
     python -m sdtpu_torch.tools.ab_quant [--variants ...]          # quantization variants
     python -m sdtpu_torch.tools.device_precision                   # bf16 drift gates per stage
     python -m sdtpu_torch.tools.check_int8                         # int8 fidelity gates
+    python -m sdtpu_torch.tools.ab_conv_stats [preset] [size] [chain]  # GN statistics chaining
+    python -m sdtpu_torch.tools.ab_packed_proj [preset] [size] [chain] # kernel G on the step
+    python -m sdtpu_torch.tools.ab_flash_nq [preset] [size] [chain] [plan ...]  # C's plans
+    python -m sdtpu_torch.tools.probe_slab_halo [chain]            # A at large maps, B vs up + A
+    python -m sdtpu_torch.tools.probe_out_proj [chain]             # kernel G against einsum
+    python -m sdtpu_torch.tools.probe_flash_blocks [chain]         # C's plans at d = 64
+    python -m sdtpu_torch.tools.probe_head_packing                 # C with heads packed (proxy)
+    python -m sdtpu_torch.tools.probe_flash_int8 [chain]           # C in bf16 beside SDPA
+    python -m sdtpu_torch.tools.ab_slab_grid [chain]               # A's split-K plan swept
+    python -m sdtpu_torch.tools.generate_grid [--model-dir DIR]    # a seeds x prompts grid
+    python -m sdtpu_torch.tools.capture_trace [--out DIR]          # a profiler trace of the bench
+    python -m sdtpu_torch.tools.summarize_trace DIR                # its device/host self time
 
 Each variant runs ``chain`` back-to-back calls on the same inputs, timed two
 ways: CUDA events around the chain (which, for calls shorter than their
@@ -29,6 +41,7 @@ caller can hold the launch counters to it.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import subprocess
 import sys
 import time
@@ -38,6 +51,10 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+EXP_PER_CLOCK_SM = 16     # exp2 results per clock per SM, compute capability 9.0
+SMS = 132                 # H100 SXM
+TOL_REL = 2e-2            # a kernel against its plain version: max |delta| <= TOL_REL * max |plain|
 
 
 def require_cuda(tool: str) -> None:
@@ -53,6 +70,92 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def exp_rate() -> float:
+    """Exponentials per second of this card: ``EXP_PER_CLOCK_SM`` x ``SMS``
+    at its ``clocks.max.sm`` as nvidia-smi prints it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return EXP_PER_CLOCK_SM * SMS * float(out.split()[0]) * 1e6
+
+
+def check_plain(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want|; raises unless it is within ``TOL_REL`` x max
+    |want| (a kernel against its plain version)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= TOL_REL * max(scale, 1e-6)
+    print(f"{label}: max|kernel - plain| {err:.5f} (tol {TOL_REL} x {scale:.4f})"
+          + (" ok" if ok else " FAIL"), flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def flash_cost(q_shape, lk):
+    """(bytes, tensor operations, exponentials) of one attention call over q
+    (B, H, Lq, D) and Lk keys, bf16: q, k, v read once, the output written
+    once; one exponential per score."""
+    b, h, lq, d = q_shape
+    return (2 * (b * h * lq * d * 2) + 2 * (b * h * lk * d * 2), 4.0 * b * h * lq * lk * d,
+            float(b * h * lq * lk))
+
+
+def bound_terms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
+    """(byte ms, operation ms): bytes / PEAK_BYTES, and the larger of
+    operations / ``peak_ops`` and, for a flash kernel's (bytes, ops, exps),
+    exponentials / ``exp_rate`` (per second)."""
+    t_ops = max(cost[1] / peak_ops, cost[2] / exp_rate if len(cost) > 2 else 0.0)
+    return cost[0] / PEAK_BYTES * 1e3, t_ops * 1e3
+
+
+def bound_ms(cost, peak_ops=PEAK_BF16_FLOPS, exp_rate=None):
+    """(ms, "bytes" or "operations"): the larger of the two bound terms, the
+    least time the card could take for a call of that cost."""
+    t_by, t_ops = bound_terms(cost, peak_ops, exp_rate)
+    return max(t_by, t_ops), "bytes" if t_by > t_ops else "operations"
+
+
+def by_rows(fn, q, k, v, elems: int = 1 << 28):
+    """``fn(q, k, v)`` over blocks of q's rows, each block's float32 scores
+    at most ``elems``: the rows are independent, so this is the plain
+    attention at shapes whose whole score matrix is tens of GB."""
+    step = max(1, elems // (q.shape[0] * q.shape[1] * k.shape[2]))
+    return torch.cat([fn(q[:, :, i:i + step], k, v) for i in range(0, q.shape[2], step)], dim=2)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` is ``value`` inside the block and restored after it,
+    whatever the block raises (a plan or a switch read at call time)."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def interleaved(variants, device, n: int, unit: str, repeats: int = 7) -> dict:
+    """Each ``(name, fn)`` once (its first call printed), then ``repeats``
+    rounds of every variant in turn (drift between the rounds shows as
+    spread, not as a bias between the variants), timed by :func:`seconds`;
+    prints the median and best per ``unit`` of ``n`` and returns ``{name:
+    median seconds}``."""
+    for name, fn in variants:
+        print(f"{name}: first {seconds(fn, device):.1f}s", flush=True)
+    times = {name: [] for name, _ in variants}
+    for _ in range(repeats):
+        for name, fn in variants:
+            times[name].append(seconds(fn, device))
+    meds = {}
+    for name, ts in times.items():
+        med = meds[name] = statistics.median(ts)
+        print(f"{name}: {med * 1000:8.1f} ms / {n} {unit}s = {med / n * 1000:6.2f} ms/{unit}  "
+              f"(min {min(ts) / n * 1000:6.2f})", flush=True)
+    return meds
 
 
 def device_arg(tool: str, name: str):

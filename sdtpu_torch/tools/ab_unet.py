@@ -69,23 +69,14 @@ def make_chain(config, params, x0, ts, ctx, added, *, attn: str, conv: str, hois
     return run
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("preset", nargs="?", default="tiny-sd")
-    ap.add_argument("image_size", nargs="?", type=int, default=512)
-    ap.add_argument("chain", nargs="?", type=int, default=25)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
-    from sdtpu_torch.config import get_preset
-    from sdtpu_torch.tools import card_line, device_arg, seconds
+def chain_inputs(config, image_size: int, device):
+    """``(unet params, x0, ts, ctx, added)`` for a CFG-batched chain at
+    ``image_size``: zero weights of the preset's shapes, zero latents and
+    context, t = 500, and zero micro-conditioning for an SDXL UNet (else
+    None)."""
     from sdtpu_torch.utils.weights import zero_pipeline_params
 
-    device = device_arg("ab_unet", args.device)
-    if device.type == "cuda":
-        print(card_line(), flush=True)
-    config = get_preset(args.preset)
-    lat = args.image_size // config.vae.downscale_factor
+    lat = image_size // config.vae.downscale_factor
     params = zero_pipeline_params(config, device=device)["unet"]
     ucfg = config.unet
     cd = config.compute_dtype
@@ -99,6 +90,25 @@ def main(argv=None) -> dict:
                      (2, ucfg.addition_embed_dim - n_ids * ucfg.addition_time_embed_dim),
                      dtype=cd, device=device),
                  "time_ids": torch.zeros((2, n_ids), device=device)}
+    return params, x0, ts, ctx, added
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("preset", nargs="?", default="tiny-sd")
+    ap.add_argument("image_size", nargs="?", type=int, default=512)
+    ap.add_argument("chain", nargs="?", type=int, default=25)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from sdtpu_torch.config import get_preset
+    from sdtpu_torch.tools import card_line, device_arg, seconds
+
+    device = device_arg("ab_unet", args.device)
+    if device.type == "cuda":
+        print(card_line(), flush=True)
+    config = get_preset(args.preset)
+    params, x0, ts, ctx, added = chain_inputs(config, args.image_size, device)
     results = {}
     with torch.inference_mode():
         for name, attn, conv, hoist in ROUTES:

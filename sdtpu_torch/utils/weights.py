@@ -588,11 +588,12 @@ def init_pipeline_params(key, config: PipelineConfig, *, device="cuda") -> dict:
     return _to(params, device)
 
 
-def _zeros(tree, device):
+def zero_tree(tree, device):
+    """Zeros with ``tree``'s structure, shapes and dtypes on ``device``."""
     if isinstance(tree, dict):
-        return {k: _zeros(v, device) for k, v in tree.items()}
+        return {k: zero_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_zeros(v, device) for v in tree]
+        return [zero_tree(v, device) for v in tree]
     return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
 
 
@@ -602,7 +603,7 @@ def zero_pipeline_params(config: PipelineConfig, *, device="cuda") -> dict:
     weight values)."""
     with hostrng.shapes_only():
         shapes = init_pipeline_params(0, config, device="meta")
-    return _zeros(shapes, device)
+    return zero_tree(shapes, device)
 
 
 def zero_controlnet_params(config: PipelineConfig, *, device="cuda") -> dict:
@@ -613,4 +614,4 @@ def zero_controlnet_params(config: PipelineConfig, *, device="cuda") -> dict:
 
     with hostrng.shapes_only():
         shapes = init_controlnet(0, config.unet, dtype=config.param_dtype)
-    return _zeros(shapes, device)
+    return zero_tree(shapes, device)

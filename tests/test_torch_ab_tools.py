@@ -1,9 +1,10 @@
 """The port's A/B and probe tools (``sdtpu_torch/tools/probe_int8_slab.py``,
-``ab_unet.py``, ``ab_quant.py``) and the card-only entry of all five tools
-of this slice (with ``device_precision.py`` and ``check_int8.py``): each
-``main`` runs on the CPU at a tiny size and prints the JAX tool's lines;
-each refuses ``cuda`` without a card; on a card (``gpu``-marked, skipped
-here) each runs at a small size and launches its kernels.  Times are not
+``ab_unet.py``, ``ab_quant.py``) and the card-only entry of every tool
+that defaults to the card (with ``device_precision.py``, ``check_int8.py``
+and the last tools, ``tests/test_torch_last_tools.py``): each ``main``
+runs on the CPU at a tiny size and prints the JAX tool's lines; each
+refuses ``cuda`` without a card; on a card (``gpu``-marked, skipped here)
+each runs at a small size and launches its kernels.  Times are not
 checked on the CPU: the tools time the plain versions there.
 """
 
@@ -17,7 +18,24 @@ import torch
 import sdtpu_torch.config as tcfg
 import sdtpu_torch.kernels.conv2d as tconv
 from sdtpu_torch.kernels import launch_counts, reset_launch_counts
-from sdtpu_torch.tools import ab_quant, ab_unet, check_int8, device_precision, probe_int8_slab
+from sdtpu_torch.tools import (
+    ab_conv_stats,
+    ab_flash_nq,
+    ab_packed_proj,
+    ab_quant,
+    ab_slab_grid,
+    ab_unet,
+    capture_trace,
+    check_int8,
+    device_precision,
+    generate_grid,
+    probe_flash_blocks,
+    probe_flash_int8,
+    probe_head_packing,
+    probe_int8_slab,
+    probe_out_proj,
+    probe_slab_halo,
+)
 from test_pipeline import TINY
 from test_torch_ops import port_config
 
@@ -25,7 +43,14 @@ torch.set_num_threads(1)
 
 TOOLS = {"device_precision": device_precision.main, "check_int8": check_int8.main,
          "probe_int8_slab": probe_int8_slab.main, "ab_unet": ab_unet.main,
-         "ab_quant": ab_quant.main}
+         "ab_quant": ab_quant.main,
+         # the last tools (tests/test_torch_last_tools.py)
+         "ab_conv_stats": ab_conv_stats.main, "ab_packed_proj": ab_packed_proj.main,
+         "ab_flash_nq": ab_flash_nq.main, "probe_slab_halo": probe_slab_halo.main,
+         "probe_out_proj": probe_out_proj.main, "probe_flash_blocks": probe_flash_blocks.main,
+         "probe_head_packing": probe_head_packing.main,
+         "probe_flash_int8": probe_flash_int8.main, "ab_slab_grid": ab_slab_grid.main,
+         "generate_grid": generate_grid.main, "capture_trace": capture_trace.main}
 
 
 @pytest.fixture

@@ -4,7 +4,8 @@
 one-process run, on the CPU.
 
 The port runs one process per rank; the tests start four gloo processes
-(one spawn per test, a ``file://`` rendezvous, ``OMP_NUM_THREADS=1``)
+(one spawn serves the dp and the tp test, a ``file://`` rendezvous,
+``OMP_NUM_THREADS=1``)
 through ``sdtpu_torch.tools.dryrun_multichip.run_ranks``, and hold what
 they return to the same calls in this process.  Tolerances, as the JAX
 package's ``tests/test_parallel.py`` holds its mesh:
@@ -59,11 +60,20 @@ def _port_tiny():
 
 def _spawn(tmp_path, worker: str):
     """Run ``worker`` on four gloo ranks with the port's TINY config in
-    ``tmp_path/config.pkl``; returns rank 0's ``out.npz``."""
+    ``tmp_path/config.pkl``; rank 0 writes its results under ``tmp_path``."""
     with open(tmp_path / "config.pkl", "wb") as f:
         pickle.dump(_port_tiny(), f)
     run_ranks([sys.executable, "-c", _PRELUDE + worker, str(tmp_path)], 4, timeout=300)
-    return np.load(tmp_path / "out.npz")
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The dp and tp workers, one after the other on one start of four gloo
+    ranks (each rank's imports and TINY tree once for both); rank 0's
+    ``dp.npz`` and ``tp.npz``."""
+    tmp_path = tmp_path_factory.mktemp("four_ranks")
+    _spawn(tmp_path, _DP_WORKER + _TP_WORKER + "torch.distributed.destroy_process_group()\n")
+    return {name: np.load(tmp_path / f"{name}.npz") for name in ("dp", "tp")}
 
 
 _PRELUDE = r"""
@@ -129,8 +139,10 @@ def _spec_trees(name):
     want = jax_init(0, config)
     got = init_pipeline_params(0, port_config(config), device="cpu")
     if name == "controlnet":
-        want = {**want, "controlnet": jax_controlnet(jax.random.key(5), config.unet,
-                                                     cond_channels=(4, 8, 16))}
+        # a spec reads a leaf's path and rank only: the JAX net's shapes
+        # (jax.eval_shape) stand for its drawn values
+        want = {**want, "controlnet": jax.eval_shape(
+            lambda: jax_controlnet(jax.random.key(5), config.unet, cond_channels=(4, 8, 16)))}
         got = {**got, "controlnet": init_controlnet(5, port_config(config).unet,
                                                     cond_channels=(4, 8, 16))}
     if name == "int8":
@@ -255,14 +267,13 @@ finally:
     engine.shutdown()
 assert not engine._worker.is_alive()
 if rank == 0:
-    np.savez(out + "/out.npz", seeds=seeds, scalar=scalar, served=served, tail=tail,
+    np.savez(out + "/dp.npz", seeds=seeds, scalar=scalar, served=served, tail=tail,
              batches=stats["batches"], requests=stats["requests"], ok=report["ok"],
              devices=report["devices"])
-torch.distributed.destroy_process_group()
 """
 
 
-def test_dp_generate_batch_and_engine_over_four_gloo_processes(tiny_pipe, tmp_path):
+def test_dp_generate_batch_and_engine_over_four_gloo_processes(tiny_pipe, four_ranks):
     """``generate_batch(mesh=make_mesh(4, 1))`` of 8 rows: bitwise the
     port's one-process run with per-request seeds and with a scalar seed,
     and within one level of the JAX package's single-device run (the JAX
@@ -272,7 +283,7 @@ def test_dp_generate_batch_and_engine_over_four_gloo_processes(tiny_pipe, tmp_pa
     more requests (a chunk of 3, padded to dp's 4 rows) their solo rows;
     ``health_check(mesh)`` is ok over 4; ``replicate``, ``shard_batch`` and
     ``global_mesh``'s three refusals over the world."""
-    res = _spawn(tmp_path, _DP_WORKER)
+    res = four_ranks["dp"]
     pipe = StableDiffusionPipeline.from_random(_port_tiny(), seed=0, device="cpu")
     kw = dict(token_ids=IDS, num_inference_steps=2)
     want = pipe.generate_batch(["p"] * 8, seeds=list(range(8)), **kw)
@@ -317,12 +328,11 @@ other = make_mesh(4, 1)
 raises(lambda: sharded.generate_batch(["p"] * 4, mesh=other, token_ids=IDS[:4],
                                       num_inference_steps=1), "sharded for")
 if rank == 0:
-    np.savez(out + "/out.npz", got=got, got_q8=got_q8)
-torch.distributed.destroy_process_group()
+    np.savez(out + "/tp.npz", got=got, got_q8=got_q8)
 """
 
 
-def test_tp_generate_batch_over_four_gloo_processes(tiny_pipe, tmp_path):
+def test_tp_generate_batch_over_four_gloo_processes(tiny_pipe, four_ranks):
     """A (2, 2) mesh on ``shard_params_tp``'s tree in float32: within 2e-4
     of the one-process images and of the JAX package's single-device
     images (GEGLU's halves, the VAE's single head gathered, CLIP's stacked
@@ -336,7 +346,7 @@ def test_tp_generate_batch_over_four_gloo_processes(tiny_pipe, tmp_path):
     which fuse into whole leaves."""
     from sdtpu.pipeline.pipeline import StableDiffusionPipeline as JaxPipeline
 
-    res = _spawn(tmp_path, _TP_WORKER)
+    res = four_ranks["tp"]
     pipe = StableDiffusionPipeline.from_random(_port_tiny(), seed=0, device="cpu")
     kw = dict(seeds=[0, 1, 2, 3], output="float", token_ids=IDS[:4], num_inference_steps=2)
     want = pipe.generate_batch(["p"] * 4, **kw)

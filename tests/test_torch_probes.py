@@ -32,6 +32,7 @@ the card; they skip on a machine without one.
 """
 
 import importlib.util
+import json
 import os
 import pathlib
 import subprocess
@@ -399,19 +400,53 @@ def test_dot_make_refuses_other_forms_and_shapes():
 
 # ------------------------------------------------------------------- tools --
 
-@pytest.mark.parametrize("tool", ["ab_conv", "probe_flash_vpu", "probe_flash_2stream",
-                                  "probe_int8_dot", "ab_flash", "ab_probes"])
-def test_tool_exits_non_zero_without_a_card(tool):
+CARD_TOOLS = ["ab_conv", "probe_flash_vpu", "probe_flash_2stream", "probe_int8_dot", "ab_flash",
+              "ab_probes"]
+
+# Runs each tool as ``python -m sdtpu_torch.tools.<tool> 1`` runs it (runpy
+# with run_name "__main__"), one after the other in one fresh process, and
+# prints each one's exit code, stdout and stderr as JSON.
+_RUN_AS_MAIN = r"""
+import contextlib, io, json, runpy, sys, traceback
+res = {}
+for tool in sys.argv[1:]:
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    sys.argv = [tool, "1"]
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            runpy.run_module(f"sdtpu_torch.tools.{tool}", run_name="__main__", alter_sys=True)
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+        except BaseException:
+            traceback.print_exc(file=err)
+            code = 1
+    res[tool] = [code, out.getvalue(), err.getvalue()]
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def tools_as_main():
+    """Every card tool's ``python -m`` run without a card, in one process
+    (its start and the imports once, not once a tool)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _RUN_AS_MAIN, *CARD_TOOLS], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("tool", CARD_TOOLS)
+def test_tool_exits_non_zero_without_a_card(tool, tools_as_main):
     """``python -m sdtpu_torch.tools.<tool>`` has no CPU mode: without a
     card it exits non-zero and prints no measurement."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-m", f"sdtpu_torch.tools.{tool}", "1"], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "needs an NVIDIA card" in proc.stderr
-    assert "ms/call" not in proc.stdout
+    code, stdout, stderr = tools_as_main[tool]
+    assert code != 0
+    assert "needs an NVIDIA card" in stderr
+    assert "ms/call" not in stdout
 
 
 def test_ab_slab_splits_kernel_d_by_kernel_name():

@@ -565,8 +565,9 @@ def test_unet_forward_int8_tiny_matches_jax(q_trees):
     ts = np.array([981.0, 21.0], np.float32)
     ctx = rng.normal(size=(2, 16, TINY.unet.cross_attention_dim)).astype(np.float32)
     got = tunet.unet_forward(tt(lat), tt(ts), tt(ctx), tq["unet"], TTINY.unet)
-    want = junet.unet_forward(jnp.asarray(lat), jnp.asarray(ts), jnp.asarray(ctx),
-                              jq["unet"], TINY.unet)
+    # one jitted program: the same function as the eager ops, compiled once
+    want = jax.jit(lambda p: junet.unet_forward(jnp.asarray(lat), jnp.asarray(ts),
+                                                jnp.asarray(ctx), p, TINY.unet))(jq["unet"])
     close_scaled(got, want)
 
 
@@ -574,7 +575,7 @@ def test_vae_decode_int8_tiny_matches_jax(q_trees):
     jq, tq = q_trees
     lat = np.random.default_rng(6).normal(size=(1, 4, 4, 4)).astype(np.float32)
     got = tvae.vae_decode(tt(lat), tq["vae_decoder"], TTINY.vae)
-    want = jvae.vae_decode(jnp.asarray(lat), jq["vae_decoder"], TINY.vae)
+    want = jax.jit(lambda p: jvae.vae_decode(jnp.asarray(lat), p, TINY.vae))(jq["vae_decoder"])
     close_scaled(got, want)
 
 
@@ -606,8 +607,9 @@ def test_unet_forward_all_resnets_on_kernel_d(rng, jax_slab_interpret):
         tconv.conv3x3_slab_plain = orig
     n_res = 2 * (len(jp["down_blocks"]) * 1 + len(jp["up_blocks"]) * 2)
     assert calls.count(torch.int8) == n_res
-    want = junet.unet_forward(jnp.asarray(lat), jnp.asarray(ts), jnp.asarray(ctx), jp,
-                              SLAB_UNET, conv_impl="gemm")
+    want = jax.jit(lambda p: junet.unet_forward(jnp.asarray(lat), jnp.asarray(ts),
+                                                jnp.asarray(ctx), p, SLAB_UNET,
+                                                conv_impl="gemm"))(jp)
     ws = max(float(np.asarray(leaf).max()) for path, leaf in _leaves(_host_tree(jp))
              if path[-1] == "w_scale" and ("conv1" in path or "conv2" in path))
     _assert_int8_close(got, want, ws)
