@@ -57,12 +57,17 @@ states scaled per token, :func:`apply_token_weights`).
 
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
 ``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
-``vae_decode``, ``to_uint8``.  With ``output="device"`` a request makes no
-host sync between its tokens and the returned tensor.
+``vae_decode``, ``to_uint8``; and so do the host stretches between them:
+``request`` around each ``generate``/``generate_batch`` call (a call inside
+another joins its span), ``prepare`` (the feature checks, the per-row keys,
+the images, masks and control maps on the host) and ``upload`` (the
+schedule, and the images and masks on the device).  With ``output="device"`` a
+request makes no host sync between its tokens and the returned tensor.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -84,7 +89,7 @@ from sdtpu_torch.ops.resize import resize_image
 from sdtpu_torch.ops.embedding import timestep_embedding
 from sdtpu_torch.parallel.mesh import Mesh, sharded_mesh, tp_context
 from sdtpu_torch.samplers import get_sampler, slice_schedule
-from sdtpu_torch.utils import prng
+from sdtpu_torch.utils import prng, profiling
 from sdtpu_torch.utils.image import from_uint8, to_uint8
 from sdtpu_torch.utils.profiling import stage
 from sdtpu_torch.utils.runtime import to_device
@@ -167,6 +172,21 @@ def request_noise(key, steps: int, shape, device, *, program: str = "txt2img",
     else:
         out = prng.normal_torch(flat, draw, device)
     return out.reshape(n, *shape)
+
+
+def _request_span(fn):
+    """Run a pipeline call inside a ``request`` span with a fresh request
+    id, or inside the enclosing call's (``generate(num_images=n)`` runs
+    ``generate_batch``)."""
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        if profiling.in_span("request"):
+            return fn(self, *args, **kwargs)
+        with stage("request", requests=(profiling.new_request_id(),)):
+            return fn(self, *args, **kwargs)
+
+    return call
 
 
 def rescale_noise_cfg(eps_cfg: torch.Tensor, eps_text: torch.Tensor, rescale: float):
@@ -480,6 +500,7 @@ class StableDiffusionPipeline:
 
     # -- public API -----------------------------------------------------------
 
+    @_request_span
     def generate(
         self,
         prompt: str = "",
@@ -645,21 +666,24 @@ class StableDiffusionPipeline:
         if has_control and self.controlnet is None:
             raise ValueError("control_image requires a ControlNet — call "
                              "pipe.load_controlnet(...) first")
-        features = check_features(encoder_cache_interval, has_control, guidance_rescale,
-                                  pag_scale, freeu, cfg, is_edit)
-        if latents is not None:
-            latents = np.asarray(latents, np.float32)
-            if latents.ndim == 3:
-                latents = latents[None]
+        with stage("prepare"):
+            features = check_features(encoder_cache_interval, has_control, guidance_rescale,
+                                      pag_scale, freeu, cfg, is_edit)
+            if latents is not None:
+                latents = np.asarray(latents, np.float32)
+                if latents.ndim == 3:
+                    latents = latents[None]
+            key = prng.key(seed)
+            images = self._prep_image(init_image, size) if is_img2img else None
+            masks = self._prep_mask(mask_image, size) if mask_image is not None else None
+            control = (self._control_rows([control_image], controlnet_scale, size)
+                       if has_control else None)
         return self._request(
-            ids, prng.key(seed), size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
+            ids, key, size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale,
             sampler=sampler, strength=strength, image_guidance_scale=image_guidance_scale,
-            images=self._prep_image(init_image, size) if is_img2img else None,
-            masks=self._prep_mask(mask_image, size) if mask_image is not None else None,
-            latents=latents, output=output, clip_skip=clip_skip, token_weights=weights,
-            denoising_end=denoising_end, denoising_start=denoising_start,
-            control=(self._control_rows([control_image], controlnet_scale, size)
-                     if has_control else None), **features)
+            images=images, masks=masks, latents=latents, output=output, clip_skip=clip_skip,
+            token_weights=weights, denoising_end=denoising_end,
+            denoising_start=denoising_start, control=control, **features)
 
     def generate_async(self, prompt: str = "", negative_prompt: str = "",
                        **kwargs) -> "PendingImages":
@@ -720,6 +744,7 @@ class StableDiffusionPipeline:
                 for i in range(num_images)]
         return np.concatenate([np.asarray(o) for o in outs], axis=0)
 
+    @_request_span
     def generate_batch(
         self,
         prompts,
@@ -860,25 +885,27 @@ class StableDiffusionPipeline:
         if is_edit and mask_images is not None:
             raise ValueError("editing checkpoints (InstructPix2Pix) take no mask")
         has_control = control_images is not None
-        features = check_features(
-            encoder_cache_interval, has_control, guidance_rescale, pag_scale, freeu, cfg, is_edit,
-            control_rows=(len(control_images), cond.shape[0]) if has_control else None,
-            controlnet_loaded=self.controlnet is not None)
-        if seeds is not None:
-            if len(seeds) != cond.shape[0]:
-                raise ValueError("seeds must match the number of prompts")
-            key = np.stack([prng.key(s) for s in seeds])  # per-request keys
-        else:
-            key = prng.key(seed)
-        images = masks = None
-        if is_img2img:
-            images = np.concatenate([self._prep_image(im, size) for im in init_images])
-            if mask_images is not None:
-                if len(mask_images) != len(init_images):
-                    raise ValueError("mask_images must match init_images in length")
-                masks = np.concatenate([self._prep_mask(m, size) for m in mask_images])
-        control = (self._control_rows(control_images, controlnet_scale, size)
-                   if has_control else None)
+        with stage("prepare"):
+            features = check_features(
+                encoder_cache_interval, has_control, guidance_rescale, pag_scale, freeu, cfg,
+                is_edit,
+                control_rows=(len(control_images), cond.shape[0]) if has_control else None,
+                controlnet_loaded=self.controlnet is not None)
+            if seeds is not None:
+                if len(seeds) != cond.shape[0]:
+                    raise ValueError("seeds must match the number of prompts")
+                key = np.stack([prng.key(s) for s in seeds])  # per-request keys
+            else:
+                key = prng.key(seed)
+            images = masks = None
+            if is_img2img:
+                images = np.concatenate([self._prep_image(im, size) for im in init_images])
+                if mask_images is not None:
+                    if len(mask_images) != len(init_images):
+                        raise ValueError("mask_images must match init_images in length")
+                    masks = np.concatenate([self._prep_mask(m, size) for m in mask_images])
+            control = (self._control_rows(control_images, controlnet_scale, size)
+                       if has_control else None)
         run = dict(size=size, steps=steps, cfg=cfg, cfg_scale=cfg_scale, sampler=sampler,
                    strength=strength, image_guidance_scale=image_guidance_scale,
                    clip_skip=clip_skip, **features)
@@ -1208,15 +1235,16 @@ class StableDiffusionPipeline:
         is_img2img = images is not None
         # editing checkpoints denoise from pure noise: strength never truncates
         strength_key = 1.0 if (self._is_edit() or not is_img2img) else round(strength, 6)
-        schedule = sdef.make_schedule(self.config.scheduler, steps, strength_key,
-                                      device=self.device)
         n_train = self.config.scheduler.num_train_timesteps
-        if denoising_start is not None:
-            schedule = slice_schedule(schedule, num_train_timesteps=n_train,
-                                      denoising_start=denoising_start)
-        if denoising_end is not None:
-            schedule = slice_schedule(schedule, num_train_timesteps=n_train,
-                                      denoising_end=denoising_end)
+        with stage("upload"):
+            schedule = sdef.make_schedule(self.config.scheduler, steps, strength_key,
+                                          device=self.device)
+            if denoising_start is not None:
+                schedule = slice_schedule(schedule, num_train_timesteps=n_train,
+                                          denoising_start=denoising_start)
+            if denoising_end is not None:
+                schedule = slice_schedule(schedule, num_train_timesteps=n_train,
+                                          denoising_end=denoising_end)
         n_noise = schedule.num_steps if sdef.stochastic else 0
         f = self.config.vae.downscale_factor
         lat_shape = (size // f, size // f, self.config.vae.latent_channels)
@@ -1242,12 +1270,17 @@ class StableDiffusionPipeline:
         run = dict(cfg=cfg, cfg_scale=cfg_scale, sampler=sampler, schedule=schedule,
                    output=output, clip_skip=clip_skip, token_weights=token_weights,
                    **features)
+        if latents is not None or is_img2img:
+            with stage("upload"):
+                if latents is not None:
+                    latents = to_device(latents, self.device)
+                if is_img2img:
+                    images = to_device(images, self.device)
+                    masks = None if masks is None else to_device(masks, self.device)
         if not is_img2img:
-            lat0 = heads[0] if latents is None else to_device(latents, self.device)
+            lat0 = heads[0] if latents is None else latents
             return self.txt2img(ids, lat0, noise, continuation=denoising_start is not None,
                                 image_size=size, **run)
-        images = to_device(images, self.device)
-        masks = None if masks is None else to_device(masks, self.device)
         return self.img2img(ids, images, heads[0], heads[1], noise, strength=strength_key,
                             masks=masks,
                             masked_noise=heads[2] if program == "inpaint" else None,

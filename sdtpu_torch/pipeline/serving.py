@@ -19,6 +19,16 @@ The worker keeps two batches in flight: it dispatches batch N+1
 (``output="device"``) before it fetches batch N.  A transient error
 retries a batch once; a ValueError or TypeError fails its futures at once.
 
+Each request gets an id at ``submit`` and a submit stamp on the span
+recorder's clock (``utils/profiling.clock_ns``), which its latency in
+``stats()`` reads too.  While spans are recorded (``utils/profiling.py``)
+the engine records ``engine.queued`` per request (submit to the start of
+its chunk's dispatch), and per batch ``engine.collect`` (the worker's
+first request to the batch's close: ``rows``, ``pending``), and per device
+chunk ``engine.dispatch`` (``batch`` id, request ids; the pipeline's spans
+inside it are its children), ``engine.fetch`` (the images' copy to the
+host) and ``engine.retry`` (a synchronous retry).
+
 With a ``mesh`` every device batch runs as ``generate_batch(mesh=)``, its
 rows split over dp; a chunk that does not divide by dp (a lone request, a
 tail) is padded to a multiple of dp with copies of its last request, whose
@@ -37,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -48,6 +59,8 @@ import numpy as np
 import torch.distributed as dist
 
 from sdtpu_torch.parallel.mesh import Mesh
+from sdtpu_torch.utils import profiling
+from sdtpu_torch.utils.profiling import stage
 
 _FAILED = object()  # dispatch sentinel: the batch is already resolved with an error
 
@@ -88,7 +101,9 @@ class _Request:
     # rows with different CLIP window counts do not coalesce: padded empty
     # windows would make a row's context depend on its batch
     n_windows: int = 1
-    t_submit: float = 0.0  # monotonic enqueue time (latency percentiles)
+    id: int = 0  # the engine's request id (the spans' ``requests``)
+    t_submit: int = 0  # enqueue time, profiling.clock_ns (latencies, engine.queued)
+    submit_tid: int = 0  # the submitting thread (engine.queued's row)
 
     @property
     def bucket(self):
@@ -142,8 +157,8 @@ class ServingEngine:
         self._pending: "collections.deque[_Request]" = collections.deque()
         self._shutdown = threading.Event()
         self._lock = threading.Lock()
-        self._stats = {"requests": 0, "batches": 0, "failures": 0, "retries": 0,
-                       "batch_seconds": 0.0}
+        self._stats = {"requests": 0, "batches": 0, "failures": 0, "retries": 0}
+        self._batch_ids = itertools.count(1)
         # rolling submit -> resolve latencies (p50/p95 in stats())
         self._latencies: "collections.deque[float]" = collections.deque(maxlen=1024)
         self._worker = threading.Thread(target=self._follow if self._follower else self._run,
@@ -151,13 +166,12 @@ class ServingEngine:
         self._worker.start()
 
     def stats(self) -> dict:
-        """Requests served, batches run, failures, retries, mean batch size
-        and seconds, and the p50/p95 request latency."""
+        """Requests served, batches run, failures, retries, mean batch size,
+        and the p50/p95 request latency (submit to resolve)."""
         with self._lock:
             s = dict(self._stats)
             lat = sorted(self._latencies)
         s["mean_batch_size"] = s["requests"] / s["batches"] if s["batches"] else 0.0
-        s["mean_batch_latency_s"] = s["batch_seconds"] / s["batches"] if s["batches"] else 0.0
         if lat:
             s["request_latency_p50_s"] = lat[len(lat) // 2]
             s["request_latency_p95_s"] = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
@@ -219,7 +233,8 @@ class ServingEngine:
             pag_scale=pag_scale, freeu=freeu, control_image=control_image,
             controlnet_scale=controlnet_scale, encoder_cache_interval=encoder_cache_interval,
             clip_skip=clip_skip, prompt_weighting=prompt_weighting,
-            token_weights=token_weights, n_windows=n_windows, t_submit=time.monotonic())
+            token_weights=token_weights, n_windows=n_windows, id=profiling.new_request_id(),
+            t_submit=profiling.clock_ns(), submit_tid=profiling.thread_id())
         self._queue.put(req)
         return req.future
 
@@ -249,6 +264,7 @@ class ServingEngine:
                     first = self._queue.get(timeout=initial_timeout)
             except queue.Empty:
                 return []
+        t_first = profiling.clock_ns()
         batch = [first]
         remaining = collections.deque()
         for req in self._pending:
@@ -271,6 +287,8 @@ class ServingEngine:
                 batch.append(req)
             else:
                 self._pending.append(req)
+        profiling.record_span("engine.collect", t_first, profiling.clock_ns(), rows=len(batch),
+                              pending=len(self._pending))
         return batch
 
     def _gen_kwargs(self, batch: List[_Request]) -> tuple:
@@ -306,14 +324,19 @@ class ServingEngine:
             kw["controlnet_scale"] = first.controlnet_scale
         return [r.prompt for r in batch], kw
 
-    def _dispatch(self, batch: List[_Request]):
+    def _dispatch(self, batch: List[_Request], bid: int):
         """Queue a batch without waiting for it (``output="device"``): the
         device tensor in flight; None defers to a synchronous retry at
         resolve time (a transient error); ``_FAILED`` when a ValueError or
         TypeError has failed the batch's futures."""
         try:
-            prompts, kw = self._gen_kwargs(batch)
-            return self._generate(prompts, output="device", **kw)
+            with stage("engine.dispatch", requests=[r.id for r in batch], batch=bid) as t0:
+                if t0 is not None:  # recorded: each request waited until now
+                    for r in batch:
+                        profiling.record_span("engine.queued", r.t_submit, t0,
+                                              requests=(r.id,), tid=r.submit_tid)
+                prompts, kw = self._gen_kwargs(batch)
+                return self._generate(prompts, output="device", **kw)
         except (ValueError, TypeError) as exc:  # deterministic: no retry
             with self._lock:
                 self._stats["failures"] += len(batch)
@@ -351,36 +374,38 @@ class ServingEngine:
                 logging.getLogger("sdtpu_torch.serving").exception(
                     "rank %d: a replayed batch failed", self.mesh.rank)
 
-    def _record(self, batch: List[_Request], images, t0) -> None:
-        now = time.monotonic()
+    def _record(self, batch: List[_Request], images) -> None:
+        now = profiling.clock_ns()
         for i, req in enumerate(batch):
             if not req.future.done():  # the client may have cancelled
                 req.future.set_result(images[i])
         with self._lock:
-            self._latencies.extend(now - r.t_submit for r in batch)
+            self._latencies.extend((now - r.t_submit) / 1e9 for r in batch)
             self._stats["requests"] += len(batch)
             self._stats["batches"] += 1
-            self._stats["batch_seconds"] += time.perf_counter() - t0
 
-    def _resolve(self, batch: List[_Request], dev, t0) -> None:
+    def _resolve(self, batch: List[_Request], dev, bid: int) -> None:
         if dev is not None:
             try:
-                images = dev.cpu().numpy()
+                with stage("engine.fetch", requests=[r.id for r in batch], batch=bid):
+                    images = dev.cpu().numpy()
             except Exception:
                 with self._lock:
                     self._stats["retries"] += 1
             else:
-                self._record(batch, images, t0)
+                self._record(batch, images)
                 return
-        self._execute_sync(batch, t0)
+        self._execute_sync(batch, bid)
 
-    def _execute_sync(self, batch: List[_Request], t0) -> None:
+    def _execute_sync(self, batch: List[_Request], bid: int) -> None:
         """Run a batch and wait for it: a transient error retries it up to
         ``max_retries`` times, a ValueError or TypeError fails it at once."""
         prompts, kw = self._gen_kwargs(batch)
         for attempt in range(self.max_retries + 1):
             try:
-                images = self._generate(prompts, **kw)
+                with stage("engine.retry", requests=[r.id for r in batch], batch=bid,
+                           attempt=attempt):
+                    images = self._generate(prompts, **kw)
             except Exception as exc:  # resolve the futures; the worker lives on
                 if not isinstance(exc, (ValueError, TypeError)) and attempt < self.max_retries:
                     with self._lock:
@@ -392,7 +417,7 @@ class ServingEngine:
                     if not req.future.done():
                         req.future.set_exception(exc)
                 return
-            self._record(batch, images, t0)
+            self._record(batch, images)
             return
 
     def _run(self) -> None:
@@ -401,7 +426,7 @@ class ServingEngine:
         # A collected batch larger than device_batch_size runs as several
         # requests in arrival order (per-request keys make the rows
         # independent of the chunking).
-        inflight = collections.deque()  # (chunk, device images or None, t0)
+        inflight = collections.deque()  # (chunk, device images or None, batch id)
         while True:
             drained = self._shutdown.is_set() and self._queue.empty() and not self._pending
             if drained and not inflight:
@@ -414,11 +439,10 @@ class ServingEngine:
                 continue
             db = self.device_batch_size or self.max_batch_size
             for i in range(0, len(batch), db):
-                t0 = time.perf_counter()
-                chunk = batch[i:i + db]
-                dev = self._dispatch(chunk)
+                chunk, bid = batch[i:i + db], next(self._batch_ids)
+                dev = self._dispatch(chunk, bid)
                 if dev is not _FAILED:
-                    inflight.append((chunk, dev, t0))
+                    inflight.append((chunk, dev, bid))
                 while len(inflight) > 2:
                     self._resolve(*inflight.popleft())
             while len(inflight) > 1:

@@ -10,7 +10,9 @@ host, the CPU included.  Each ``ph: "X"`` record is a span; its ``cat``
 tells the card's kernels, copies and sets (``kernel``, ``gpu_memcpy``,
 ``gpu_memset``) from the host's ops (``cpu_op``), CUDA API calls
 (``cuda_runtime``, ``cuda_driver``) and ``utils/profiling.stage`` spans
-(``user_annotation``).
+(``user_annotation``, from the thread that started the profiler).  The
+spans the program recorded itself, from every thread, have their own
+process row (``program_span``); they label the idle gaps of ``--split``.
 
 * default -- SELF-TIME attribution inside the denoise loop, the
   counterpart of the JAX tool's scan window: the window is the union of
@@ -31,7 +33,8 @@ tells the card's kernels, copies and sets (``kernel``, ``gpu_memcpy``,
   sweep (nested spans count more than once: for spotting, not attribution).
 * ``--split`` -- :func:`trace_split`'s summary of one image: device-busy
   time, idle share, device time by kind, the longest idle gaps with the
-  host stage each falls in (``chip_smoke.py`` phase 13 prints it).
+  host stage each falls in and the program span open at its middle
+  (``chip_smoke.py`` phase 13 prints it).
 
 ``--steps`` divides the window's totals into a per-step column; ``--top``
 limits every list.
@@ -104,18 +107,60 @@ def _span(e):
     return e["ts"], e["ts"] + e["dur"], e["name"]
 
 
+def gap_labeller(events):
+    """A function of an idle gap ``(start, end)`` (us) that names the
+    program span open at its middle: on the thread that launched the
+    device activity right after the gap (or, at the trace's end, right
+    before it) the innermost one, else the innermost on any thread, else
+    ``"no program span"``.  A launch call names its thread by its
+    ``threading.get_ident()`` (or its low 32 bits), a span row by its
+    native id; the spans' ``ident`` joins the two."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"], e.get("tid")) for e in events
+             if e.get("cat") == "program_span"]
+    native = {}
+    for e in events:
+        ident = e.get("args", {}).get("ident") if e.get("cat") == "program_span" else None
+        if ident is not None:
+            native[ident] = native[ident & 0xFFFFFFFF] = e.get("tid")
+    launcher = {e["args"]["correlation"]: native.get(e.get("tid"), e.get("tid")) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    dev = sorted((e["ts"], e["ts"] + e["dur"], launcher.get(e.get("args", {}).get("correlation")))
+                 for e in events if e.get("cat") in DEVICE_CATS)
+    starts = [d[0] for d in dev]
+
+    def label(a, b):
+        i = bisect.bisect_left(starts, b)
+        tid = dev[i][2] if i < len(dev) else next(
+            (d[2] for d in reversed(dev) if d[1] <= a), None)
+        mid = (a + b) / 2
+        open_ = [s for s in spans if s[0] <= mid <= s[1]]
+        own = [s for s in open_ if tid is not None and s[3] == tid]
+        pick = own or open_
+        if not pick:
+            return "no program span"
+        return max(pick, key=lambda s: (s[0], -s[1]))[2]
+
+    return label
+
+
 def trace_split(events, wall_s):
     """From a trace of one image (:func:`load_trace`'s records): the window
-    (first stage start to last event end), the device-busy time (the union
+    (first stage start to last event end; the program's own stage spans
+    where kineto has none, as for the serving engine's worker), the device-busy time (the union
     of the card's activity intervals), the idle share, the device time by
     kind of activity, the ten device ops with the most total time, and the
-    five longest device-idle gaps with the host stage each falls in."""
+    five longest device-idle gaps with the host stage each falls in and
+    the program span open at its middle (:func:`gap_labeller`)."""
     dev, spans = [], []
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"] in STAGES:
             spans.append(_span(e))
         elif e.get("cat") in DEVICE_CATS:
             dev.append(_span(e))
+    if not spans:  # the stages ran on a thread the profiler does not see: the program's spans
+        spans = [_span(e) for e in events
+                 if e.get("cat") == "program_span" and e["name"] in STAGES]
     if not spans:
         raise AssertionError("the trace holds none of the pipeline's stages")
     lo = min(s[0] for s in spans)
@@ -139,6 +184,7 @@ def trace_split(events, wall_s):
         names = [n for a, b, n in spans if a <= t <= b]
         return names[-1] if names else "between stages"
 
+    span_at = gap_labeller(events)
     by_name = {}
     for a, b, n in dev:
         tot, cnt = by_name.get(n, (0.0, 0))
@@ -159,7 +205,8 @@ def trace_split(events, wall_s):
         "device_events": len(dev),
         "top_device_ops": [{"name": n, "total_ms": t / 1e3, "count": c} for n, (t, c) in top],
         "longest_idle_gaps": [{"ms": g / 1e3, "at_ms": (t - lo) / 1e3,
-                               "stage": stage_at(t + g / 2)} for g, t in gaps],
+                               "stage": stage_at(t + g / 2), "span": span_at(t, t + g)}
+                              for g, t in gaps],
         "host_stage_ms": {n: v / 1e3 for n, v in stage_sum.items()},
     }
 
@@ -285,7 +332,8 @@ def print_split(split: dict, label: str = "trace") -> None:
     for op in split["top_device_ops"]:
         print(f"{label} device op {op['total_ms']:9.3f} ms x{op['count']:5d} {op['name'][:110]}")
     for g in split["longest_idle_gaps"]:
-        print(f"{label} idle gap {g['ms']:8.3f} ms at +{g['at_ms']:.1f} ms, host in {g['stage']}")
+        print(f"{label} idle gap {g['ms']:8.3f} ms at +{g['at_ms']:.1f} ms, host in "
+              f"{g['stage']}, program span {g['span']}")
 
 
 def main(argv=None) -> dict:

@@ -193,7 +193,9 @@ def test_stats_keys_equal_the_jax_engines(pipe, tiny_pipe):
 
     ours = served_stats(ServingEngine(pipe, max_wait_ms=5))
     theirs = served_stats(JaxEngine(tiny_pipe, max_wait_ms=5))
-    assert set(ours) == set(theirs)
+    # the port leaves out the JAX engine's batch times: its engine.dispatch
+    # and engine.fetch spans (utils/profiling.py) time each batch
+    assert set(ours) == set(theirs) - {"batch_seconds", "mean_batch_latency_s"}
     assert ours["requests"] == ours["batches"] == 1 and ours["mean_batch_size"] == 1.0
     assert 0 < ours["request_latency_p50_s"] <= ours["request_latency_p95_s"]
     assert DEFAULT_DEVICE_BATCH == serving.DEFAULT_DEVICE_BATCH == 4
