@@ -32,11 +32,19 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               and their device time is also read from torch.profiler (at
               these shapes a call's kernel can be shorter than its
               host-side enqueue, which then sets the CUDA-event time).
+              The transformer block's row passes (``layer_norm_rows``,
+              ``geglu_rows``) are checked at every call configuration of the
+              bf16 image (CLIP-L's and the UNet's) within ROW_ULPS of their
+              plain versions and timed the same way, beside F.layer_norm
+              and the bytes bound; every later phase checks the
+              configurations its requests add (``hold_shapes``), SDXL's
+              with bigG's and its UNet's timed per image.
 4. e2e     -- ``StableDiffusionPipeline.from_random("tiny-sd")`` and one
               512x512, 25-step DDPM + CFG image (after a warm-up image);
               checks the image and the kernels' launch counts (the slab
               conv's pre-pass and split-K reductions derived from the
-              recorded calls and the split plan), prints
+              recorded calls and the split plan; the row passes'
+              E2E_COUNTS held to the recorded calls), prints
               seconds per image and peak memory; then one full-width UNet
               forward and one VAE decode through the kernels and through
               the plain versions, beside the plain path's own bf16-versus-
@@ -97,7 +105,7 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               counts).
 12. library -- s/image of the kernel route and of ``attention_impl="xla",
               conv_impl="xla"`` (SDPA and cuDNN) in turns; the library route
-              launches no kernel.
+              launches no kernel but the row passes, which every route takes.
 13. stages -- ``tools/profile_stages`` at tiny-sd 512; one ``profiling.trace``
               of a warm bf16 image, read back from its ``trace.json`` by
               ``tools/summarize_trace.trace_split``: wall, device-busy time
@@ -378,7 +386,11 @@ E2E_COUNTS = {"conv3x3_slab": 478, "conv3x3_slab_upsample": 53, "conv3x3_slab_in
               "out_proj_packed": 0, "out_proj_packed_splitk": 0,
               "conv3x3_gemm": 0, "flash_attention_legacy": 0, "flash_attention_nq": 0,
               "dot_bf16": 0, "dot_bf16_splitk": 0, "dot_int8": 0, "dot_int8_transpose": 0,
-              "dot_int8_splitk": 0}
+              "dot_int8_splitk": 0, "layer_norm_rows": 700, "geglu_rows": 225}
+# the row passes of the bf16 image: 3 LayerNorms and 1 GeGLU in each of tiny-sd's 9
+# transformer blocks a step, and CLIP-L's 25 LayerNorms (2 a layer, the final one)
+ROW_KERNELS = ("layer_norm_rows", "geglu_rows")
+ROW_ULPS = {"bfloat16": 1, "float32": 8}  # row kernels vs plain, ulps at the row's max |plain|
 RING = 4                  # shards of the sequence-parallel ring on the one card
 SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replaces)
     "conv3x3_slab": ("sdtpu_torch/csrc/conv3x3_slab.cu", "sdtpu/kernels/conv2d.py:456"),
@@ -414,10 +426,14 @@ SOURCES = {  # kernel: (its source, the pallas_call of the TPU kernel it replace
     "dot_int8": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8_transpose": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
     "dot_int8_splitk": ("sdtpu_torch/csrc/dot.cu", "tools/probe_int8_dot.py:39"),
+    "layer_norm_rows": ("sdtpu_torch/csrc/rowwise.cu",
+                        "none (XLA fuses sdtpu/ops/norm.py:layer_norm)"),
+    "geglu_rows": ("sdtpu_torch/csrc/rowwise.cu",
+                   "none (XLA fuses sdtpu/ops/activations.py:geglu)"),
 }
 MAIN_KERNELS = ("conv3x3_slab", "conv3x3_slab_upsample", "conv3x3_slab_prologue",
                 "conv3x3_slab_splitk", "flash_attention",
-                "flash_attention_merge")  # launched by the bf16 image
+                "flash_attention_merge", *ROW_KERNELS)  # launched by the bf16 image
 INT8_KERNELS = ("conv3x3_slab_int8", "conv3x3_slab_int8_prologue",
                 "conv3x3_slab_int8_splitk")  # launched by the int8 image
 PROBE_KERNELS = ("conv3x3_gemm", "flash_attention_legacy", "flash_attention_nq", "dot_bf16",
@@ -448,6 +464,9 @@ _SITES = {  # each kernel wrapper's call sites on the main paths
     "flash_attention_stats_packed": (("sdtpu_torch.parallel.ring_attention",
                                       "flash_attention_stats_packed"),),
     "out_proj_packed": (("sdtpu_torch.ops.attention", "out_proj_packed"),),
+    "layer_norm_rows": (("sdtpu_torch.ops.norm", "layer_norm_rows"),),
+    "geglu_rows": (("sdtpu_torch.ops.attention", "geglu_rows"),
+                   ("sdtpu_torch.ops.activations", "geglu_rows")),
 }
 
 
@@ -475,10 +494,12 @@ def plain_routes():
         flash_attention_stats_plain,
         out_proj_packed_plain,
     )
+    from sdtpu_torch.kernels.rowwise import geglu_rows_plain, layer_norm_rows_plain
 
     return {"conv3x3_slab": conv3x3_slab_plain, "flash_attention_packed": flash_attention_plain,
             "flash_attention_stats_packed": flash_attention_stats_plain,
-            "out_proj_packed": out_proj_packed_plain}
+            "out_proj_packed": out_proj_packed_plain, "layer_norm_rows": layer_norm_rows_plain,
+            "geglu_rows": geglu_rows_plain}
 
 
 # ---------------------------------------------------------- kernel cases --
@@ -897,8 +918,9 @@ def record_calls(torch, fn):
     configurations with their counts, ``{wrapper: Counter(config)}``; a
     conv configuration is (x shape, Co, prologue, residual, upsample,
     moments, int8 kernel), an attention one (q shape, Lk), an
-    out-projection one (o shape, C).  The ring context in force, if any,
-    applies."""
+    out-projection one (o shape, C), a row pass's (x shape, x's dtype, the
+    parameters' dtype or "none"), on the card only.  The ring context in
+    force, if any, applies."""
     # sys.modules: the package sdtpu_torch.ops re-exports a function named
     # ``attention`` that shadows its submodule of that name
     real = {key: getattr(sys.modules[sites[0][0]], sites[0][1]) for key, sites in _SITES.items()}
@@ -921,38 +943,47 @@ def record_calls(torch, fn):
         calls["out_proj_packed"][(tuple(o.shape), w.shape[-1])] += 1
         return real["out_proj_packed"](o, w, bias, residual)
 
+    def row_shim(key):
+        def shim(x, p=None, *rest):
+            if x.is_cuda:
+                calls[key][(tuple(x.shape), str(x.dtype)[6:],
+                            "none" if p is None else str(p.dtype)[6:])] += 1
+            return real[key](x, p, *rest)
+        return shim
+
     with routed(conv3x3_slab=conv_shim,
                 flash_attention_packed=attn_shim("flash_attention_packed"),
                 flash_attention_stats_packed=attn_shim("flash_attention_stats_packed"),
-                out_proj_packed=out_proj_shim):
+                out_proj_packed=out_proj_shim,
+                **{key: row_shim(key) for key in ROW_KERNELS}):
         fn()
     return calls
 
 
 def record_main_path_calls(torch, pipe, ids):
     """A main path's kernel call configurations (:func:`record_calls`) with
-    their counts per image: one 1-step image recorded, UNet calls (batch 2
-    under CFG) scaled to STEPS steps."""
-    calls = record_calls(torch, lambda: pipe.generate(token_ids=ids, num_inference_steps=1,
-                                                      seed=1, image_size=512))
-
-    def per_image(shape):
-        return STEPS if shape[0] == 2 else 1  # UNet runs at batch 2, the VAE at 1
-
-    return {key: {c: n * per_image(c[0]) for c, n in cs.items()} for key, cs in calls.items()}
+    their counts per image: a 1-step and a 2-step image recorded, the
+    first's calls plus STEPS - 1 times a step's (the second's less the
+    first's: the UNet's, where the text encoder and the VAE run once)."""
+    one, two = (record_calls(torch, lambda n=n: pipe.generate(
+        token_ids=ids, num_inference_steps=n, seed=1, image_size=512)) for n in (1, 2))
+    return {key: {c: one[key][c] + (STEPS - 1) * (n - one[key][c]) for c, n in cs.items()}
+            for key, cs in two.items()}
 
 
 def expected_launches(calls, keys):
     """The launches of every kernel that a run's recorded calls
-    (:func:`record_calls`) make: one A, B, C or D a call, the pre-passes,
-    split-K reductions and merges from the plans, 0 for the rest of
-    ``keys``."""
+    (:func:`record_calls`) make: one A, B, C, D or row pass a call, the
+    pre-passes, split-K reductions and merges from the plans, 0 for the rest
+    of ``keys``."""
     slab = calls["conv3x3_slab"]
     expected = dict.fromkeys(keys, 0)
     expected["conv3x3_slab"] = sum(n for c, n in slab.items() if not c[4] and not c[6])
     expected["conv3x3_slab_int8"] = sum(n for c, n in slab.items() if c[6])
     expected["conv3x3_slab_upsample"] = sum(n for c, n in slab.items() if c[4])
     expected["flash_attention"] = sum(calls["flash_attention_packed"].values())
+    for key in ROW_KERNELS:
+        expected[key] = sum(calls[key].values())
     expected.update(conv_sub_counts(slab), **flash_sub_counts(calls))
     return expected
 
@@ -1004,6 +1035,54 @@ def splitk_reduce_case(torch, gen, o_shape, c, splits):
     return (err, event_ms(run, 20),
             event_ms(lambda: out_proj_splitk_reduce_plain(ws, bias, res), 5),
             device_ms(run, 20), cost)
+
+
+def row_case(torch, gen, kind, key):
+    """One row-pass call configuration (:func:`record_calls`' key) on seeded
+    inputs, the kernel held to its plain version within ROW_ULPS ulps of its
+    dtype at the row's largest plain value: GeGLU repeats every rounding of
+    the eager chain (it reads 0), LayerNorm's row sums run in another order
+    than PyTorch's reductions, which moves a value by a float32 rounding of
+    the normalised row (an output that cancels against the bias is not held
+    to its own ulp).  Returns (max abs error, kernel call, plain call,
+    library call or None, (bytes, 0))."""
+    import torch.nn.functional as F
+
+    from sdtpu_torch.kernels import rowwise
+
+    shape, dt, pdt = key
+    dt = getattr(torch, dt)
+    c = shape[-1]
+    if kind == "layer_norm_rows":
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+        p = getattr(torch, pdt)
+        args = (x, (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(p),
+                (0.2 * torch.randn(c, generator=gen, device="cuda")).to(p), 1e-5)
+        run, plain = rowwise.layer_norm_rows, rowwise.layer_norm_rows_plain
+        sx, bx = args[1].to(dt), args[2].to(dt)
+        lib = functools.partial(F.layer_norm, x, (c,), sx, bx, 1e-5)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * c * args[1].element_size()
+    else:
+        h = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(dt)
+        b = (None if pdt == "none" else
+             (0.3 * torch.randn(c, generator=gen, device="cuda")).to(getattr(torch, pdt)))
+        args = (h, b)
+        run, plain, lib = rowwise.geglu_rows, rowwise.geglu_rows_plain, None
+        nbytes = 3 * h.numel() // 2 * h.element_size() + (0 if b is None else
+                                                          c * b.element_size())
+    got, want = run(*args), plain(*args)
+    bits = 7 if dt == torch.bfloat16 else 23
+    top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    ulps = float(((got.float() - want.float()).abs()
+                  / torch.exp2(torch.floor(torch.log2(top)) - bits)).max())
+    err = float((got.float() - want.float()).abs().max())
+    ok = ulps <= ROW_ULPS[str(dt)[6:]]
+    log(f"check {kind} x={shape} {str(dt)[6:]} p={pdt}: {ulps:.3g} ulps at the row's max, max "
+        f"abs {err:.3g} (<= {ROW_ULPS[str(dt)[6:]]})" + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"{kind} {key}: the kernel is off its plain version")
+    return (err, functools.partial(run, *args), functools.partial(plain, *args), lib,
+            (nbytes, 0.0))
 
 
 def flash_sub_counts(calls):
@@ -1353,6 +1432,23 @@ def main() -> int:
     log("device time flash_attention per image (torch.profiler): kernels "
         f"{fmt_ms(device['flash_attention']['kernel_ms'])}, library "
         f"{fmt_ms(device['flash_attention']['library_ms'])}")
+    # the row passes at every call configuration of the main path, beside
+    # F.layer_norm (GeGLU has no one library call)
+    for row_kernel in ROW_KERNELS:
+        for key, n in sorted(calls[row_kernel].items()):
+            err, run, plain_run, lib, cost = row_case(torch, gen, row_kernel, key)
+            errs[row_kernel] = max(errs.get(row_kernel, 0.0), err)
+            t_k = event_ms(run, 20)
+            rows.append((row_kernel, f"x={key[0]} {key[1]} p={key[2]}", n, t_k,
+                         event_ms(plain_run, 5), None if lib is None else event_ms(lib, 20),
+                         cost, PEAK_BF16_FLOPS))
+            d_k, d_l = device_ms(run, 10), None if lib is None else device_ms(lib, 10)
+            add_device(row_kernel, n, d_k, d_l)
+            log(f"device time {row_kernel} x={key[0]}: kernel {fmt_ms(d_k)}, "
+                f"{'none' if lib is None else 'F.layer_norm ' + fmt_ms(d_l)} (torch.profiler, "
+                f"per call); {cost[0] / 1e6:.1f} MB, "
+                + ("not measured" if d_k is None else
+                   f"{cost[0] / (d_k * 1e-3) / 3.35e12 * 100:.1f}% of 3.35 TB/s"))
     # F and G: besides the CUDA-event time of back-to-back calls, the
     # profiler's device time, since at these shapes a call's kernel can be
     # shorter than its host-side enqueue
@@ -1398,6 +1494,9 @@ def main() -> int:
     e2e_expected = dict(E2E_COUNTS, **conv_sub_counts(calls["conv3x3_slab"]),
                         **flash_sub_counts(calls))
     log(f"e2e expected launches: {e2e_expected}")
+    recorded = {k: sum(calls[k].values()) for k in ROW_KERNELS}
+    if recorded != {k: E2E_COUNTS[k] for k in ROW_KERNELS}:
+        raise AssertionError(f"the row passes' recorded calls {recorded} are not E2E_COUNTS'")
     if counts != e2e_expected:
         raise AssertionError(f"launch counts {counts} != expected {e2e_expected}")
     idle = [name for name in MAIN_KERNELS if counts[name] == 0]
@@ -2305,7 +2404,8 @@ def bench_phase(torch, launch_counts, reset_launch_counts, kind, e2e_expected, n
 def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
     """Seconds per image of the kernel route and of the library route
     (``attention_impl="xla", conv_impl="xla"``: SDPA and cuDNN convs) in
-    turns on the same weights; the library route launches no kernel."""
+    turns on the same weights; the library route launches no kernel but the
+    row passes, which every route takes."""
     from sdtpu_torch import StableDiffusionPipeline
 
     lib = StableDiffusionPipeline(pipe.config.replace(attention_impl="xla", conv_impl="xla"),
@@ -2322,13 +2422,14 @@ def library_phase(torch, np, pipe, ids, launch_counts, reset_launch_counts):
         t0 = time.perf_counter()
         (lib if route == "library" else pipe).generate(**kw)
         turns.append((route, time.perf_counter() - t0))
-        if route == "library" and any(launch_counts.values()):
+        if route == "library" and any(n for k, n in launch_counts.items()
+                                      if k not in ROW_KERNELS):
             raise AssertionError(f"the library route launched kernels: {dict(launch_counts)}")
     diff = int(np.abs(lib_img.astype(int) - kernel_img.astype(int)).max())
     per = {r: sorted(t for rr, t in turns if rr == r) for r in ("kernels", "library")}
     log("library row, s/image in turns: " + ", ".join(f"{r} {t:.4f}" for r, t in turns)
-        + f"; the library route launched no kernel; its image vs the kernels' image: max "
-        f"{diff} uint8 levels (for information)")
+        + "; the library route launched no kernel but the row passes; its image vs the "
+        f"kernels' image: max {diff} uint8 levels (for information)")
     return {"turns_s": turns, "kernels_s": per["kernels"], "library_s": per["library"],
             "max_level_diff": diff}
 
@@ -2985,25 +3086,31 @@ PREDICTED_STEP = {"sdxl": {"conv3x3_slab": 34, "conv3x3_slab_upsample": 2,
 
 
 def request_calls(torch, pipe, kw, n_steps, decode=True, batch=None):
-    """A request's kernel call configurations (:func:`record_calls`): one
-    UNet step's (a 1-step request that returns its latents; with ``batch``
-    a 1-step ``generate_batch`` of that many rows, which decodes as the JAX
-    package's does, less one decode's calls) times ``n_steps``, plus one
-    VAE decode's where ``decode``."""
-    one = dict({k: v for k, v in kw.items() if k not in ("latents", "denoising_start",
-                                                         "denoising_end", "output")},
-               num_inference_steps=1)
+    """A request's kernel call configurations (:func:`record_calls`): a
+    1-step and a 2-step request that return their latents (with ``batch``
+    ``generate_batch`` of that many rows, which decodes as the JAX
+    package's does, less one decode's calls), the first's calls plus
+    ``n_steps - 1`` times a UNet step's (the second's less the first's: the
+    text encoders run once a request), plus one VAE decode's where
+    ``decode``."""
+    base = {k: v for k, v in kw.items() if k not in ("latents", "denoising_start",
+                                                    "denoising_end", "output")}
     f = pipe.config.vae.downscale_factor
     lat_hw = kw.get("image_size", pipe.config.default_image_size) // f
     z = torch.zeros((batch or 1, lat_hw, lat_hw, pipe.config.vae.latent_channels),
                     device="cuda")
     dec = record_calls(torch, lambda: pipe._finish(z, "uint8"))
-    if batch is None:
-        step = record_calls(torch, lambda: pipe.generate(output="latents", **one))
-    else:
-        step = record_calls(torch, lambda: pipe.generate_batch(["x"] * batch, **one))
-        step = {key: cs - dec[key] for key, cs in step.items()}
-    calls = {key: Counter({c: n * n_steps for c, n in cs.items()}) for key, cs in step.items()}
+
+    def recorded(n):
+        one = dict(base, num_inference_steps=n)
+        if batch is None:
+            return record_calls(torch, lambda: pipe.generate(output="latents", **one))
+        got = record_calls(torch, lambda: pipe.generate_batch(["x"] * batch, **one))
+        return {key: cs - dec[key] for key, cs in got.items()}
+
+    first, second = recorded(1), recorded(2)
+    calls = {key: Counter({c: first[key][c] + (n_steps - 1) * (n - first[key][c])
+                           for c, n in cs.items()}) for key, cs in second.items()}
     if decode:
         for key, cs in dec.items():
             calls[key].update(cs)
@@ -3073,22 +3180,26 @@ def check_image(label, img, size, rows=1):
 
 
 def call_keys(calls):
-    """A path's kernel A/B/C call configurations, keyed as
-    :func:`check_conv` and :func:`check_flash` take them."""
+    """A path's kernel A/B/C and row-pass call configurations, keyed as
+    :func:`check_conv`, :func:`check_flash` and :func:`row_case` take them."""
     return ({("conv", cfg[:6]) for cfg in calls["conv3x3_slab"]}
-            | {("flash", key) for key in calls["flash_attention_packed"]})
+            | {("flash", key) for key in calls["flash_attention_packed"]}
+            | {(kind, key) for kind in ROW_KERNELS for key in calls[kind]})
 
 
 def hold_shapes(torch, gen, label, calls, held):
     """Kernels A, B and C at each call configuration of ``calls`` not in
-    ``held`` yet, each held to its plain version at TOL_REL; ``held`` gains
-    them.  Returns how many were new."""
+    ``held`` yet, each held to its plain version at TOL_REL, and the row
+    passes within ROW_ULPS; ``held`` gains them.  Returns how many were
+    new."""
     new = sorted(call_keys(calls) - held)
     for kind, key in new:
         if kind == "conv":
             check_conv(torch, gen, key)
-        else:
+        elif kind == "flash":
             check_flash(torch, gen, *key)
+        else:
+            row_case(torch, gen, kind, key)
     held.update(new)
     log(f"{label}: {len(new)} kernel call configuration(s) that the earlier requests did not "
         f"run, each within TOL_REL of its plain version")
@@ -3096,17 +3207,17 @@ def hold_shapes(torch, gen, label, calls, held):
 
 
 def shape_times(torch, gen, calls, exp_rate):
-    """Kernels A, B and C at every call configuration of a path: each held
-    to its plain version at TOL_REL, then timed by CUDA events beside its
-    plain version and one library call (:func:`time_conv`,
-    :func:`time_flash`, 5 calls each).  Returns the per-image sums over the
-    path's calls with the bound, ``{kernel: totals}``, and the per-call
-    rows."""
+    """Kernels A, B and C and the row passes at every call configuration of
+    a path: each held to its plain version (TOL_REL; ROW_ULPS), then timed
+    by CUDA events beside its plain version and one library call where
+    there is one (:func:`time_conv`, :func:`time_flash`, :func:`row_case`;
+    5 calls each).  Returns the per-image sums over the path's calls with
+    the bound, ``{kernel: totals}``, and the per-call rows."""
     from sdtpu_torch.kernels.flash_attention import plan_flash
 
     tot = {n: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                "byte_ms": 0.0, "op_ms": 0.0, "max_abs_err": 0.0}
-           for n in ("conv3x3_slab", "conv3x3_slab_upsample", "flash_attention")}
+           for n in ("conv3x3_slab", "conv3x3_slab_upsample", "flash_attention", *ROW_KERNELS)}
 
     rows = []
 
@@ -3118,10 +3229,11 @@ def shape_times(torch, gen, calls, exp_rate):
         row = tot[name]
         for key, v in (("launches", 1), ("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                        ("byte_ms", t_by), ("op_ms", t_ops), ("bound_ms", max(t_by, t_ops))):
-            row[key] += n * v
+            row[key] = None if v is None or row[key] is None else row[key] + n * v
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        lib = "none" if t_l is None else f"{t_l:.4f}"
         log(f"time {name} {desc} x{n}: kernels {t_k:.4f} ms, plain {t_p:.4f}, library "
-            f"{t_l:.4f} (CUDA events, per call)")
+            f"{lib} (CUDA events, per call)")
 
     for cfg, n in sorted(calls["conv3x3_slab"].items()):
         x_shape, co, pro, res, up, stats, _ = cfg
@@ -3134,6 +3246,12 @@ def shape_times(torch, gen, calls, exp_rate):
         b, h, lq, d = q_shape
         add("flash_attention", n, time_flash(torch, gen, q_shape, lk, reps=5, device=False),
             flash_cost(q_shape, lk), err, f"q={q_shape} lk={lk} plan={plan_flash(b * h, lq, lk, d)}")
+    for row_kernel in ROW_KERNELS:
+        for key, n in sorted(calls[row_kernel].items()):
+            err, run, plain_run, lib, cost = row_case(torch, gen, row_kernel, key)
+            add(row_kernel, n, (event_ms(run, 5), event_ms(plain_run, 5),
+                          None if lib is None else event_ms(lib, 5)), cost, err,
+                f"x={key[0]} {key[1]} p={key[2]}")
     for row in tot.values():
         row["bound_by"] = "bytes" if row.pop("byte_ms") > row.pop("op_ms") else "operations"
     return tot, rows

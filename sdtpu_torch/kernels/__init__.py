@@ -17,7 +17,9 @@ kernel G's split-K reduction under ``out_proj_packed_splitk``
 (``kernels/flash_attention.py:out_proj_launches``), kernel J's bf16
 split-K reduction under ``dot_bf16_splitk``, and J int8's transpose of w
 and split-K reduction under ``dot_int8_transpose`` and ``dot_int8_splitk``
-(``tools/probe_int8_dot.py:dot_launches``).
+(``tools/probe_int8_dot.py:dot_launches``).  The transformer block's row
+passes, which replace no TPU kernel, count under ``layer_norm_rows`` and
+``geglu_rows`` (``kernels/rowwise.py``).
 """
 
 launch_counts = {
@@ -41,6 +43,8 @@ launch_counts = {
     "dot_int8": 0,
     "dot_int8_transpose": 0,
     "dot_int8_splitk": 0,
+    "layer_norm_rows": 0,
+    "geglu_rows": 0,
 }
 
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from sdtpu_torch.kernels.rowwise import geglu_rows
+
 _GELU_C = 0.7978845608028654  # sqrt(2/pi)
 
 
@@ -35,6 +37,6 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def geglu(x: torch.Tensor) -> torch.Tensor:
-    """Split the 8x projection into (value, gate); value * GELU_erf(gate)."""
-    value, gate = torch.chunk(x, 2, dim=-1)
-    return value * gelu_erf(gate)
+    """Split the 8x projection into (value, gate); value * GELU_erf(gate)
+    (``kernels/rowwise.py:geglu_rows``: one pass on the card)."""
+    return geglu_rows(x)

@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from sdtpu_torch.kernels.flash_attention import flash_attention_packed, out_proj_packed
-from sdtpu_torch.ops.activations import geglu
-from sdtpu_torch.ops.linear import init_linear, linear, linear_q8_dyn
+from sdtpu_torch.kernels.rowwise import geglu_rows
+from sdtpu_torch.ops.linear import init_linear, linear, linear_parts, linear_q8_dyn
 from sdtpu_torch.ops.norm import init_norm, layer_norm
 from sdtpu_torch.parallel.mesh import tp_of
 from sdtpu_torch.parallel.ring_attention import maybe_ring_attention
@@ -227,7 +227,11 @@ def transformer_block(
     itself alone: ``x + out(v(h))``, through ``linear``, so with int8
     weights its static scale where one is calibrated); the head rows go
     through :func:`attention` as without it (on the flash route kernel C at
-    the head's batch).  Cross-attention and the feed-forward take all rows."""
+    the head's batch).  Cross-attention and the feed-forward take all rows.
+
+    The LayerNorms and the feed-forward's bias + GeGLU are one kernel each on
+    the card (``kernels/rowwise.py``); the projection's bias goes into
+    ``geglu_rows`` where ``linear`` would add it after a plain matmul."""
     h = layer_norm(x, params["norm1"])
     if pag_tail:
         ident = linear(linear(h[-pag_tail:], params["attn1"]["v"]), params["attn1"]["out"])
@@ -241,7 +245,7 @@ def transformer_block(
     x = attention(h, params["attn2"], num_heads=num_heads, context=context,
                   implementation=implementation, kv_cache=cross_kv, residual=x)
     h = layer_norm(x, params["norm3"])
-    h = geglu(linear(h, params["ff"]["proj"]))
+    h = geglu_rows(*linear_parts(h, params["ff"]["proj"]))
     return x + linear(h, params["ff"]["out"])
 
 

@@ -78,19 +78,25 @@ def int8_matmul(q: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
+    out, bias = linear_parts(x, params)
+    return out if bias is None else out + bias.to(out.dtype)
+
+
+def linear_parts(x: torch.Tensor, params: dict):
+    """``linear`` as ``(out, bias)``, ``out + bias.to(out.dtype)`` its
+    result: where it ends in a plain bias add after ``torch.matmul`` (a
+    float kernel, not row-parallel), ``out`` is the product and ``bias`` the
+    bias (or None), for a caller that folds the add into its next pass;
+    the int8 and row-parallel forms return their result and None."""
     _maybe_capture(x, params)
     mesh = tp_of(params)
     if mesh is not None and params.split == "row":
-        return _row_parallel(x, params, mesh)
+        return _row_parallel(x, params, mesh), None
     if "kernel_q" in params:
         if "act_scale" in params:
-            return linear_q8(x, params)
-        return linear_q8_dyn(x, params)
-    out = torch.matmul(x, params["kernel"].to(x.dtype))
-    bias = params.get("bias")
-    if bias is not None:
-        out = out + bias.to(out.dtype)
-    return out
+            return linear_q8(x, params), None
+        return linear_q8_dyn(x, params), None
+    return torch.matmul(x, params["kernel"].to(x.dtype)), params.get("bias")
 
 
 def _row_parallel(x: torch.Tensor, params: dict, mesh) -> torch.Tensor:

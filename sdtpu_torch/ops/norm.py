@@ -4,12 +4,15 @@ Counterpart of ``sdtpu/ops/norm.py``.  ``group_norm`` takes optional
 producer ``stats`` (per-channel [mean, mean-of-squares], the slab conv's
 ``emit_stats`` output) and then derives the group variance as
 E[x^2] - mean^2 clamped at 0; without stats it is the two-pass
-mean((x - mean)^2).  ``layer_norm`` is the last-axis reduction form.
+mean((x - mean)^2).  ``layer_norm`` is the last-axis reduction form, one
+kernel on the card (``kernels/rowwise.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from sdtpu_torch.kernels.rowwise import layer_norm_rows
 
 
 def group_norm(
@@ -41,13 +44,9 @@ def group_norm(
 
 
 def layer_norm(x: torch.Tensor, params: dict, *, eps: float = 1e-5) -> torch.Tensor:
-    """Last-axis LayerNorm with per-feature affine, statistics in float32."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    xf = (xf - mean) * torch.rsqrt(var + eps)
-    out = xf * params["scale"].float() + params["bias"].float()
-    return out.to(x.dtype)
+    """Last-axis LayerNorm with per-feature affine, statistics in float32
+    (``kernels/rowwise.py:layer_norm_rows``: one pass on the card)."""
+    return layer_norm_rows(x, params["scale"], params["bias"], eps)
 
 
 def init_norm(num_channels: int, *, dtype=torch.float32) -> dict:

@@ -457,7 +457,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
                              "out_proj_packed": 0, "out_proj_packed_splitk": 0,
                              "conv3x3_gemm": 0, "flash_attention_legacy": 0,
                              "flash_attention_nq": 0, "dot_bf16": 0, "dot_bf16_splitk": 0,
-                             "dot_int8": 0, "dot_int8_transpose": 0, "dot_int8_splitk": 0}
+                             "dot_int8": 0, "dot_int8_transpose": 0, "dot_int8_splitk": 0,
+                             "layer_norm_rows": 0, "geglu_rows": 0}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -477,9 +478,9 @@ def test_build_finds_no_nvcc_and_raises(monkeypatch):
 
 def test_build_sources_and_content_hashed_library_names():
     assert _build.sources() == ["conv3x3_slab", "conv3x3_slab_int8", "dot", "flash_attention",
-                                "out_proj_packed"]
+                                "out_proj_packed", "rowwise"]
     names = {_build._lib_path(n) for n in _build.sources()}
-    assert len(names) == 5
+    assert len(names) == 6
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in names)
 
 
