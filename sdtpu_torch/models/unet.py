@@ -27,6 +27,7 @@ the forward for the pipeline's encoder cache.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -50,6 +51,7 @@ from sdtpu_torch.ops import (
     transformer_block,
 )
 from sdtpu_torch.utils import hostrng
+from sdtpu_torch.utils.profiling import stage
 from sdtpu_torch.utils.quant import float_conv_kernel, resnet_conv_args, resnet_takes_slab
 
 
@@ -201,12 +203,18 @@ def resnet_block(
     else:
         (k1, b1, q1), (k2, b2, q2) = resnet_conv_args(x.shape, params, num_groups, x.dtype)
     if conv_impl == "xla" or not resnet_takes_slab(x.shape, params, num_groups):
-        h = silu(group_norm(x, params["norm1"], num_groups=num_groups))
-        h = conv2d(h, k1, b1, padding=1, impl=conv_impl)
-        h = h + t.to(h.dtype)[:, None, None, :]
-        h = silu(group_norm(h, params["norm2"], num_groups=num_groups))
-        h = conv2d(h, k2, b2, padding=1, impl=conv_impl)
-        out = _shortcut(x, params) + h
+        # the kernel route refused by the slab rule (a map that is not a
+        # multiple of 8, such as SD 2.1's 12x12 at 768x768) is a span of
+        # its own, so that a trace sees what the plain route costs
+        span = (contextlib.nullcontext() if conv_impl == "xla"
+                else stage("unet.plain_resnet", hw=tuple(x.shape[1:3])))
+        with span:
+            h = silu(group_norm(x, params["norm1"], num_groups=num_groups))
+            h = conv2d(h, k1, b1, padding=1, impl=conv_impl)
+            h = h + t.to(h.dtype)[:, None, None, :]
+            h = silu(group_norm(h, params["norm2"], num_groups=num_groups))
+            h = conv2d(h, k2, b2, padding=1, impl=conv_impl)
+            out = _shortcut(x, params) + h
         return (out, None) if emit_stats else out
     chain = conv_kernels.CONV_STATS_CHAIN  # off: sdtpu/models/unet.py:268-283's choices
     h = gn_silu_conv3x3_slab(

@@ -16,7 +16,9 @@ cross-attention K/V and the time projections), ``unet_step`` (once per
 step), ``vae_decode`` and ``to_uint8``; its host spans ``request`` (one per
 ``generate``/``generate_batch`` call, the others' root), ``prepare`` and
 ``upload``; the serving engine's ``engine.queued``, ``engine.collect``,
-``engine.dispatch``, ``engine.fetch`` and ``engine.retry``.
+``engine.dispatch``, ``engine.fetch`` and ``engine.retry``; the UNet's
+``unet.plain_resnet`` (a resnet the slab rule refused on the kernel route,
+GroupNorm -> SiLU -> conv2d, with its map's ``hw``).
 
 **The span recorder.**  ``torch.profiler`` records a ``record_function``
 span only on the thread that started it, so a span of the serving
