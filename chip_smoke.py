@@ -48,7 +48,10 @@ Phases, each printing its own lines; any failure ends the run non-zero:
               seconds per image and peak memory; then one full-width UNet
               forward and one VAE decode through the kernels and through
               the plain versions, beside the plain path's own bf16-versus-
-              float32 difference.
+              float32 difference; and the request with its UNet forwards
+              replayed as CUDA graphs against the eager loop (a one-process
+              ``tp_context`` keeps the graphs off, as ``routed`` does for
+              every shim): float images bitwise equal, launches exact.
 5. ring    -- ``attention_impl="ring"`` under ``ring_context(LocalRing(4))``:
               all four shards of the sequence-parallel ring on the one card,
               every latent self-attention through kernel F (16 launches per
@@ -473,7 +476,12 @@ _SITES = {  # each kernel wrapper's call sites on the main paths
 @contextlib.contextmanager
 def routed(**fns):
     """Point every call site of the named kernel wrappers at other
-    functions (a recording shim, or the plain versions) for the duration."""
+    functions (a recording shim, or the plain versions) for the duration.
+    The block runs inside a one-process ``tp_context``, which keeps the
+    denoise loop's UNet graphs off: a replay would run the captured
+    kernels, not the functions named here."""
+    from sdtpu_torch.parallel.mesh import Mesh, tp_context
+
     saved = []
     for key, fn in fns.items():
         for mod, name in _SITES[key]:
@@ -481,7 +489,8 @@ def routed(**fns):
             saved.append((m, name, getattr(m, name)))
             setattr(m, name, fn)
     try:
-        yield
+        with tp_context(Mesh(1, 1)):
+            yield
     finally:
         for m, name, f in reversed(saved):
             setattr(m, name, f)
@@ -1503,6 +1512,8 @@ def main() -> int:
     if idle:
         raise AssertionError(f"the bf16 image launched no {idle}")
     details["e2e"] = e2e
+    details["graphs"] = graphs_check(torch, np, pipe, ids, e2e_expected, launch_counts,
+                                     reset_launch_counts)
 
     # control: one UNet forward and one VAE decode, kernels vs plain, beside
     # the plain path's bf16-vs-float32 difference
@@ -2244,6 +2255,42 @@ def run_image(torch, np, pipe, ids, label, launch_counts, reset_launch_counts):
         raise AssertionError(f"{label} image is not a non-constant (1, 512, 512, 3) uint8 image")
     return counts, {"s_per_image": sec, "warmup_s": warm_s, "peak_bytes": peak,
                     "launches": counts}
+
+
+def graphs_check(torch, np, pipe, ids, expected, launch_counts, reset_launch_counts):
+    """The main path's request with every UNet forward replayed as a CUDA
+    graph (captured by ``run_image``'s warm-up) against the eager loop (the
+    same request inside a one-process ``tp_context``, where the graphs stay
+    off): the float images bitwise equal, both with ``expected`` launches
+    key by key; the seconds of each and the runner's counters."""
+    from sdtpu_torch.parallel.mesh import Mesh, tp_context
+
+    kw = dict(token_ids=ids, num_inference_steps=STEPS, seed=40, image_size=512, output="float")
+    g = pipe._unet_graphs
+    images, out = {}, {}
+    for mode in ("eager", "graphed", "eager again"):
+        replays = g.replays
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tp_context(Mesh(1, 1)) if mode != "graphed" else contextlib.nullcontext():
+            images[mode] = pipe.generate(**kw)
+        sec = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        out[mode] = {"s_per_image": sec, "replays": g.replays - replays}
+        log(f"graphs: {mode} image {sec:.4f} s, {g.replays - replays} steps replayed")
+        if counts != expected:
+            raise AssertionError(f"graphs: the {mode} image's launches {counts} != {expected}")
+    same = all(np.array_equal(images["graphed"], images[m]) for m in ("eager", "eager again"))
+    log(f"graphs: the graphed float image bitwise the eager one: {same}; launches equal "
+        f"(the bf16 image's); captures {g.captures}, replays {g.replays}, eager steps "
+        f"{g.eager_steps}" + (" ok" if same else " FAIL"))
+    if not same:
+        raise AssertionError("graphs: the graphed image differs from the eager loop's")
+    if (out["graphed"]["replays"], out["eager"]["replays"]) != (STEPS, 0):
+        raise AssertionError(f"graphs: {out['graphed']['replays']} of {STEPS} steps replayed")
+    out.update(captures=g.captures, replays=g.replays, eager_steps=g.eager_steps)
+    return out
 
 
 # ------------------------------------------------- measurement phases --

@@ -42,6 +42,11 @@ def activation_capture(store: dict, site_by_kernel_id: dict):
         _capture.sites = None
 
 
+def capturing_activations() -> bool:
+    """Whether an :func:`activation_capture` block is open on this thread."""
+    return bool(getattr(_capture, "sites", None))
+
+
 def _maybe_capture(x: torch.Tensor, params: dict) -> None:
     sites = getattr(_capture, "sites", None)
     if not sites:

@@ -24,6 +24,10 @@ eagerly, in the same order:
    sampler's ``scale_model_input`` -> the extra channels -> ``unet_forward``
    -> the guidance combine -> the sampler's step (a stochastic one with
    that step's noise, a multistep one with its state) -> the inpaint blend;
+   on a card the plain ``unet_forward`` of a step replays a CUDA graph
+   captured once per shape (``unet_graphs.py``; not for ControlNet, the
+   encoder cache's grouped steps, a tp mesh or int8 calibration), and the
+   rest of the step runs eagerly around it;
 5. ``vae_decode`` and the uint8 conversion, on the device.
 
 A request's draws are the JAX program's (``request_keys``): a scalar key
@@ -56,8 +60,9 @@ weighted prompts (``prompt_weighting``, ``token_weights``: each encoder's
 states scaled per token, :func:`apply_token_weights`).
 
 Each stage runs inside ``utils/profiling.stage``: ``tokenize``, ``noise``,
-``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step),
-``vae_decode``, ``to_uint8``; and so do the host stretches between them:
+``clip``, ``vae_encode``, ``precompute``, ``unet_step`` (once per step, its
+attribute ``graph`` "eager", "capture" or "replay"), ``vae_decode``,
+``to_uint8``; and so do the host stretches between them:
 ``request`` around each ``generate``/``generate_batch`` call (a call inside
 another joins its span), ``prepare`` (the feature checks, the per-row keys,
 the images, masks and control maps on the host) and ``upload`` (the
@@ -88,6 +93,7 @@ from sdtpu_torch.models.vae import vae_decode, vae_encode
 from sdtpu_torch.ops.resize import resize_image
 from sdtpu_torch.ops.embedding import timestep_embedding
 from sdtpu_torch.parallel.mesh import Mesh, sharded_mesh, tp_context
+from sdtpu_torch.pipeline.unet_graphs import UNetGraphs, graph_key, graph_route
 from sdtpu_torch.samplers import get_sampler, slice_schedule
 from sdtpu_torch.utils import prng, profiling
 from sdtpu_torch.utils.image import from_uint8, to_uint8
@@ -298,6 +304,9 @@ class StableDiffusionPipeline:
         # resnets; only a caller who asks for it gets it.
         self.attention_impl = {"ring": "ring", "xla": "xla"}.get(config.attention_impl, "flash")
         self.conv_impl = "xla" if config.conv_impl == "xla" else "gemm"
+        # the denoise steps' UNet forwards as CUDA graphs (unet_graphs.py),
+        # dropped whenever ``params`` is assigned
+        self._unet_graphs = UNetGraphs()
         self.params = params
         self.tokenizer = tokenizer
         self.device = torch.device(device)
@@ -307,6 +316,17 @@ class StableDiffusionPipeline:
         self._draws = prng.NormalGraphs() if self.device.type == "cuda" else None
         # load_lora's pre-fuse kernels, first write wins per module
         self._lora_originals = {}
+
+    @property
+    def params(self) -> dict:
+        """The parameter tree.  Assigning it drops the captured UNet graphs,
+        which hold pointers to the old tree's weights."""
+        return self._params
+
+    @params.setter
+    def params(self, tree) -> None:
+        self._params = tree
+        self._unet_graphs.clear()
 
     @classmethod
     def from_random(cls, preset: Union[str, PipelineConfig], *, seed: int = 0,
@@ -941,7 +961,8 @@ class StableDiffusionPipeline:
         """Run one request of each program a serving deployment will use
         (per-request seeds, as the engine sends them), so that none of its
         requests pays a first use: the kernels' build, the draws' CUDA graph
-        capture for each (draws, shape), the libraries' first calls.  The
+        capture for each (draws, shape), the UNet's CUDA graph capture for
+        each step shape, the libraries' first calls.  The
         step features as in :meth:`generate` (``control_image`` for every
         row).  Returns the number of programs run."""
         n = 0
@@ -1154,8 +1175,31 @@ class StableDiffusionPipeline:
         run = dict(attention_impl=self.attention_impl, conv_impl=self.conv_impl,
                    cross_kv=cross_kv)
         cached = None
+        graphs = self._unet_graphs
+        key = graph_key(
+            (n_rep * batch, *latents.shape[1:3],
+             latents.shape[3] + (0 if extra is None else extra.shape[-1])),
+            cdt, latents.device, context, cross_kv, time_cache, pag_tail=pag_tail,
+            freeu=freeu, added_cond=added_cond is not None,
+            timestep_cond=timestep_cond is not None, attention_impl=self.attention_impl,
+            conv_impl=self.conv_impl)
+        request = graphs.request()
+
+        def forward(lat_in, tc, ctx, kv, control=None):
+            # the timesteps are folded into the time projections ``tc``
+            return unet_forward(lat_in, None, ctx, unet, ucfg, time_cache=tc, control=control,
+                                freeu=freeu, pag_tail=pag_tail,
+                                attention_impl=self.attention_impl,
+                                conv_impl=self.conv_impl, cross_kv=kv)
+
         for i in range(n_steps):
-            with stage("unet_step"):
+            # a plain step on the graph route replays its shape's graph, or
+            # runs eagerly and captures it; every other step runs eagerly
+            mode = "eager"
+            if graph_route(latents.device, attention_impl=self.attention_impl, unet=unet,
+                           control=nets, grouped=i < n_grouped):
+                mode = "replay" if key in graphs else "capture"
+            with stage("unet_step", graph=mode):
                 lat_in = torch.cat([lat] * n_rep) if n_rep > 1 else lat
                 if sdef.scale_model_input is not None:
                     lat_in = sdef.scale_model_input(schedule, i, lat_in)
@@ -1173,17 +1217,26 @@ class StableDiffusionPipeline:
                 if extra is not None:
                     lat_in = torch.cat([lat_in, extra], dim=-1)
                 tc_i = time_cache_step(time_cache, i)
-                if i >= n_grouped:
-                    eps = unet_forward(lat_in, t, context, unet, ucfg, time_cache=tc_i,
-                                       control=ctrl, freeu=freeu, pag_tail=pag_tail, **run)
-                else:
-                    # the encoder at a group's first step; its (x, skips)
-                    # serve the group's later steps
-                    if i % k_cache == 0:
-                        cached = unet_encode(lat_in, tc_i["temb"], context, unet, ucfg,
-                                             time_proj=tc_i, pag_tail=pag_tail, **run)
-                    eps = unet_decode(*cached, tc_i["temb"], context, unet, ucfg,
-                                      time_proj=tc_i, freeu=freeu, **run)
+                eps = None
+                if mode == "replay":
+                    # None where the tree changed since the request started:
+                    # its steps then run eagerly on the tree it began with
+                    eps = graphs.replay(key, (lat_in, tc_i), (context, cross_kv), request)
+                if eps is None:
+                    graphs.count_eager()
+                    if i >= n_grouped:
+                        eps = forward(lat_in, tc_i, context, cross_kv, ctrl)
+                        if mode == "capture":
+                            graphs.capture(key, forward, (lat_in, tc_i), (context, cross_kv),
+                                           request)
+                    else:
+                        # the encoder at a group's first step; its (x,
+                        # skips) serve the group's later steps
+                        if i % k_cache == 0:
+                            cached = unet_encode(lat_in, tc_i["temb"], context, unet, ucfg,
+                                                 time_proj=tc_i, pag_tail=pag_tail, **run)
+                        eps = unet_decode(*cached, tc_i["temb"], context, unet, ucfg,
+                                          time_proj=tc_i, freeu=freeu, **run)
                 eps = eps.float()
                 if image_guidance_scale is not None:
                     e_t, e_i, e_u = eps[:batch], eps[batch:2 * batch], eps[2 * batch:]

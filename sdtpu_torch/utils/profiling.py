@@ -196,6 +196,18 @@ def stage(name: str, *, requests=(), **attrs):
             _append(rec)
 
 
+@contextlib.contextmanager
+def untimed():
+    """Stages entered inside the block are not timed into the
+    :class:`StageTimer` being recorded (whose device syncs a CUDA graph
+    capture cannot hold); they are still labelled and recorded."""
+    token = _active_timer.set(None)
+    try:
+        yield
+    finally:
+        _active_timer.reset(token)
+
+
 def _chrome_events(recorded: list, base_ns: int = 0) -> list:
     """:func:`spans`' records as Chrome-trace events: their own process row
     (``SPANS_PID``), one row per thread, ``ts`` in us after ``base_ns``
